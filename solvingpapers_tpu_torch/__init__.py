@@ -8,14 +8,18 @@ never `jax`, `flax` or anything of `solvingpapers_tpu` — the JAX
 package's `__init__`s import jax eagerly, so what the port needs from
 host-only modules is copied, not imported.
 
-Ported so far (the serving slice): ops (norms, activations, rope,
-attention, sampling masks), the flash-attention forward kernel
-(`kernels/csrc/flash_fwd.cu`, CUDA C++ for sm_90a), `infer` (KV cache +
-one-shot `generate`), the LLaMA-3 decoder, the model registry entries
-it serves, Flax->torch weight conversion, and the lane-pool serving
-engine (`serve/`).
+Ported so far: the serving slice — ops (norms, activations, rope,
+attention, sampling masks), `infer` (KV cache + one-shot `generate`),
+the LLaMA-3 decoder, Flax->torch weight conversion and the lane-pool
+serving engine (`serve/`) — and the training slice — the cross-entropy
+loss, token-file data (`data/`), the optimizer, state and single-device
+`Trainer` (`train/`), checkpoints, metrics writers and MFU, and the
+`RunConfig` registry and factory (`configs/`). The flash-attention
+kernels (`kernels/csrc/flash_fwd.cu`, `flash_bwd.cu`, CUDA C++ for
+sm_90a) carry both.
 
-Entry points run on `cuda` unless the caller passes ``device="cpu"``;
+Entry points (`Llama`, `generate`, `ServeEngine`, `Trainer`) run on
+`cuda` unless the caller passes ``device="cpu"``;
 with no device given and no CUDA available they raise
 (`device.resolve_device`).
 """

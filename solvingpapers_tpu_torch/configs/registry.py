@@ -1,14 +1,11 @@
-"""Model registry (port of the LLaMA-3 entries of
-`solvingpapers_tpu/configs/registry.py`).
-
-Only the model half of each entry is carried across: the serving slice
-needs the architecture, not the training, data or mesh settings. The
-widths are the reference's own.
+"""Workload registry (port of the LLaMA-3 entries of
+`solvingpapers_tpu/configs/registry.py`): name -> RunConfig (model +
+train + data settings), with the reference's own values.
 
 Vocabulary: the reference's factory resizes `vocab_size` to the corpus
-tokenizer (char or BPE, `configs/factory.py`) before building a model.
-The tokenizer is not ported yet, so here prompts are token ids and the
-vocabulary stays at the registry's 50257 (tiktoken gpt2).
+tokenizer (char or BPE) before building a model. The tokenizers are not
+ported yet, so prompts and token files carry ids and the vocabulary
+stays at the registry's 50257 (tiktoken gpt2).
 """
 
 from __future__ import annotations
@@ -17,28 +14,32 @@ import dataclasses
 from typing import Any, Callable
 
 from solvingpapers_tpu_torch.models.llama3 import LlamaConfig
+from solvingpapers_tpu_torch.train.engine import TrainConfig
+from solvingpapers_tpu_torch.train.optim import OptimizerConfig
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelEntry:
+class RunConfig:
     name: str
     model_family: str
     model: Any
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: dict = dataclasses.field(default_factory=dict)
     notes: str = ""
 
 
-_REGISTRY: dict[str, Callable[[], ModelEntry]] = {}
+_REGISTRY: dict[str, Callable[[], RunConfig]] = {}
 
 
 def register(name: str):
-    def deco(fn: Callable[[], ModelEntry]):
+    def deco(fn: Callable[[], RunConfig]):
         _REGISTRY[name] = fn
         return fn
 
     return deco
 
 
-def get_config(name: str) -> ModelEntry:
+def get_config(name: str) -> RunConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown config {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -48,61 +49,99 @@ def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def dense_twin(entry: ModelEntry) -> ModelEntry:
-    """The single-device model `cli serve` serves for a context-parallel
-    config: the same weights with `context_parallel` off (params are
-    replicated at rest, so nothing else changes)."""
-    if not getattr(entry.model, "context_parallel", False):
-        return entry
+def dense_twin(cfg: RunConfig) -> RunConfig:
+    """The single-device run of a context-parallel config: the same
+    model with `context_parallel` off (params are replicated at rest, so
+    nothing else changes) and the train settings without the mesh — what
+    the reference's `cli serve` serves and `cli train` samples with."""
+    if not getattr(cfg.model, "context_parallel", False):
+        return cfg
     return dataclasses.replace(
-        entry,
-        model=dataclasses.replace(entry.model, context_parallel=False),
+        cfg,
+        model=dataclasses.replace(cfg.model, context_parallel=False),
+        train=dataclasses.replace(cfg.train, context_parallel=False, mesh=None),
     )
 
 
 @register("llama3_shakespeare")
-def _llama3_shakespeare() -> ModelEntry:
+def _llama3_shakespeare() -> RunConfig:
     """The reference notebook's LLaMA-3 hyperparameters (llama3/LLaMA-jax
-    cell 9)."""
-    return ModelEntry(
+    cell 9), trained with its hand-rolled SGD (cell 29) over 30 epochs x
+    1000 steps (cell 31)."""
+    return RunConfig(
         name="llama3_shakespeare",
         model_family="llama3",
         model=LlamaConfig(
             vocab_size=50257, max_seq_len=128, dim=256, n_layers=2, n_heads=4,
-            n_kv_heads=2, hidden_dim=1024, dtype="bfloat16",
+            n_kv_heads=2, hidden_dim=1024, dropout=0.0, dtype="bfloat16",
         ),
+        train=TrainConfig(
+            steps=30_000, batch_size=16, log_every=100, eval_every=1000,
+            eval_batches=20,
+            optimizer=OptimizerConfig(
+                name="sgd", max_lr=3e-4, warmup_steps=0, total_steps=30_000,
+                grad_clip=0.0, weight_decay=0.0, min_lr_ratio=1.0,
+            ),
+            tokens_per_step=16 * 128,
+        ),
+        data={"kind": "char", "path": None, "block_size": 128},
         notes="LLaMA-jax.ipynb cells 9, 29-31",
     )
 
 
 @register("llama3_long")
-def _llama3_long() -> ModelEntry:
+def _llama3_long() -> RunConfig:
     """Long-context LLaMA-3: dim 1024, 16 layers, 16 q / 8 kv heads
     (head_dim 64), SwiGLU hidden 2730, RoPE to 32768 positions, bf16,
-    flash attention. Trained context-parallel in the reference; served
-    as its dense twin."""
-    return ModelEntry(
+    flash attention. Trained context-parallel over 4 chips in the
+    reference; the port trains and serves its dense twin."""
+    return RunConfig(
         name="llama3_long",
         model_family="llama3",
         model=LlamaConfig(
             vocab_size=50257, max_seq_len=32_768, dim=1024, n_layers=16,
-            n_heads=16, n_kv_heads=8, dtype="bfloat16",
+            n_heads=16, n_kv_heads=8, dropout=0.0, dtype="bfloat16",
             context_parallel=True, use_flash=True,
         ),
+        train=TrainConfig(
+            steps=10_000, batch_size=8, log_every=50, eval_every=500,
+            eval_batches=8, ckpt_every=1000,
+            mesh={"data": -1, "context": 4},
+            context_parallel=True,
+            optimizer=OptimizerConfig(
+                name="adamw", max_lr=3e-4, warmup_steps=200, total_steps=10_000,
+                weight_decay=0.1, grad_clip=1.0,
+            ),
+            tokens_per_step=8 * 32_768,
+        ),
+        data={"kind": "bpe", "path": None, "block_size": 32_768,
+              "bpe_vocab_size": 32_000, "synthetic_chars": 4_000_000},
         notes="beyond-reference long-context config",
     )
 
 
 @register("llama3_long_smoke")
-def _llama3_long_smoke() -> ModelEntry:
+def _llama3_long_smoke() -> RunConfig:
     """llama3_long at toy dims (the reference's CPU-mesh smoke)."""
-    return ModelEntry(
+    return RunConfig(
         name="llama3_long_smoke",
         model_family="llama3",
         model=LlamaConfig(
             vocab_size=256, max_seq_len=256, dim=64, n_layers=2,
-            n_heads=4, n_kv_heads=2, dtype="float32",
+            n_heads=4, n_kv_heads=2, dropout=0.0, dtype="float32",
             context_parallel=True, use_flash=True,
         ),
+        train=TrainConfig(
+            steps=20, batch_size=4, log_every=5, eval_every=10,
+            eval_batches=2,
+            mesh={"data": -1, "context": 4},
+            context_parallel=True,
+            optimizer=OptimizerConfig(
+                name="adamw", max_lr=1e-3, warmup_steps=5, total_steps=20,
+                weight_decay=0.1, grad_clip=1.0,
+            ),
+            tokens_per_step=4 * 256,
+        ),
+        data={"kind": "char", "path": None, "block_size": 256},
         notes="llama3_long at smoke scale",
     )

@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # library name -> its single source file under csrc/
 LIBRARIES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
 }
 
 NVCC_FLAGS = [

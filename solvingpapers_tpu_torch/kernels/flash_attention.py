@@ -1,36 +1,31 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (forward, and the
+dq and dk/dv backward) and their plain PyTorch versions.
 
-What it replaces: the Pallas TPU kernel `_fwd_kernel`, launched by
-`_fwd` (`solvingpapers_tpu/kernels/flash_attention.py`, pallas_call at
-line 271), reached through the public `flash_attention`. It computes the
-same function — online-softmax attention over BSNH tensors, causal with
-the END-aligned mask (``offset = Skv - Sq``) or bidirectional, GQA by
-``q_head // group`` without repeating kv, rows that see no key giving
-``o = 0`` and ``lse = 0`` — minus the in-kernel dropout, which comes
-with the training slice (``dropout_rate > 0`` raises here).
+What they replace: the Pallas TPU kernels of
+`solvingpapers_tpu/kernels/flash_attention.py` — `_fwd_kernel` (launched
+by `_fwd`, pallas_call at line 271), `_bwd_dq_kernel` and
+`_bwd_dkv_kernel` (launched by `_bwd_chunk`, pallas_calls at lines 484
+and 517) — and the `_flash` custom VJP that joins them, here the
+`_Flash` autograd function behind the public `flash_attention`. They
+compute the same functions — online-softmax attention over BSNH
+tensors, causal with the END-aligned mask (``offset = Skv - Sq``) or
+bidirectional, GQA by ``q_head // group`` without repeating kv, rows
+that see no key giving ``o = 0`` and ``lse = 0`` and no gradient — minus
+the in-kernel dropout (``dropout_rate > 0`` raises; it comes with the
+DeepSeek-V3 slice, whose config trains with attention dropout).
 
-What bounds it on an H100: at the serving prefill shapes (LLaMA-3
-`llama3_long`: N 16, Nkv 8, D 64, bf16, Sq a prefill chunk of up to
-2048, Skv = attend_len >= Sq) it does ~4·D operations per visible
-(row, column) pair against ~2·D bytes per kv row, so it is
-compute-bound: the bound is the causal FLOPs over the bf16 tensor-core
-peak. How the design answers: nothing of the (Sq, Skv) score matrix
-reaches device memory; each block keeps one q tile resident and loops
-over kv tiles only up to the last one its rows can see (the causal
-skip), with the softmax state in registers. bf16 inputs run both
-products on the tensor cores (`mma.sync` m16n8k16, P split into two bf16
-parts so PV keeps ~16 bits of it); float32 inputs run them as float32
-FMAs on the CUDA cores, exact to ~1e-6. Tiles are staged through shared
-memory with plain loads, so the kernel stays below the tensor-core
-bound; `PERF.md` keeps its measured time beside the bound. `wgmma`
-tiles fed by TMA are the next step.
+What bounds them on an H100, and how the designs answer, is in the
+headers of `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`: at the serving
+and training shapes (LLaMA-3 `llama3_long`: N 16, Nkv 8, D 64, bf16,
+sequences in the thousands) all three are compute-bound at the bf16
+tensor-core peak; none writes an (Sq, Skv) matrix to device memory.
 
-`flash_attention_fwd` is the wrapper: on CPU tensors it computes the
-plain version (`flash_attention_reference`, the CPU tests' path); on
-CUDA tensors it launches the kernel or raises — there is no fallback.
-`flash_attention_fwd.launches` counts kernel launches and
-`flash_attention_reference.calls` counts plain-version calls, so a run
+Each kernel's wrapper (`flash_attention_fwd`, `flash_bwd_dq`,
+`flash_bwd_dkv`) launches its kernel on CUDA tensors or raises — there is
+no fallback — and counts its launches in ``.launches``. On CPU tensors
+`flash_attention_fwd` and `flash_attention_bwd` compute the plain
+versions (`flash_attention_reference`, `flash_attention_bwd_reference`,
+the CPU tests' path), which count their calls in ``.calls``, so a run
 can show which one its main path went through.
 """
 
@@ -48,7 +43,8 @@ HEAD_DIMS = (64, 128)
 _INT32_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
 
-_lib = None  # the loaded shared library, built at first CUDA use
+_lib = None  # the loaded forward library, built at first CUDA use
+_bwd_lib = None  # the loaded backward library, likewise
 
 
 def _library():
@@ -66,6 +62,24 @@ def _library():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(build.ensure_built("flash_bwd")))
+        # (dtype, head_dim, q, k, v, dO, lse, delta, <outputs>, B, N, Nkv,
+        #  Sq, Skv, scale, causal, stream)
+        for fn, n_out in ((lib.flash_bwd_dq, 1), (lib.flash_bwd_dkv, 2)):
+            fn.argtypes = (
+                [ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * (6 + n_out)
+                + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check_shapes(q, k, v) -> None:
@@ -129,6 +143,47 @@ def flash_attention_reference(q, k, v, *, causal=False, scale=None):
 flash_attention_reference.calls = 0
 
 
+def _refuse_dropout(dropout_rate: float) -> None:
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "in-kernel attention dropout is not ported yet (ROADMAP B4: it "
+            "comes with the DeepSeek-V3 slice, whose dsv3_long trains with "
+            "attention dropout); these kernels run at dropout 0"
+        )
+
+
+def _on_cpu(*xs: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain version's
+    case), False when all lie on one CUDA device (the kernel's); raises
+    for anything else — nothing is ever computed quietly elsewhere."""
+    devices = {x.device for x in xs}
+    if {dev.type for dev in devices} == {"cpu"}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            "flash attention needs its tensors on one CUDA device (or all "
+            f"on the CPU for the plain version), got {[str(x.device) for x in xs]}"
+        )
+    return False
+
+
+def _check_kernel_inputs(q, k, v) -> None:
+    """What the kernels take: float32 or bfloat16 of one dtype, D in
+    HEAD_DIMS, unit stride on the head_dim axis, sizes within range."""
+    b, sq, n, d = q.shape
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"the kernel takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, got {d}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k, v need unit stride on the head_dim axis")
+    if b * n > _GRID_Y_MAX or max(sq, k.shape[1], q.numel() // d) > _INT32_MAX:
+        raise ValueError(f"shape out of the kernel's range: q {tuple(q.shape)}")
+
+
 def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
                         dropout_rate=0.0):
     """Flash-attention forward over BSNH tensors; returns ``(o, lse)``.
@@ -140,37 +195,15 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     needs no copy) on the current stream, and raises if the build or the
     launch fails.
     """
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "in-kernel attention dropout is not ported yet (it comes with "
-            "the training slice and its backward kernels); this forward "
-            "kernel is inference-only"
-        )
+    _refuse_dropout(dropout_rate)
     _check_shapes(q, k, v)
     b, sq, n, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d**-0.5
-    devices = {q.device.type, k.device.type, v.device.type}
-    if devices == {"cpu"}:
+    if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
-    if devices != {"cuda"} or k.device != q.device or v.device != q.device:
-        raise ValueError(
-            f"flash attention needs q, k, v on one CUDA device (or all on "
-            f"the CPU for the plain version), got {q.device}, {k.device}, "
-            f"{v.device}"
-        )
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            f"the kernel takes float32 or bfloat16 q, k, v of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, got {d}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("q, k, v need unit stride on the head_dim axis")
-    if b * n > _GRID_Y_MAX or max(sq, skv, q.numel() // d) > _INT32_MAX:
-        raise ValueError(f"shape out of the kernel's range: q {tuple(q.shape)}")
+    _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
         # the tensor-core kernel moves rows as 16-byte chunks
         q, k, v = (x if _rows_16b_aligned(x)
@@ -199,8 +232,182 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
 flash_attention_fwd.launches = 0
 
 
+# -------------------------------------------------------------------- backward
+
+
+def _check_bwd_shapes(q, k, v, do, lse, delta) -> None:
+    _check_shapes(q, k, v)
+    b, sq, n, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} differs from q {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b * n, 1, sq) or x.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 of shape {(b * n, 1, sq)}, got "
+                f"{x.dtype} {tuple(x.shape)}"
+            )
+
+
+def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal=False,
+                                  scale=None):
+    """Plain PyTorch version of the backward kernels: same inputs, same
+    outputs ``(dq, dk, dv)`` in the dtypes of q, k and v, the TPU
+    kernels' float32 arithmetic — q scaled before QK^T, ``p = exp(s -
+    lse)`` with masked entries 0, ``ds = p * (dp - delta)``, kv repeated
+    to the q heads and the per-head dk, dv summed back (here one kv head
+    and its group of q heads at a time, so the float32 (Sq, Skv) matrices
+    of a long sequence exist for `group` heads at once, not all)."""
+    flash_attention_bwd_reference.calls += 1
+    _check_bwd_shapes(q, k, v, do, lse, delta)
+    b, sq, n, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    group = n // n_kv
+    if scale is None:
+        scale = d**-0.5
+    if causal:
+        vis = causal_mask(sq, skv, device=q.device)
+    else:
+        vis = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    lse4 = lse.reshape(b, n, sq, 1)
+    delta4 = delta.reshape(b, n, sq, 1)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for kh in range(n_kv):
+            hs = slice(kh * group, (kh + 1) * group)
+            qs = q[bi, :, hs].float().transpose(0, 1) * scale  # (group, Sq, D)
+            dos = do[bi, :, hs].float().transpose(0, 1)
+            kf, vf = k[bi, :, kh].float(), v[bi, :, kh].float()  # (Skv, D)
+            p = torch.where(vis, torch.exp(qs @ kf.T - lse4[bi, hs]), 0.0)
+            ds = p * (dos @ vf.T - delta4[bi, hs])
+            dq[bi, :, hs] = (ds @ kf * scale).transpose(0, 1)
+            dk[bi, :, kh] = (ds.transpose(1, 2) @ qs).sum(0)
+            dv[bi, :, kh] = (p.transpose(1, 2) @ dos).sum(0)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd_reference.calls = 0
+
+
+def _bwd_kernel_inputs(q, k, v, do, lse, delta):
+    """The CUDA kernels' inputs, checked and made contiguous with rows
+    on 16-byte boundaries (a copy only where a tensor is not already)."""
+    _check_bwd_shapes(q, k, v, do, lse, delta)
+    if _on_cpu(q, k, v, do, lse, delta):
+        raise ValueError("the backward kernels take CUDA tensors")
+    _check_kernel_inputs(q, k, v)
+    if do.dtype != q.dtype:
+        raise ValueError(f"dO is {do.dtype}, q is {q.dtype}")
+
+    def ready(x):
+        x = x.contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    return tuple(ready(x) for x in (q, k, v, do, lse, delta))
+
+
+def _launch_args(q, k, scale, causal):
+    b, sq, n, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    return ((b, n, n_kv, sq, skv, float(scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream),
+            b * n * sq * skv == 0)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None):
+    """dq by the sm_90a dq kernel (CUDA tensors only; raises on others
+    and when the build or the launch fails)."""
+    q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
+    args, empty = _launch_args(q, k, scale, causal)
+    if empty:
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_dq(
+            _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *args)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None):
+    """(dk, dv) by the sm_90a dk/dv kernel, the GQA fold inside it (CUDA
+    tensors only; raises on others and when the build or the launch
+    fails)."""
+    q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
+    args, empty = _launch_args(q, k, scale, causal)
+    if empty:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_dkv(
+            _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *args)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=False, scale=None):
+    """Flash-attention backward over BSNH tensors with un-repeated GQA
+    kv: ``(dq, dk, dv)`` from the forward's inputs, the output's
+    cotangent `do`, the forward's `lse` and ``delta = rowsum(do * o)``
+    (both float32 (B*N, 1, Sq); a chunked caller passes global ones). On
+    CPU tensors this is the plain version; on CUDA tensors it launches
+    the dq kernel, then the dk/dv kernel."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                             causal=causal, scale=scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` in float32 as (B*N, 1, Sq), computed
+    outside the kernels as the reference does (`_flash_bwd`)."""
+    b, sq, n, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1)  # (B, Sq, N)
+    return delta.permute(0, 2, 1).reshape(b * n, 1, sq)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's `_flash` custom VJP: the forward saves (q, k, v,
+    o, lse), the backward computes delta and runs the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, flash_delta(do, o),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=False, scale=None, dropout_rate=0.0):
     """Flash attention over BSNH tensors (drop-in for
-    `ops.dot_product_attention` when there is no cache mask); returns o."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                               dropout_rate=dropout_rate)[0]
+    `ops.dot_product_attention` when there is no cache mask); returns o,
+    differentiable in q, k and v through the backward kernels."""
+    _refuse_dropout(dropout_rate)
+    return _Flash.apply(q, k, v, causal, scale)

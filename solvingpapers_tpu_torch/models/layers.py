@@ -2,15 +2,22 @@
 the parts LLaMA-3 uses, without context parallelism).
 
 Parameters are created empty — they come from `models.llama3.init_params`
-or from `convert.py` — and hold no gradient (this slice serves; training
-is a later slice).
+or from `convert.py` — and are trainable.
 
 dtype placement follows Flax exactly: an `nn.Dense(dtype=bf16)` casts
-both its input and its float32 kernel to bf16 and returns bf16. `Dense`
-here stores its weight already in the compute dtype — rounding a float32
-weight to bf16 once at load gives the same bits as rounding it at every
-call, without re-reading the float32 copy per forward — and casts its
-input. Norm weights stay float32, as the reference's are (`rms_norm`
+both its input and its float32 kernel to bf16 and returns bf16; an
+`nn.Embed(dtype=bf16)` gathers rows of its table cast to bf16. Two
+storage layouts give those values:
+
+* ``param_dtype=None`` (serving): `Dense` and `Embed` store their weight
+  already in the compute dtype — rounding a float32 weight to bf16 once
+  at load gives the same bits as rounding it at every call, without
+  re-reading a float32 copy per forward;
+* ``param_dtype=torch.float32`` (training): float32 master weights, cast
+  to the compute dtype inside `forward`, so the optimizer updates
+  float32 values and autograd carries the cast's gradient back to them.
+
+Norm weights stay float32 in both, as the reference's are (`rms_norm`
 multiplies in float32).
 """
 
@@ -34,46 +41,53 @@ def default_positions(b: int, s: int, max_positions: int | None = None,
 
 
 def _empty(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Dense(nn.Module):
-    """`nn.Dense` with a compute dtype: y = x.to(dtype) @ W^T (+ b).
-    `weight` is (out, in), the transpose of Flax's (in, out) kernel."""
+    """`nn.Dense` with a compute dtype: y = x.to(dtype) @ W.to(dtype)^T
+    (+ b). `weight` is (out, in), the transpose of Flax's (in, out)
+    kernel, stored in `param_dtype` (None: the compute dtype)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 use_bias: bool = False, dtype=torch.float32, device=None):
+                 use_bias: bool = False, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
-        self.weight = _empty(out_features, in_features, dtype=dtype, device=device)
-        self.bias = (_empty(out_features, dtype=dtype, device=device)
+        self.dtype = dtype
+        stored = param_dtype or dtype
+        self.weight = _empty(out_features, in_features, dtype=stored,
+                             device=device)
+        self.bias = (_empty(out_features, dtype=stored, device=device)
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x.to(self.weight.dtype), self.weight,
-                                    self.bias)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return nn.functional.linear(x.to(self.dtype),
+                                    self.weight.to(self.dtype), bias)
 
 
 class Embed(nn.Module):
-    """`nn.Embed` with a compute dtype: Flax casts the float32 table to
-    `dtype` and gathers; the table is stored cast (same bits)."""
+    """`nn.Embed` with a compute dtype: rows of the table in `dtype`.
+    The table is stored in `param_dtype` (None: the compute dtype); a
+    float32 table is gathered, then cast — the same values as Flax's
+    cast-then-gather, without casting the whole table per forward."""
 
     def __init__(self, num_embeddings: int, features: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        self.weight = _empty(num_embeddings, features, dtype=dtype,
-                             device=device)
+        self.dtype = dtype
+        self.weight = _empty(num_embeddings, features,
+                             dtype=param_dtype or dtype, device=device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(tokens, self.weight)
+        return nn.functional.embedding(tokens, self.weight).to(self.dtype)
 
 
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device),
-                                   requires_grad=False)
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops.rms_norm(x, self.weight, self.eps)
@@ -83,8 +97,9 @@ class Attention(nn.Module):
     """Multi-head attention with optional GQA/MQA, RoPE, causality and a
     KV cache — the three non-context-parallel modes of the reference:
 
-    * uncached (`cache` None): full attention over `x` — the flash kernel
-      under `use_flash`, else the dense op;
+    * uncached (`cache` None): full attention over `x` — under
+      `use_flash` the flash kernels (differentiable: the training path),
+      else the dense op (differentiable through autograd);
     * cached prefill (`cache` and `attend_len` given): the chunk's k/v are
       written at cache slots ``[attend_len - S, attend_len)`` and it
       attends END-aligned causally over the first `attend_len` slots (a
@@ -105,7 +120,7 @@ class Attention(nn.Module):
                  head_dim: int | None = None, *, causal: bool = True,
                  rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                  use_bias: bool = False, dtype=torch.float32,
-                 use_flash: bool = False, device=None):
+                 param_dtype=None, use_flash: bool = False, device=None):
         super().__init__()
         self.n_heads = n_heads
         self.n_kv = n_kv_heads or n_heads
@@ -113,7 +128,8 @@ class Attention(nn.Module):
         self.causal = causal
         self.rope = rope
         self.use_flash = use_flash
-        kw = dict(use_bias=use_bias, dtype=dtype, device=device)
+        kw = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
+                  device=device)
         self.q = Dense(dim, n_heads * self.head_dim, **kw)
         self.k = Dense(dim, self.n_kv * self.head_dim, **kw)
         self.v = Dense(dim, self.n_kv * self.head_dim, **kw)
@@ -160,9 +176,11 @@ class GLUFFN(nn.Module):
     """Gated-linear-unit FFN: down(act(gate(x)) * up(x)); silu = SwiGLU."""
 
     def __init__(self, dim: int, hidden_dim: int, activation=ops.silu, *,
-                 use_bias: bool = False, dtype=torch.float32, device=None):
+                 use_bias: bool = False, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
-        kw = dict(use_bias=use_bias, dtype=dtype, device=device)
+        kw = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
+                  device=device)
         self.activation = activation
         self.gate = Dense(dim, hidden_dim, **kw)
         self.up = Dense(dim, hidden_dim, **kw)

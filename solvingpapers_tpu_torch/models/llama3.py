@@ -43,8 +43,12 @@ class LlamaConfig:
     hidden_dim: int | None = None  # None => swiglu 2/3·4·dim convention
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    # the reference's block dropout and per-block rematerialisation; not
+    # ported — training a model with either set raises (see Llama.forward)
+    dropout: float = 0.0
     dtype: str = "float32"
     use_flash: bool = False
+    remat: bool = False
     # the reference's ring/Ulysses context parallelism; not ported — a
     # model built from such a config raises (serve its dense twin)
     context_parallel: bool = False
@@ -63,16 +67,16 @@ class LlamaConfig:
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, rope, device=None):
+    def __init__(self, cfg: LlamaConfig, rope, device=None, param_dtype=None):
         super().__init__()
-        dt = cfg.compute_dtype
+        kw = dict(dtype=cfg.compute_dtype, param_dtype=param_dtype,
+                  device=device)
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
         self.attn = Attention(cfg.dim, cfg.n_heads, cfg.n_kv_heads,
-                              causal=True, rope=rope, dtype=dt,
-                              use_flash=cfg.use_flash, device=device)
+                              causal=True, rope=rope,
+                              use_flash=cfg.use_flash, **kw)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
-        self.ffn = GLUFFN(cfg.dim, cfg.ffn_hidden, ops.silu, dtype=dt,
-                          device=device)
+        self.ffn = GLUFFN(cfg.dim, cfg.ffn_hidden, ops.silu, **kw)
 
     def forward(self, x, positions=None, cache=None, attend_len=None):
         h, cache = self.attn(self.attn_norm(x), positions=positions,
@@ -82,10 +86,15 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """``Llama(cfg, device=None)``: built on `device` (default ``cuda``;
-    raises when there is none — see `device.resolve_device`)."""
+    """``Llama(cfg, device=None, param_dtype=None)``: built on `device`
+    (default ``cuda``; raises when there is none — see
+    `device.resolve_device`). `param_dtype` None stores the linear and
+    embedding weights in the compute dtype (the serving layout);
+    ``torch.float32`` keeps float32 master weights cast to the compute
+    dtype in each forward (the training layout; see `models.layers`)."""
 
-    def __init__(self, cfg: LlamaConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: LlamaConfig, device: str | torch.device | None = None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         if cfg.context_parallel:
             raise NotImplementedError(
@@ -96,14 +105,15 @@ class Llama(nn.Module):
         self.cfg = cfg
         rope = ops.precompute_rope(cfg.head_dim, cfg.max_seq_len,
                                    cfg.rope_theta, device=device)
-        self.tok_emb = Embed(cfg.vocab_size, cfg.dim,
-                             dtype=cfg.compute_dtype, device=device)
+        kw = dict(dtype=cfg.compute_dtype, param_dtype=param_dtype,
+                  device=device)
+        self.tok_emb = Embed(cfg.vocab_size, cfg.dim, **kw)
         self.blocks = nn.ModuleList(
-            LlamaBlock(cfg, rope, device=device) for _ in range(cfg.n_layers)
+            LlamaBlock(cfg, rope, device=device, param_dtype=param_dtype)
+            for _ in range(cfg.n_layers)
         )
         self.norm_f = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
-        self.lm_head = Dense(cfg.dim, cfg.vocab_size, dtype=cfg.compute_dtype,
-                             device=device)
+        self.lm_head = Dense(cfg.dim, cfg.vocab_size, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -118,7 +128,19 @@ class Llama(nn.Module):
                 caches: list[KVCache] | None = None,
                 attend_len: int | None = None):
         """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype,
-        caches). Modes as in `layers.Attention`."""
+        caches). Modes as in `layers.Attention`. A forward that records
+        gradients in training mode refuses the reference's dropout and
+        remat, which are not ported, rather than train without them."""
+        if self.training and torch.is_grad_enabled():
+            if self.cfg.dropout > 0.0:
+                raise NotImplementedError(
+                    "training with dropout > 0 is not ported (ROADMAP B4: "
+                    "dropout, in-kernel for flash attention, comes with the "
+                    "DeepSeek-V3 slice)")
+            if self.cfg.remat:
+                raise NotImplementedError(
+                    "training with remat=True (per-block rematerialisation) "
+                    "is not ported yet (ROADMAP A2, the training queue)")
         b, s = tokens.shape
         if positions is None:
             positions = default_positions(b, s, device=tokens.device)

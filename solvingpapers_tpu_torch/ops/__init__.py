@@ -1,5 +1,5 @@
 """Plain PyTorch ops (port of `solvingpapers_tpu/ops`, the subset the
-serving slice runs)."""
+serving and training slices run)."""
 
 from solvingpapers_tpu_torch.ops.activations import silu
 from solvingpapers_tpu_torch.ops.attention import (
@@ -8,6 +8,7 @@ from solvingpapers_tpu_torch.ops.attention import (
     dot_product_attention,
     repeat_kv,
 )
+from solvingpapers_tpu_torch.ops.losses import cross_entropy
 from solvingpapers_tpu_torch.ops.norms import rms_norm
 from solvingpapers_tpu_torch.ops.rope import apply_rope, precompute_rope
 from solvingpapers_tpu_torch.ops.sampling import (
@@ -21,6 +22,7 @@ __all__ = [
     "BIG_NEG",
     "apply_rope",
     "causal_mask",
+    "cross_entropy",
     "dot_product_attention",
     "min_p_mask",
     "precompute_rope",

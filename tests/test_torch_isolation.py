@@ -5,8 +5,9 @@ package, and its entry points run on the card unless told otherwise.
   no `jax`, `flax`, `optax` or `solvingpapers_tpu` import;
 * a fresh interpreter that imports the port's engine has no `jax` in
   `sys.modules`;
-* with no device named and no CUDA available, `Llama`, `generate` and
-  `ServeEngine` raise instead of running quietly on the CPU.
+* with no device named and no CUDA available, `Llama`, `generate`,
+  `ServeEngine` and `Trainer` raise instead of running quietly on the
+  CPU.
 """
 
 import ast
@@ -21,6 +22,7 @@ from solvingpapers_tpu_torch import resolve_device
 from solvingpapers_tpu_torch.infer import generate
 from solvingpapers_tpu_torch.models import Llama, LlamaConfig
 from solvingpapers_tpu_torch.serve import ServeEngine
+from solvingpapers_tpu_torch.train import TrainConfig, Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "solvingpapers_tpu"}
@@ -63,7 +65,9 @@ def test_no_jax_import(path):
 
 def test_engine_import_loads_no_jax():
     code = ("import sys; import solvingpapers_tpu_torch.serve.engine, "
-            "solvingpapers_tpu_torch.convert, solvingpapers_tpu_torch.configs; "
+            "solvingpapers_tpu_torch.convert, solvingpapers_tpu_torch.configs, "
+            "solvingpapers_tpu_torch.configs.factory, "
+            "solvingpapers_tpu_torch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'solvingpapers_tpu')]; "
             "assert not bad, bad; print('ok')")
@@ -83,6 +87,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ServeEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(model, torch.zeros(1, 4, dtype=torch.long), max_new_tokens=2)
+
+
+def test_trainer_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Llama(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, TrainConfig())
+    assert Trainer(model, TrainConfig(), device="cpu").device == torch.device("cpu")
 
 
 def test_entry_points_refuse_a_model_on_another_device():

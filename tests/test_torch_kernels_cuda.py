@@ -7,8 +7,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
 (`--noconftest` skips `tests/conftest.py`, which sets up JAX's CPU mesh.)
-Tolerances: bf16 inputs within 2e-2 on o and 1e-3 on lse of the float32
-plain version, float32 within 1e-4.
+Tolerances: forward, bf16 inputs within 2e-2 on o and 1e-3 on lse of the
+float32 plain version, float32 within 1e-4; backward, relative to the
+largest gradient, bf16 within 1e-2 and float32 within 2e-5.
 """
 
 import importlib
@@ -110,3 +111,76 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, bad):
         k = k.cpu()
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, k, k, causal=True)
+
+
+# ---------------------------------------------------------------- backward
+
+def _bwd_inputs(seed, b, sq, skv, n, n_kv, d, causal, dtype, device):
+    """q, k, v, dO in `dtype` on the card, and lse, delta from the plain
+    forward on the same (rounded) inputs, as the autograd path makes
+    them."""
+    r = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(x).to(device, dtype)
+               for x in _qkv(seed, b, sq, skv, n, n_kv, d))
+    do = torch.from_numpy(
+        r.standard_normal((b, sq, n, d)).astype(np.float32)).to(device, dtype)
+    o, lse = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                           causal=causal)
+    return q, k, v, do, lse, tfa.flash_delta(do, o)
+
+
+def _rel_err(x, ref):
+    return ((x.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal,dtype", [
+    (1, 512, 512, 16, 8, 64, True, torch.bfloat16),
+    (2, 300, 100, 8, 2, 64, True, torch.bfloat16),   # empty rows
+    (1, 100, 300, 4, 1, 64, True, torch.bfloat16),   # MQA, Sq < Skv
+    (1, 200, 333, 4, 4, 128, False, torch.bfloat16),
+    (1, 777, 777, 4, 2, 64, True, torch.bfloat16),
+    (1, 256, 256, 4, 2, 64, True, torch.float32),
+    (2, 150, 97, 4, 2, 128, True, torch.float32),    # empty rows
+    (1, 37, 100, 4, 4, 64, False, torch.float32),
+])
+def test_flash_backward_kernels_match_reference(cuda_device, b, sq, skv, n,
+                                                n_kv, d, causal, dtype):
+    """dq and dk/dv kernels against the plain backward on the same
+    inputs: max |kernel - plain| / max |plain| within 2e-5 for float32
+    (CUDA-core f32 arithmetic) and 1e-2 for bf16 (outputs rounded to
+    bf16, p and ds split into two bf16 parts): chip_smoke.py's limits,
+    3x and 5x above the largest errors measured on an H100."""
+    args = _bwd_inputs(11, b, sq, skv, n, n_kv, d, causal, dtype, cuda_device)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    dq, dk, dv = tfa.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    q, k, v, do, lse, delta = args
+    ref = tfa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                            do.float(), lse, delta,
+                                            causal=causal)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    for got, want in zip((dq, dk, dv), ref):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_matches_dense_autograd(cuda_device):
+    """float32 end to end: grads of the kernels' autograd function
+    equal torch.autograd through the dense op, within 2e-5 relative."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device).requires_grad_()
+               for x in _qkv(5, 2, 192, 192, 8, 2, 64))
+    do = torch.randn(2, 192, 8, 64, device=cuda_device)
+    g = torch.autograd.grad(tfa.flash_attention(q, k, v, causal=True),
+                            (q, k, v), do)
+    from solvingpapers_tpu_torch.ops import dot_product_attention
+
+    ref = torch.autograd.grad(dot_product_attention(q, k, v, causal=True),
+                              (q, k, v), do)
+    for got, want in zip(g, ref):
+        assert _rel_err(got, want) <= 2e-5

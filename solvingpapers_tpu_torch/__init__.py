@@ -14,11 +14,15 @@ the LLaMA-3 decoder, Flax->torch weight conversion and the lane-pool
 serving engine (`serve/`) — and the training slice — the cross-entropy
 loss, token-file data (`data/`), the optimizer, state and single-device
 `Trainer` (`train/`), checkpoints, metrics writers and MFU, and the
-`RunConfig` registry and factory (`configs/`). The flash-attention
+`RunConfig` registry and factory (`configs/`) — and DeepSeek-V3's
+training: MLA + MoE (`models/deepseekv3.py`, `ops/moe.py`), its
+objective (`train/objectives.py`), remat and dropout. The flash-attention
 kernels (`kernels/csrc/flash_fwd.cu`, `flash_bwd.cu`, CUDA C++ for
-sm_90a) carry both.
+sm_90a, with in-kernel dropout) and the dropout mask kernel
+(`dropout_mask.cu`) carry them.
 
-Entry points (`Llama`, `generate`, `ServeEngine`, `Trainer`) run on
+Entry points (`Llama`, `DeepSeekV3`, `generate`, `ServeEngine`,
+`Trainer`) run on
 `cuda` unless the caller passes ``device="cpu"``;
 with no device given and no CUDA available they raise
 (`device.resolve_device`).

@@ -1,5 +1,6 @@
 """Build model / data / trainer objects from a RunConfig (port of the
-LLaMA-3, token-file subset of `solvingpapers_tpu/configs/factory.py`).
+LLaMA-3 and DeepSeek-V3, token-file subset of
+`solvingpapers_tpu/configs/factory.py`).
 
 Only `data.kind == "tokens"` (a pre-tokenized token file with a `.meta`
 sidecar) is ported; char and BPE corpora need the tokenizers (ROADMAP
@@ -31,6 +32,10 @@ def build_model(cfg: RunConfig, device=None, param_dtype=None):
         from solvingpapers_tpu_torch.models.llama3 import Llama
 
         return Llama(cfg.model, device=device, param_dtype=param_dtype)
+    if cfg.model_family == "deepseekv3":
+        from solvingpapers_tpu_torch.models.deepseekv3 import DeepSeekV3
+
+        return DeepSeekV3(cfg.model, device=device, param_dtype=param_dtype)
     raise NotImplementedError(
         f"model family {cfg.model_family!r} is not ported yet (ROADMAP A2, A6)")
 
@@ -39,6 +44,10 @@ def loss_fn_for(cfg: RunConfig):
     """Objective for a RunConfig's family (the LM families only)."""
     if cfg.model_family == "llama3":
         return lm_loss_fn
+    if cfg.model_family == "deepseekv3":
+        from solvingpapers_tpu_torch.train.objectives import dsv3_loss_fn
+
+        return dsv3_loss_fn
     raise NotImplementedError(
         f"no objective ported for model family {cfg.model_family!r}")
 

@@ -1,4 +1,4 @@
-"""Workload registry (port of the LLaMA-3 entries of
+"""Workload registry (port of the LLaMA-3 entries and `dsv3_long` of
 `solvingpapers_tpu/configs/registry.py`): name -> RunConfig (model +
 train + data settings), with the reference's own values.
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+from solvingpapers_tpu_torch.models.deepseekv3 import DeepSeekV3Config
 from solvingpapers_tpu_torch.models.llama3 import LlamaConfig
 from solvingpapers_tpu_torch.train.engine import TrainConfig
 from solvingpapers_tpu_torch.train.optim import OptimizerConfig
@@ -144,4 +145,34 @@ def _llama3_long_smoke() -> RunConfig:
         ),
         data={"kind": "char", "path": None, "block_size": 256},
         notes="llama3_long at smoke scale",
+    )
+
+
+@register("dsv3_long")
+def _dsv3_long() -> RunConfig:
+    """Long-context DeepSeek-V3 (MLA + MoE): dim 512, 6 layers, 8 heads,
+    latent 64, decoupled RoPE 64, 8 experts top-2 with a shared expert,
+    16,384-token context on one device through flash MLA (MQA over the
+    latent stream, head dim 128) with per-layer remat and attention
+    dropout 0.1 inside the flash kernels."""
+    return RunConfig(
+        name="dsv3_long",
+        model_family="deepseekv3",
+        model=DeepSeekV3Config(
+            vocab_size=50257, block_size=16_384, dtype="bfloat16",
+            use_flash=True, remat=True, pe_scale=0.02, rope_dim=64,
+        ),
+        train=TrainConfig(
+            steps=10_000, batch_size=1, log_every=50, eval_every=500,
+            eval_batches=4, ckpt_every=1000,
+            optimizer=OptimizerConfig(
+                name="adamw", max_lr=3e-4, warmup_steps=200, total_steps=10_000,
+                b1=0.9, b2=0.95, weight_decay=0.1, grad_clip=1.0,
+            ),
+            tokens_per_step=16_384,
+        ),
+        data={"kind": "bpe", "path": None, "block_size": 16_384,
+              "bpe_vocab_size": 32_000, "synthetic_chars": 2_000_000},
+        notes="beyond-reference: 64x the reference's maximum context for "
+              "its own flagship architecture, one chip",
     )

@@ -21,6 +21,21 @@ Mapping (Flax path -> port name):
     norm_f/weight                        -> norm_f.weight
     lm_head/kernel (D, V)                -> lm_head.weight
 
+DeepSeek-V3 (`layer_i` -> `layers.i`; the raw einsum weights keep their
+Flax shapes):
+
+    layer_i/{norm1,norm2}/weight         -> layers.i.{norm1,norm2}.weight
+    layer_i/mla/{w_dkv,w_kr,out}/kernel  -> layers.i.mla.{...}.weight
+    layer_i/mla/w_q (D, N, H), w_k and w_v (L, N, H), w_qr (D, N, R)
+                                         -> layers.i.mla.{w_q,w_k,w_v,w_qr}
+    layer_i/moe/gate/kernel (D, E)       -> layers.i.moe.gate.weight
+    layer_i/moe/w1, w2 (E, D, H), w3 (E, H, D)
+                                         -> layers.i.moe.{w1,w2,w3}
+    layer_i/moe/shared_expert/{gate,up,down}/kernel
+                                         -> layers.i.moe.shared_expert.{...}.weight
+    moe_state layer_i/moe/routing_bias (E,)
+                                         -> layers.i.moe.routing_bias (buffer)
+
 Every Dense `kernel` (in, out) becomes a `weight` (out, in); a Dense
 `bias` keeps its shape and is split like its kernel.
 """
@@ -33,6 +48,9 @@ import numpy as np
 import torch
 
 _SPLITS = {"kv": ("k", "v"), "qkv": ("q", "k", "v")}
+# leaves that keep their Flax shape: the MLA and expert einsum weights and
+# the MoE routing bias
+_RAW = {"w_q", "w_k", "w_v", "w_qr", "w1", "w2", "w3", "routing_bias"}
 
 
 def _dense(prefix: str, node: dict, out: dict) -> None:
@@ -56,12 +74,13 @@ def _split_dense(parent: str, names, node: dict, out: dict) -> None:
 def _walk(prefix: str, node: dict, out: dict) -> None:
     for key, child in node.items():
         name = re.sub(r"^block_(\d+)$", r"blocks.\1", key)
+        name = re.sub(r"^layer_(\d+)$", r"layers.\1", name)
         path = f"{prefix}.{name}" if prefix else name
         if not hasattr(child, "items"):
             if key == "embedding":
                 out[f"{prefix}.weight"] = torch.from_numpy(
                     np.asarray(child, np.float32).copy())
-            elif key == "weight":  # norm scale
+            elif key == "weight" or key in _RAW:  # norm scale, einsum weight
                 out[path] = torch.from_numpy(np.asarray(child, np.float32).copy())
             else:
                 raise KeyError(f"unmapped Flax param {path!r}")
@@ -74,8 +93,14 @@ def _walk(prefix: str, node: dict, out: dict) -> None:
             _walk(path, child, out)
 
 
-def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
-    """Flax params (nested dict of numpy arrays) -> the port's state dict."""
+def flax_to_torch(params: dict, model_state: dict | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """Flax params (nested dict of numpy arrays) -> the port's state dict.
+    `model_state`: DeepSeek-V3's non-trainable state, the `moe_state`
+    collection (or a dict holding it under "moe_state"), whose routing
+    biases join the state dict as buffers."""
     out: dict[str, torch.Tensor] = {}
     _walk("", params, out)
+    if model_state is not None:
+        _walk("", model_state.get("moe_state", model_state), out)
     return out

@@ -5,6 +5,11 @@ first use (`build.py`) and bound with `ctypes`, with its plain PyTorch
 version and a launch counter beside its wrapper.
 """
 
+from solvingpapers_tpu_torch.kernels.dropout import (
+    dropout,
+    dropout_keep_reference,
+    dropout_mask,
+)
 from solvingpapers_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -21,11 +26,16 @@ def reset_counts() -> None:
     flash_attention_fwd.launches = 0
     flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = 0
+    dropout_mask.launches = 0
     flash_attention_reference.calls = 0
     flash_attention_bwd_reference.calls = 0
+    dropout_keep_reference.calls = 0
 
 
 __all__ = [
+    "dropout",
+    "dropout_keep_reference",
+    "dropout_mask",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",

@@ -5,7 +5,8 @@ compiled by `nvcc` for sm_90a into a shared object that `ctypes` loads
 (no PyTorch headers, so a build takes seconds, not minutes). Builds
 happen at first use — or all at once, in parallel, through `build_all` —
 into `kernels/build/` (listed in `.gitignore`). A library's file name
-carries a hash of its source and flags, so an edited source is never
+carries a hash of its source, of every header under `csrc/` and of the
+flags, so an edited source or shared header (`philox.cuh`) is never
 served by a stale build.
 
 Nothing here runs at import time: the CPU test box has no `nvcc`.
@@ -27,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 LIBRARIES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+    "dropout_mask": "dropout_mask.cu",
 }
 
 NVCC_FLAGS = [
@@ -48,9 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where library `name` lives once built (source- and flag-hashed)."""
-    src = CSRC / LIBRARIES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where library `name` lives once built (hashed over its source,
+    every header a source may include, and the flags)."""
+    digest = hashlib.sha256((CSRC / LIBRARIES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -6,13 +6,18 @@
 // solvingpapers_tpu/kernels/flash_attention.py — `_bwd_dq_kernel`
 // (pallas_call at line 484) and `_bwd_dkv_kernel` (pallas_call at line 517)
 // — plus the GQA repeat-then-fold that `_flash_bwd` wraps around them,
-// minus the in-kernel dropout. From the forward's saved per-row
+// with the in-kernel dropout. From the forward's saved per-row
 // log-sum-exp `lse` and the caller's delta = rowsum(dO * O), both float32,
 // they recompute the probabilities tile by tile and never write an (Sq, Skv)
 // matrix to device memory:
 //   s  = (q * scale) k^T            p  = exp(s - lse), 0 where masked
 //   dp = dO v^T                     ds = p * (dp - delta)
 //   dq = scale * ds k               dv = p^T dO       dk = scale * ds^T q
+// and with attention-prob dropout at rate > 0 (keep = the philox.cuh mask
+// of (seed, b * N + h, row, col), the forward's, redrawn here):
+//   dp <- keep * dp / (1 - rate)    dv = (keep * p / (1 - rate))^T dO
+// with ds still taking the UNdropped p. Rate 0 compiles the kernels
+// without any of it (template DROP).
 //
 // Semantics, exactly those of the TPU kernels:
 //   * causal masks are END-aligned, offset = Skv - Sq: query row r sees kv
@@ -66,6 +71,8 @@
 
 #include <cstdint>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int BQ = 64;            // q rows per tile
@@ -89,6 +96,9 @@ struct Params {
   int B, N, Nkv, Sq, Skv;
   float scale;
   int causal;
+  unsigned long long seed;  // dropout: Philox key
+  uint32_t threshold;       // dropout: keep iff word < threshold
+  float drop_scale;         // dropout: 1 / (1 - rate)
 };
 
 // first q row at or after which query rows can see kv column `col`, rounded
@@ -123,7 +133,7 @@ struct DqFma {
       sizeof(float) * (2 * BQ * QP + 2 * BK * KP + BQ * SP);
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_fma(Params p) {
   using TL = DqFma<D>;
   constexpr int DC = D / 16;  // output columns per thread
@@ -222,7 +232,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_fma(Params p) {
         const int row = q0 + ty * 4 + i;
         const int col = kv0 + tx + 16 * j;
         const float pv = visible(p, row, col) ? expf(s[i][j] - lse[i]) : 0.f;
-        dS[(ty * 4 + i) * TL::SP + tx + 16 * j] = pv * (dp[i][j] - dl[i]);
+        float dpv = dp[i][j];
+        if (DROP)
+          dpv = dropout::keep(p.seed, bn, row, col, p.threshold)
+                    ? dpv * p.drop_scale
+                    : 0.f;
+        dS[(ty * 4 + i) * TL::SP + tx + 16 * j] = pv * (dpv - dl[i]);
       }
     __syncthreads();
 
@@ -261,7 +276,7 @@ struct DkvFma {
       sizeof(float) * (2 * BK * RP + 2 * BQ * RP + 2 * BK * PP + 2 * BQ);
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
   using TL = DkvFma<D>;
   constexpr int DC = D / 16;
@@ -365,8 +380,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
           const float pv = visible(p, q0 + r, kv0 + ty * 4 + i)
                                ? expf(s[i][j] - lse_s[r])
                                : 0.f;
-          Pt[(ty * 4 + i) * TL::PP + r] = pv;
-          dSt[(ty * 4 + i) * TL::PP + r] = pv * (dp[i][j] - dl_s[r]);
+          float pu = pv, dpv = dp[i][j];  // dv's p and ds's dp
+          if (DROP) {
+            const bool kp = dropout::keep(p.seed, static_cast<uint32_t>(bn),
+                                          q0 + r, kv0 + ty * 4 + i,
+                                          p.threshold);
+            pu = kp ? pv * p.drop_scale : 0.f;
+            dpv = kp ? dpv * p.drop_scale : 0.f;
+          }
+          Pt[(ty * 4 + i) * TL::PP + r] = pu;
+          dSt[(ty * 4 + i) * TL::PP + r] = pv * (dpv - dl_s[r]);
         }
       __syncthreads();
 
@@ -456,15 +479,26 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* rows,
 // x (in) += the product of a 16 x 64 score-shaped operand held as the C
 // fragments c[0..7] (columns 8n..8n+7 in c[n]) with a (64, 8*NO) B operand
 // stored transposed as bt (8*NO rows of 64, pitch `pitch`): the operand is
-// split into bf16 high and low parts, two products each.
-template <int NO>
+// split into bf16 high and low parts, two products each. With DROP the
+// operand is keep * c * drop_scale, keep = bit n * 4 + e of `keep` for
+// c[n][e] (dropout applied as the fragments are packed: no extra registers).
+template <int NO, bool DROP>
 __device__ __forceinline__ void mma_scores(float acc[NO][4], const float c[8][4],
                                            const __nv_bfloat16* bt, int pitch,
-                                           int g, int t) {
+                                           int g, int t, uint32_t keep = 0,
+                                           float drop_scale = 1.f) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const float* c0 = c[2 * kk];
-    const float* c1 = c[2 * kk + 1];
+    float c0[4], c1[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c0[e] = c[2 * kk][e];
+      c1[e] = c[2 * kk + 1][e];
+      if (DROP) {
+        c0[e] = (keep >> (8 * kk + e)) & 1u ? c0[e] * drop_scale : 0.f;
+        c1[e] = (keep >> (8 * kk + 4 + e)) & 1u ? c1[e] * drop_scale : 0.f;
+      }
+    }
     const uint32_t hi[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]),
                             pack_bf16(c1[0], c1[1]), pack_bf16(c1[2], c1[3])};
     const uint32_t lo[4] = {
@@ -543,7 +577,7 @@ struct DqMma {
       sizeof(__nv_bfloat16) * (4 * 64 * RP + D * TP);
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(Params p) {
   using TL = DqMma<D>;
   constexpr int KD = D / 16;
@@ -629,9 +663,14 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(Params p) {
 
     // ds = p * (dp - delta), p recomputed in base 2; s[nt][2i + j] is row
     // wr + g + 8i, column kv0 + 8nt + 2t + j. A tile every row of this
-    // warp sees whole skips the per-element mask.
+    // warp sees whole skips the per-element mask. With dropout, dp is
+    // keep * dp / (1 - rate) (the forward's mask, philox.cuh).
     const bool whole =
         kv0 + BK <= p.Skv && (!p.causal || kv0 + BK - 1 <= q0 + wr + offset);
+    uint32_t kb = 0;
+    if (DROP)
+      kb = dropout::keep_bits_rows(p.seed, bn, q0 + wr + g, kv0 + 2 * t,
+                                   p.threshold);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -644,10 +683,13 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(Params p) {
           const float pv = (whole || visible(p, row, col))
                                ? exp2f(x * scale2 - lse2[i])
                                : 0.f;
-          x = pv * (dp[nt][2 * i + j] - dl[i]);
+          float dpv = dp[nt][2 * i + j];
+          if (DROP)
+            dpv = (kb >> (nt * 4 + 2 * i + j)) & 1u ? dpv * p.drop_scale : 0.f;
+          x = pv * (dpv - dl[i]);
         }
 
-    mma_scores<NO>(acc, s, Kt, TL::TP, g, t);  // dq += ds k
+    mma_scores<NO, false>(acc, s, Kt, TL::TP, g, t);  // dq += ds k
     __syncthreads();  // before the next tile overwrites Ks, Vs, Kt
   }
 
@@ -672,7 +714,7 @@ struct DkvMma {
       sizeof(__nv_bfloat16) * (4 * 64 * RP + 2 * D * TP) + sizeof(float) * 2 * BQ;
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(Params p) {
   using TL = DkvMma<D>;
   constexpr int NO = D / 8;
@@ -755,16 +797,26 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(Params p) {
                     ? exp2f(x * scale2 - lse_s[r])
                     : 0.f;
           }
-      mma_scores<NO>(dv, s, dOt, TL::TP, g, t);  // dv += p^T dO
+      // with dropout: this q head's mask in the transposed layout
+      uint32_t kb = 0;
+      if (DROP)
+        kb = dropout::keep_bits_cols(p.seed, static_cast<uint32_t>(bn),
+                                     q0 + 2 * t, kv0 + wr + g, p.threshold);
+      // dv += (keep p / (1 - rate))^T dO
+      mma_scores<NO, DROP>(dv, s, dOt, TL::TP, g, t, kb, p.drop_scale);
 
       float dp[8][4];
       mma_rows<D>(dp, Vs + wr * TL::RP, dOs, TL::RP, g, t);  // dp^T = v dO^T
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[nt][e] = s[nt][e] * (dp[nt][e] - dl_s[nt * 8 + t * 2 + (e & 1)]);
-      mma_scores<NO>(dk, dp, Qt, TL::TP, g, t);  // dk += ds^T q
+        for (int e = 0; e < 4; ++e) {
+          float dpv = dp[nt][e];
+          if (DROP)
+            dpv = (kb >> (nt * 4 + e)) & 1u ? dpv * p.drop_scale : 0.f;
+          dp[nt][e] = s[nt][e] * (dpv - dl_s[nt * 8 + t * 2 + (e & 1)]);
+        }
+      mma_scores<NO, false>(dk, dp, Qt, TL::TP, g, t);  // dk += ds^T q
     }
   }
 
@@ -804,57 +856,76 @@ int launch(Kernel kernel, size_t smem, bool& configured, dim3 grid, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dq(int dtype, const Params& p, cudaStream_t s) {
+template <int D, bool DROP>
+int launch_dq_t(int dtype, const Params& p, cudaStream_t s) {
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
   if (dtype == 0) {
     static bool configured = false;
-    return launch(flash_bwd_dq_fma<D>, DqFma<D>::smem_bytes, configured, grid,
-                  THREADS, p, s);
+    return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
+                  grid, THREADS, p, s);
   }
   static bool configured = false;
-  return launch(flash_bwd_dq_mma<D>, DqMma<D>::smem_bytes, configured, grid,
-                MMA_THREADS, p, s);
+  return launch(flash_bwd_dq_mma<D, DROP>, DqMma<D>::smem_bytes, configured,
+                grid, MMA_THREADS, p, s);
 }
 
-template <int D>
-int launch_dkv(int dtype, const Params& p, cudaStream_t s) {
+template <int D, bool DROP>
+int launch_dkv_t(int dtype, const Params& p, cudaStream_t s) {
   const dim3 grid((p.Skv + BK - 1) / BK, p.B * p.Nkv);
   if (dtype == 0) {
     static bool configured = false;
-    return launch(flash_bwd_dkv_fma<D>, DkvFma<D>::smem_bytes, configured, grid,
-                  THREADS, p, s);
+    return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
+                  grid, THREADS, p, s);
   }
   static bool configured = false;
-  return launch(flash_bwd_dkv_mma<D>, DkvMma<D>::smem_bytes, configured, grid,
-                MMA_THREADS, p, s);
+  return launch(flash_bwd_dkv_mma<D, DROP>, DkvMma<D>::smem_bytes, configured,
+                grid, MMA_THREADS, p, s);
+}
+
+template <int D>
+int launch_dq(int dtype, bool drop, const Params& p, cudaStream_t s) {
+  return drop ? launch_dq_t<D, true>(dtype, p, s)
+              : launch_dq_t<D, false>(dtype, p, s);
+}
+
+template <int D>
+int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
+  return drop ? launch_dkv_t<D, true>(dtype, p, s)
+              : launch_dkv_t<D, false>(dtype, p, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int N, int Nkv, int Sq,
-                   int Skv, float scale, int causal) {
-  return Params{q,  k,  v, dout, lse, delta, dq,  dk,    dv,
-                B,  N,  Nkv, Sq,  Skv, scale, causal};
+                   int Skv, float scale, int causal, unsigned long long seed,
+                   unsigned int threshold, float drop_scale) {
+  return Params{q,   k,     v,      dout, lse,  delta, dq,        dk,
+                dv,  B,     N,      Nkv,  Sq,   Skv,   scale,     causal,
+                seed, threshold, drop_scale};
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Every tensor contiguous (the wrapper
-// guarantees it). Each returns 0 on success, the CUDA error code of a
-// refused launch, or -1 for a (dtype, head_dim) pair this library was not
-// built for. The caller launches only with B, N, Sq and Skv all positive.
+// guarantees it). dropout != 0 redraws the forward's mask from (seed,
+// threshold) and scales kept entries by drop_scale. Each returns 0 on
+// success, the CUDA error code of a refused launch, or -1 for a (dtype,
+// head_dim) pair this library was not built for. The caller launches only
+// with B, N, Sq and Skv all positive.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dq,
                             int B, int N, int Nkv, int Sq, int Skv, float scale,
-                            int causal, void* stream) {
+                            int causal, int dropout, unsigned long long seed,
+                            unsigned int threshold, float drop_scale,
+                            void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                               B, N, Nkv, Sq, Skv, scale, causal);
+                               B, N, Nkv, Sq, Skv, scale, causal, seed,
+                               threshold, drop_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1)) return -1;
-  if (head_dim == 64) return launch_dq<64>(dtype, p, s);
-  if (head_dim == 128) return launch_dq<128>(dtype, p, s);
+  if (head_dim == 64) return launch_dq<64>(dtype, dropout != 0, p, s);
+  if (head_dim == 128) return launch_dq<128>(dtype, dropout != 0, p, s);
   return -1;
 }
 
@@ -862,12 +933,15 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dk,
                              void* dv, int B, int N, int Nkv, int Sq, int Skv,
-                             float scale, int causal, void* stream) {
+                             float scale, int causal, int dropout,
+                             unsigned long long seed, unsigned int threshold,
+                             float drop_scale, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, N,
-                               Nkv, Sq, Skv, scale, causal);
+                               Nkv, Sq, Skv, scale, causal, seed, threshold,
+                               drop_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1)) return -1;
-  if (head_dim == 64) return launch_dkv<64>(dtype, p, s);
-  if (head_dim == 128) return launch_dkv<128>(dtype, p, s);
+  if (head_dim == 64) return launch_dkv<64>(dtype, dropout != 0, p, s);
+  if (head_dim == 128) return launch_dkv<128>(dtype, dropout != 0, p, s);
   return -1;
 }

@@ -3,7 +3,7 @@
 // kernels/flash_attention.py).
 //
 // Replaces the Pallas TPU kernel solvingpapers_tpu/kernels/flash_attention.py
-// `_fwd_kernel` (launched by `_fwd`) minus its in-kernel dropout: online-
+// `_fwd_kernel` (launched by `_fwd`) with its in-kernel dropout: online-
 // softmax attention over BSNH tensors that never writes the (Sq, Skv) score
 // matrix to device memory, returning o (input dtype) and the per-row
 // log-sum-exp (float32).
@@ -14,6 +14,11 @@
 //   * offset < 0 leaves the first rows with no visible key: such rows get
 //     o = 0 and lse = 0 (masked probabilities are zeroed, not exp(0));
 //   * GQA: q head h reads kv head h / (N / Nkv), kv is never repeated;
+//   * attention-prob dropout at rate > 0: the row sum l takes the
+//     UNdropped probabilities (lse is of the undropped mass), the PV
+//     product takes keep * p / (1 - rate), with keep the philox.cuh mask of
+//     (seed, b * N + h, row, col) — the one the backward kernels redraw;
+//     rate 0 compiles the kernels without any of it (template DROP);
 //   * scores, softmax state, the PV accumulator and the final division
 //     are float32 (the float32 kernel scales q before QK^T as the TPU
 //     kernel does; the bf16 kernel scales the float32 scores, the same
@@ -54,6 +59,8 @@
 
 #include <cstdint>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // q rows per block
@@ -76,6 +83,9 @@ struct Params {
   long long sv_b, sv_s, sv_h;  // ... of v (B, Skv, Nkv, D)
   float scale;
   int causal;
+  unsigned long long seed;  // dropout: Philox key
+  uint32_t threshold;       // dropout: keep iff word < threshold
+  float drop_scale;         // dropout: 1 / (1 - rate)
 };
 
 // Row pitches (in floats) chosen so the two row groups a warp spans land
@@ -93,7 +103,7 @@ struct Tile {
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_fma(Params p) {
   using TL = Tile<D>;
   constexpr int DC = D / 16;  // output columns per thread
@@ -198,8 +208,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_fma(Params p) {
         // a masked probability is 0, never exp(BIG_NEG - m_new): a row
         // that has seen no visible key keeps l == 0 (the empty-row guard)
         const float pv = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * TL::PP + tx + 16 * j] = pv;
         rsum += pv;
+        float pu = pv;  // what the PV product takes
+        if (DROP)
+          pu = dropout::keep(p.seed, bn, row, kv0 + tx + 16 * j, p.threshold)
+                   ? pv * p.drop_scale
+                   : 0.f;
+        Ps[(ty * 4 + i) * TL::PP + tx + 16 * j] = pu;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
@@ -279,7 +294,7 @@ struct MmaTile {
       sizeof(__nv_bfloat16) * (BQ * QP + BK * KP + D * VP);
 };
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(Params p) {
   using TL = MmaTile<D>;
   constexpr int KD = D / 16;  // k-steps of QK^T
@@ -456,6 +471,19 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(Params p) {
       }
     }
 
+    // dropout after the row sums: l keeps the undropped mass, PV takes
+    // keep * p / (1 - rate); one Philox call per four of this thread's
+    // elements (philox.cuh)
+    if (DROP) {
+      const uint32_t kb = dropout::keep_bits_rows(
+          p.seed, bn, q0 + wr + g, kv0 + 2 * t, p.threshold);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = (kb >> (nt * 4 + e)) & 1u ? s[nt][e] * p.drop_scale : 0.f;
+    }
+
     // PV: the score accumulators of n-tiles 2kk and 2kk+1 are the A
     // fragment of k-step kk; P = hi + lo, both bf16
 #pragma unroll
@@ -516,46 +544,56 @@ int set_smem(Kernel kernel, size_t smem, bool& configured) {
   return 0;
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_fma(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::smem_bytes;
   static bool configured = false;
-  if (const int e = set_smem(flash_fwd_fma<D>, smem, configured)) return e;
+  if (const int e = set_smem(flash_fwd_fma<D, DROP>, smem, configured)) return e;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
-  flash_fwd_fma<D><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_fma<D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool DROP>
+int launch_mma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = MmaTile<D>::smem_bytes;
+  static bool configured = false;
+  if (const int e = set_smem(flash_fwd_mma<D, DROP>, smem, configured)) return e;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
+  flash_fwd_mma<D, DROP><<<grid, MMA_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = MmaTile<D>::smem_bytes;
-  static bool configured = false;
-  if (const int e = set_smem(flash_fwd_mma<D>, smem, configured)) return e;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
-  flash_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+int launch(int dtype, bool drop, const Params& p, cudaStream_t s) {
+  if (dtype == 0)
+    return drop ? launch_fma<D, true>(p, s) : launch_fma<D, false>(p, s);
+  return drop ? launch_mma<D, true>(p, s) : launch_mma<D, false>(p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on success, the CUDA error
-// code of a refused launch, or -1 for a (dtype, head_dim) pair this
-// library was not built for.
+// dtype: 0 = float32, 1 = bfloat16. dropout != 0 applies attention-prob
+// dropout with the Philox key `seed`, keeping a probability iff its word is
+// below `threshold` and scaling it by `drop_scale`. Returns 0 on success,
+// the CUDA error code of a refused launch, or -1 for a (dtype, head_dim)
+// pair this library was not built for.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, void* o, float* lse,
                          int B, int N, int Nkv, int Sq, int Skv,
                          long long sq_b, long long sq_s, long long sq_h,
                          long long sk_b, long long sk_s, long long sk_h,
                          long long sv_b, long long sv_s, long long sv_h,
-                         float scale, int causal, void* stream) {
-  Params p{q,    k,    v,    o,    lse,  B,    N,    Nkv,   Sq,
-           Skv,  sq_b, sq_s, sq_h, sk_b, sk_s, sk_h, sv_b,  sv_s,
-           sv_h, scale, causal};
+                         float scale, int causal, int dropout,
+                         unsigned long long seed, unsigned int threshold,
+                         float drop_scale, void* stream) {
+  Params p{q,    k,    v,    o,    lse,  B,    N,     Nkv,    Sq,
+           Skv,  sq_b, sq_s, sq_h, sk_b, sk_s, sk_h,  sv_b,   sv_s,
+           sv_h, scale, causal, seed, threshold, drop_scale};
   if (Sq == 0 || B * N == 0) return 0;
+  if ((dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_fma<64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_fma<128>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(p, s);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(p, s);
+  if (head_dim == 64) return launch<64>(dtype, dropout != 0, p, s);
+  if (head_dim == 128) return launch<128>(dtype, dropout != 0, p, s);
   return -1;
 }

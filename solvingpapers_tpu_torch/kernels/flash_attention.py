@@ -10,9 +10,12 @@ and 517) — and the `_flash` custom VJP that joins them, here the
 compute the same functions — online-softmax attention over BSNH
 tensors, causal with the END-aligned mask (``offset = Skv - Sq``) or
 bidirectional, GQA by ``q_head // group`` without repeating kv, rows
-that see no key giving ``o = 0`` and ``lse = 0`` and no gradient — minus
-the in-kernel dropout (``dropout_rate > 0`` raises; it comes with the
-DeepSeek-V3 slice, whose config trains with attention dropout).
+that see no key giving ``o = 0`` and ``lse = 0`` and no gradient — with
+the in-kernel attention-prob dropout: at ``dropout_rate > 0`` the
+forward's row sums take the undropped probabilities and its PV product
+``keep * p / (1 - rate)``, and the backward kernels redraw the same mask,
+`kernels.dropout`'s keep function of ``(dropout_seed, b * N + h, row,
+col)``, which the plain versions here and the dense paths apply too.
 
 What bounds them on an H100, and how the designs answer, is in the
 headers of `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`: at the serving
@@ -36,12 +39,21 @@ import ctypes
 import torch
 
 from solvingpapers_tpu_torch.kernels import build
+from solvingpapers_tpu_torch.kernels.dropout import (
+    check_rate,
+    dropout_keep_reference,
+    keep_threshold,
+)
 from solvingpapers_tpu_torch.ops.attention import BIG_NEG, causal_mask
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 _INT32_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
+
+# (dropout on, Philox seed, keep threshold, 1 / (1 - rate))
+_DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32,
+                     ctypes.c_float]
 
 _lib = None  # the loaded forward library, built at first CUDA use
 _bwd_lib = None  # the loaded backward library, likewise
@@ -57,7 +69,8 @@ def _library():
             + [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _lib = lib
@@ -69,13 +82,15 @@ def _bwd_library():
     if _bwd_lib is None:
         lib = ctypes.CDLL(str(build.ensure_built("flash_bwd")))
         # (dtype, head_dim, q, k, v, dO, lse, delta, <outputs>, B, N, Nkv,
-        #  Sq, Skv, scale, causal, stream)
+        #  Sq, Skv, scale, causal, dropout, seed, threshold, drop_scale,
+        #  stream)
         for fn, n_out in ((lib.flash_bwd_dq, 1), (lib.flash_bwd_dkv, 2)):
             fn.argtypes = (
                 [ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_void_p] * (6 + n_out)
                 + [ctypes.c_int] * 5
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
+                + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
         _bwd_lib = lib
@@ -108,48 +123,70 @@ def _rows_16b_aligned(x: torch.Tensor) -> bool:
         if size > 1)
 
 
-def flash_attention_reference(q, k, v, *, causal=False, scale=None):
+def _visible(sq, skv, causal, device):
+    if causal:
+        return causal_mask(sq, skv, device=device)
+    return torch.ones(sq, skv, dtype=torch.bool, device=device)
+
+
+def _head_keep(dropout_rate, dropout_seed, bh, sq, skv, device):
+    """The (Sq, Skv) keep mask of q head `bh`, or None at rate 0."""
+    if dropout_rate == 0.0:
+        return None
+    return dropout_keep_reference(dropout_seed, dropout_rate, 1, sq, skv,
+                                  bh_start=bh, device=device)[0]
+
+
+def flash_attention_reference(q, k, v, *, causal=False, scale=None,
+                              dropout_rate=0.0, dropout_seed=0):
     """Plain PyTorch version of the kernel: same inputs, same outputs
     ``(o (B, Sq, N, D) in q's dtype, lse (B*N, 1, Sq) float32)``, the
     TPU kernel's float32 arithmetic (q scaled before QK^T, unnormalized
     PV in float32, masked probabilities zeroed, empty rows -> o = 0,
-    lse = 0)."""
+    lse = 0; with dropout, the row sums of the undropped probabilities
+    and PV of ``keep * p / (1 - rate)``). One q head at a time, so a
+    long sequence holds float32 (Sq, Skv) matrices of one head only."""
     flash_attention_reference.calls += 1
     _check_shapes(q, k, v)
+    check_rate(dropout_rate)
     b, sq, n, d = q.shape
     skv, group = k.shape[1], n // k.shape[2]
     if scale is None:
         scale = d**-0.5
-    q3 = q.float().permute(0, 2, 1, 3) * scale
-    k3 = k.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
-    v3 = v.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
-    s = q3 @ k3.transpose(-1, -2)  # (B, N, Sq, Skv)
-    if causal:
-        vis = causal_mask(sq, skv, device=q.device)
-    else:
-        vis = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
-    s = s.masked_fill(~vis, BIG_NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).masked_fill(~vis, 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    empty = l <= 0.0
-    safe_l = torch.where(empty, torch.ones_like(l), l)
-    o = torch.where(empty, torch.zeros_like(l), (p @ v3) / safe_l)
-    lse = torch.where(empty, torch.zeros_like(l), m + torch.log(safe_l))
-    return (o.permute(0, 2, 1, 3).to(q.dtype),
-            lse.reshape(b * n, 1, sq))
+    vis = _visible(sq, skv, causal, q.device)
+    o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for h in range(n):
+            kf = k[bi, :, h // group].float()  # (Skv, D)
+            vf = v[bi, :, h // group].float()
+            s = (q[bi, :, h].float() * scale) @ kf.T  # (Sq, Skv)
+            s = s.masked_fill(~vis, BIG_NEG)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m).masked_fill(~vis, 0.0)
+            l = p.sum(dim=-1, keepdim=True)
+            keep = _head_keep(dropout_rate, dropout_seed, bi * n + h, sq, skv,
+                              q.device)
+            if keep is not None:
+                p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+            empty = l <= 0.0
+            safe_l = torch.where(empty, torch.ones_like(l), l)
+            o[bi, :, h] = torch.where(empty, torch.zeros_like(l),
+                                      (p @ vf) / safe_l).to(q.dtype)
+            lse[bi, h] = torch.where(empty, torch.zeros_like(l),
+                                     m + torch.log(safe_l))[:, 0]
+    return o, lse.reshape(b * n, 1, sq)
 
 
 flash_attention_reference.calls = 0
 
 
-def _refuse_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "in-kernel attention dropout is not ported yet (ROADMAP B4: it "
-            "comes with the DeepSeek-V3 slice, whose dsv3_long trains with "
-            "attention dropout); these kernels run at dropout 0"
-        )
+def _dropout_args(dropout_rate: float, dropout_seed: int) -> tuple:
+    """The kernels' (dropout, seed, threshold, drop_scale) arguments."""
+    if dropout_rate == 0.0:
+        return (0, 0, 0, 1.0)
+    return (1, int(dropout_seed) & 0xFFFFFFFFFFFFFFFF,
+            keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate))
 
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
@@ -185,7 +222,7 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
-                        dropout_rate=0.0):
+                        dropout_rate=0.0, dropout_seed=0):
     """Flash-attention forward over BSNH tensors; returns ``(o, lse)``.
 
     q: (B, Sq, N, D); k, v: (B, Skv, Nkv, D) with N % Nkv == 0. On CPU
@@ -193,16 +230,19 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     sm_90a kernel (float32 or bfloat16, D in {64, 128}, unit stride on
     the last axis — other strides are passed through, so a cache slice
     needs no copy) on the current stream, and raises if the build or the
-    launch fails.
+    launch fails. ``dropout_rate > 0`` drops attention probabilities with
+    the keep mask of `dropout_seed` (a 64-bit int; see `kernels.dropout`).
     """
-    _refuse_dropout(dropout_rate)
     _check_shapes(q, k, v)
+    check_rate(dropout_rate)
     b, sq, n, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d**-0.5
     if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale,
+                                         dropout_rate=dropout_rate,
+                                         dropout_seed=dropout_seed)
     _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
         # the tensor-core kernel moves rows as 16-byte chunks
@@ -221,6 +261,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
             lse.data_ptr(), b, n, n_kv, sq, skv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(bool(causal)),
+            *_dropout_args(dropout_rate, dropout_seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -249,41 +290,48 @@ def _check_bwd_shapes(q, k, v, do, lse, delta) -> None:
 
 
 def flash_attention_bwd_reference(q, k, v, do, lse, delta, *, causal=False,
-                                  scale=None):
+                                  scale=None, dropout_rate=0.0, dropout_seed=0):
     """Plain PyTorch version of the backward kernels: same inputs, same
     outputs ``(dq, dk, dv)`` in the dtypes of q, k and v, the TPU
     kernels' float32 arithmetic — q scaled before QK^T, ``p = exp(s -
     lse)`` with masked entries 0, ``ds = p * (dp - delta)``, kv repeated
-    to the q heads and the per-head dk, dv summed back (here one kv head
-    and its group of q heads at a time, so the float32 (Sq, Skv) matrices
-    of a long sequence exist for `group` heads at once, not all)."""
+    to the q heads and the per-head dk, dv summed back; with dropout,
+    ``dp <- keep * dp / (1 - rate)`` and dv of ``keep * p / (1 - rate)``
+    (`ds` keeps the undropped p). One q head at a time, its dk and dv
+    added to its kv head's in head order, so a long sequence holds
+    float32 (Sq, Skv) matrices of one head only."""
     flash_attention_bwd_reference.calls += 1
     _check_bwd_shapes(q, k, v, do, lse, delta)
+    check_rate(dropout_rate)
     b, sq, n, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     group = n // n_kv
     if scale is None:
         scale = d**-0.5
-    if causal:
-        vis = causal_mask(sq, skv, device=q.device)
-    else:
-        vis = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
-    lse4 = lse.reshape(b, n, sq, 1)
-    delta4 = delta.reshape(b, n, sq, 1)
+    vis = _visible(sq, skv, causal, q.device)
+    lse3 = lse.reshape(b, n, sq, 1)
+    delta3 = delta.reshape(b, n, sq, 1)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     for bi in range(b):
-        for kh in range(n_kv):
-            hs = slice(kh * group, (kh + 1) * group)
-            qs = q[bi, :, hs].float().transpose(0, 1) * scale  # (group, Sq, D)
-            dos = do[bi, :, hs].float().transpose(0, 1)
+        for h in range(n):
+            kh = h // group
+            qs = q[bi, :, h].float() * scale  # (Sq, D)
+            dos = do[bi, :, h].float()
             kf, vf = k[bi, :, kh].float(), v[bi, :, kh].float()  # (Skv, D)
-            p = torch.where(vis, torch.exp(qs @ kf.T - lse4[bi, hs]), 0.0)
-            ds = p * (dos @ vf.T - delta4[bi, hs])
-            dq[bi, :, hs] = (ds @ kf * scale).transpose(0, 1)
-            dk[bi, :, kh] = (ds.transpose(1, 2) @ qs).sum(0)
-            dv[bi, :, kh] = (p.transpose(1, 2) @ dos).sum(0)
+            p = torch.where(vis, torch.exp(qs @ kf.T - lse3[bi, h]), 0.0)
+            dp = dos @ vf.T
+            pv = p
+            keep = _head_keep(dropout_rate, dropout_seed, bi * n + h, sq, skv,
+                              q.device)
+            if keep is not None:
+                dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
+                pv = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+            ds = p * (dp - delta3[bi, h])
+            dq[bi, :, h] = ds @ kf * scale
+            dk[bi, :, kh] += ds.T @ qs
+            dv[bi, :, kh] += pv.T @ dos
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -307,20 +355,23 @@ def _bwd_kernel_inputs(q, k, v, do, lse, delta):
     return tuple(ready(x) for x in (q, k, v, do, lse, delta))
 
 
-def _launch_args(q, k, scale, causal):
+def _launch_args(q, k, scale, causal, dropout_rate, dropout_seed):
     b, sq, n, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     scale = d**-0.5 if scale is None else scale
+    check_rate(dropout_rate)
     return ((b, n, n_kv, sq, skv, float(scale), int(bool(causal)),
+             *_dropout_args(dropout_rate, dropout_seed),
              torch.cuda.current_stream(q.device).cuda_stream),
             b * n * sq * skv == 0)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None):
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                 dropout_rate=0.0, dropout_seed=0):
     """dq by the sm_90a dq kernel (CUDA tensors only; raises on others
     and when the build or the launch fails)."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
-    args, empty = _launch_args(q, k, scale, causal)
+    args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
@@ -339,12 +390,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None):
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None):
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                  dropout_rate=0.0, dropout_seed=0):
     """(dk, dv) by the sm_90a dk/dv kernel, the GQA fold inside it (CUDA
     tensors only; raises on others and when the build or the launch
     fails)."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
-    args, empty = _launch_args(q, k, scale, causal)
+    args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:
         return torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -363,18 +415,21 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None):
 flash_bwd_dkv.launches = 0
 
 
-def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=False, scale=None):
+def flash_attention_bwd(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                        dropout_rate=0.0, dropout_seed=0):
     """Flash-attention backward over BSNH tensors with un-repeated GQA
     kv: ``(dq, dk, dv)`` from the forward's inputs, the output's
     cotangent `do`, the forward's `lse` and ``delta = rowsum(do * o)``
-    (both float32 (B*N, 1, Sq); a chunked caller passes global ones). On
-    CPU tensors this is the plain version; on CUDA tensors it launches
-    the dq kernel, then the dk/dv kernel."""
+    (both float32 (B*N, 1, Sq); a chunked caller passes global ones) and
+    the forward's dropout rate and seed. On CPU tensors this is the plain
+    version; on CUDA tensors it launches the dq kernel, then the dk/dv
+    kernel."""
+    kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
     if _on_cpu(q, k, v, do, lse, delta):
-        return flash_attention_bwd_reference(q, k, v, do, lse, delta,
-                                             causal=causal, scale=scale)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+        return flash_attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
 
 
@@ -388,26 +443,36 @@ def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 class _Flash(torch.autograd.Function):
     """The reference's `_flash` custom VJP: the forward saves (q, k, v,
-    o, lse), the backward computes delta and runs the backward kernels."""
+    o, lse) and the dropout seed, the backward computes delta (from the
+    dropped o) and runs the backward kernels, which redraw the forward's
+    mask. A tensor passed as both k and v (MLA's latent stream) gets
+    dk + dv from autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, dropout_rate, dropout_seed):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     dropout_rate=dropout_rate,
+                                     dropout_seed=dropout_seed)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
+                      dropout_seed=dropout_seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, flash_delta(do, o),
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=False, scale=None, dropout_rate=0.0):
+def flash_attention(q, k, v, *, causal=False, scale=None, dropout_rate=0.0,
+                    dropout_seed=0):
     """Flash attention over BSNH tensors (drop-in for
     `ops.dot_product_attention` when there is no cache mask); returns o,
-    differentiable in q, k and v through the backward kernels."""
-    _refuse_dropout(dropout_rate)
-    return _Flash.apply(q, k, v, causal, scale)
+    differentiable in q, k and v through the backward kernels. At
+    ``dropout_rate > 0`` attention probabilities are dropped in the
+    kernels with the keep mask of `dropout_seed` (`kernels.dropout`)."""
+    check_rate(dropout_rate)
+    return _Flash.apply(q, k, v, causal, scale, float(dropout_rate),
+                        int(dropout_seed))

@@ -67,12 +67,23 @@ def mfu(tokens_per_sec: float, flops_per_token: float, n_chips: int = 1,
     return achieved / peak
 
 
-def active_param_count(model_or_params) -> int:
-    """Parameters touched per token of a dense model: every parameter of
-    an `nn.Module`, or every tensor of a state dict (the MoE variant
-    comes with the DeepSeek-V3 slice)."""
+def active_param_count(model_or_params, top_experts: int | None = None,
+                       n_experts: int | None = None) -> int:
+    """Parameters touched per token: every parameter of an `nn.Module`,
+    or every tensor of a state dict (MoE routing-bias buffers skipped),
+    except that of the routed expert weights (``...moe.w1/w2/w3``) only
+    top_experts / n_experts count as active — the N of the 6N FLOPs
+    model for a mixture of experts."""
     if isinstance(model_or_params, torch.nn.Module):
-        tensors = model_or_params.parameters()
+        named = model_or_params.named_parameters()
     else:
-        tensors = model_or_params.values()
-    return sum(t.numel() for t in tensors)
+        named = ((k, v) for k, v in model_or_params.items()
+                 if not k.endswith("routing_bias"))
+    total = routed = 0
+    for name, t in named:
+        total += t.numel()
+        if name.endswith((".moe.w1", ".moe.w2", ".moe.w3")):
+            routed += t.numel()
+    if top_experts and n_experts and routed:
+        total -= routed - routed * top_experts // n_experts
+    return total

@@ -1,8 +1,9 @@
 """Shared building blocks (port of `solvingpapers_tpu/models/layers.py`:
-the parts LLaMA-3 uses, without context parallelism).
+the parts LLaMA-3 and DeepSeek-V3 use, without context parallelism).
 
-Parameters are created empty — they come from `models.llama3.init_params`
-or from `convert.py` — and are trainable.
+Parameters are created empty — they come from a family's `init_params`
+(`models.llama3`, `models.deepseekv3`) or from `convert.py` — and are
+trainable.
 
 dtype placement follows Flax exactly: an `nn.Dense(dtype=bf16)` casts
 both its input and its float32 kernel to bf16 and returns bf16; an
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from solvingpapers_tpu_torch import ops
 from solvingpapers_tpu_torch.infer.cache import KVCache, update_kv_cache
@@ -193,3 +195,36 @@ class GLUFFN(nn.Module):
 def swiglu_hidden_dim(dim: int, multiplier: int = 4) -> int:
     """The (2/3)·4·dim sizing convention: ((2·dim)·4) // 3."""
     return (2 * dim * multiplier) // 3
+
+
+def apply_flash_attention(q, k, v, *, causal, scale=None, dropout_rate=0.0,
+                          dropout_seed=0, deterministic=True):
+    """Flash attention with the framework's dropout policy, shared by every
+    `use_flash` model: attention-prob dropout when `dropout_rate > 0` and
+    not `deterministic`, inside the kernels on the card and in their plain
+    versions on the CPU — the same keep mask of `dropout_seed` either way
+    (`kernels.dropout`), where the reference falls back to the dense op
+    off the TPU. The reference's mesh branch (sharded flash) needs
+    several cards and is not ported."""
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           dropout_rate=0.0 if deterministic else dropout_rate,
+                           dropout_seed=dropout_seed)
+
+
+def maybe_remat(block: nn.Module, remat: bool):
+    """`block`, or `block` under `torch.utils.checkpoint` (non-reentrant)
+    when `remat` is set and gradients are being recorded: its activations
+    are recomputed in the backward instead of kept. The reference's
+    `maybe_remat` (`jax.checkpoint` per decoder block, training only).
+
+    A checkpointed block runs twice, so everything random in it must be a
+    pure function of its arguments (the port passes a dropout seed in;
+    `torch.utils.checkpoint` restores only the global RNG states) and it
+    must not change state a second run would read (the MoE routing bias is
+    updated after the optimizer step, never inside the forward). Nothing
+    in the port's blocks draws from the global generators, so their
+    states are not saved and restored around the recomputation."""
+    if remat and torch.is_grad_enabled():
+        return lambda *args: checkpoint(block, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+    return block

@@ -26,6 +26,7 @@ from solvingpapers_tpu_torch.models.layers import (
     Embed,
     RMSNorm,
     default_positions,
+    maybe_remat,
     swiglu_hidden_dim,
 )
 
@@ -43,8 +44,9 @@ class LlamaConfig:
     hidden_dim: int | None = None  # None => swiglu 2/3·4·dim convention
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
-    # the reference's block dropout and per-block rematerialisation; not
-    # ported — training a model with either set raises (see Llama.forward)
+    # the reference's block dropout, not ported for LLaMA — training a
+    # model with it set raises (see Llama.forward); `remat` recomputes
+    # each block's activations in the backward (models.layers.maybe_remat)
     dropout: float = 0.0
     dtype: str = "float32"
     use_flash: bool = False
@@ -129,26 +131,24 @@ class Llama(nn.Module):
                 attend_len: int | None = None):
         """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype,
         caches). Modes as in `layers.Attention`. A forward that records
-        gradients in training mode refuses the reference's dropout and
-        remat, which are not ported, rather than train without them."""
-        if self.training and torch.is_grad_enabled():
-            if self.cfg.dropout > 0.0:
-                raise NotImplementedError(
-                    "training with dropout > 0 is not ported (ROADMAP B4: "
-                    "dropout, in-kernel for flash attention, comes with the "
-                    "DeepSeek-V3 slice)")
-            if self.cfg.remat:
-                raise NotImplementedError(
-                    "training with remat=True (per-block rematerialisation) "
-                    "is not ported yet (ROADMAP A2, the training queue)")
+        gradients in training mode refuses the reference's dropout, which
+        is not ported for LLaMA (B4 ported the in-kernel attention dropout
+        with DeepSeek-V3), rather than train without it; under `remat`
+        each block is recomputed in the backward."""
+        if self.training and torch.is_grad_enabled() and self.cfg.dropout > 0.0:
+            raise NotImplementedError(
+                "LLaMA training with dropout > 0 is not ported (the block "
+                "dropout of models/llama3.py; the dropout kernels serve "
+                "DeepSeek-V3)")
         b, s = tokens.shape
         if positions is None:
             positions = default_positions(b, s, device=tokens.device)
         x = self.tok_emb(tokens)
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
-            x, c = block(x, positions, None if caches is None else caches[i],
-                         attend_len)
+            run = maybe_remat(block, self.cfg.remat and caches is None)
+            x, c = run(x, positions, None if caches is None else caches[i],
+                       attend_len)
             if new_caches is not None:
                 new_caches.append(c)
         x = self.norm_f(x)

@@ -40,13 +40,19 @@ def dot_product_attention(
     *,
     causal: bool = False,
     scale: float | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: int | None = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """Scaled dot-product attention over BSNH tensors.
 
     q: (B, Sq, N, H); k, v: (B, Skv, Nkv, H) with N % Nkv == 0 (GQA/MQA by
     repeating kv heads). `mask` is broadcastable to (B, N, Sq, Skv),
-    True = attend. Inference only: the reference's attention dropout is
-    not part of this slice.
+    True = attend. With ``dropout_rate > 0`` and not `deterministic`,
+    the float32 probabilities become ``probs * keep / (1 - rate)`` before
+    the cast, as in the reference; `keep` is the flash kernels' mask of
+    `dropout_seed` (`kernels.dropout`, element (b * N + h, q, kv)), where
+    the reference draws a `jax.random.bernoulli` mask.
     """
     n, n_kv = q.shape[-2], k.shape[-2]
     if n != n_kv:
@@ -63,5 +69,15 @@ def dot_product_attention(
         mask = cmask if mask is None else mask & cmask
     if mask is not None:
         scores = scores.masked_fill(~mask, BIG_NEG)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and not deterministic:
+        if dropout_seed is None:
+            raise ValueError("dropout_seed is required when dropout is active")
+        from solvingpapers_tpu_torch.kernels.dropout import dropout_mask
+
+        b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+        keep = dropout_mask(dropout_seed, dropout_rate, b * n, sq, skv,
+                            q.device).view(b, n, sq, skv)
+        probs = probs * keep / (1.0 - dropout_rate)
+    probs = probs.to(v.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)

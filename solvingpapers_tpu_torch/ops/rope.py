@@ -1,5 +1,6 @@
 """Rotary position embeddings (port of `solvingpapers_tpu/ops/rope.py`,
-the split cos/sin form).
+the split cos/sin form, and the sinusoidal table DeepSeek-V3 adds to its
+embeddings).
 
 Pairing convention: features rotate in INTERLEAVED (even, odd) pairs
 ``(x[..., 0::2], x[..., 1::2])`` — the complex-reshape convention of the
@@ -63,3 +64,17 @@ def apply_rope(
     # re-interleave: stack pairs on a trailing axis, then flatten
     out = torch.stack([out_even, out_odd], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def sinusoidal_position_encoding(max_len: int, dim: int,
+                                 device: str | torch.device | None = None
+                                 ) -> torch.Tensor:
+    """Classic sin/cos position table: pe[p, 2i] = sin(p / 10000^(2i/dim)),
+    pe[p, 2i+1] = cos(same angle). (max_len, dim) float32."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(0, dim, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), i / dim)
+    pe = torch.zeros(max_len, dim, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, : dim // 2])
+    return pe

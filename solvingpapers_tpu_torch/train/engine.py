@@ -1,12 +1,19 @@
 """The training engine (port of the single-device path of
 `solvingpapers_tpu/train/engine.py`).
 
-`Trainer` runs the reference's loop on one device: the LM objective,
-the train step (loss, backward through the flash kernels under
-`use_flash`, global-norm clip, optimizer update), evaluation, the
-log/eval/checkpoint cadence with resume, and the step-time, tokens/s
-and MFU metrics. The first step is fenced and kept out of the timing, as
-are eval and checkpoint saves.
+`Trainer` runs the reference's loop on one device: the objective (the
+LM loss, or a family's own, `train.objectives`), the train step (loss,
+backward through the flash kernels under `use_flash`, global-norm clip,
+optimizer update, then the model's new non-trainable state, such as
+DeepSeek-V3's routing biases), evaluation, the log/eval/checkpoint
+cadence with resume, and the step-time, tokens/s and MFU metrics. The
+first step is fenced and kept out of the timing, as are eval and
+checkpoint saves.
+
+Each step's dropout seed is `TrainState.step_seed()`, a pure function of
+the state's generator seed and the step — the reference's
+``fold_in(state.rng, state.step)`` — so a resumed run and a recomputed
+(remat) block draw the same masks.
 
 Not ported, and refused when set (they need a mesh, several cards or
 the reference's XLA observatories): `mesh`, `context_parallel`,
@@ -31,8 +38,9 @@ from solvingpapers_tpu_torch.metrics.mfu import chip_peak_flops
 from solvingpapers_tpu_torch.train.optim import OptimizerConfig, make_optimizer
 from solvingpapers_tpu_torch.train.state import TrainState
 
-# loss_fn(model, batch) -> (loss, aux dict of scalar tensors)
-LossFn = Callable[..., tuple[torch.Tensor, dict]]
+# loss_fn(model, batch, dropout_seed) -> (loss, aux dict of scalar tensors,
+# the model's new non-trainable state {buffer name: tensor} or None)
+LossFn = Callable[..., tuple[torch.Tensor, dict, dict | None]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,11 +83,12 @@ class TrainConfig:
         return [name for name, on in set_.items() if on]
 
 
-def lm_loss_fn(model, batch):
-    """Default LM objective: next-token CE of batch['x'] -> batch['y']."""
+def lm_loss_fn(model, batch, dropout_seed=None):
+    """Default LM objective: next-token CE of batch['x'] -> batch['y'].
+    (The LLaMA family draws no dropout, so the seed is unused.)"""
     logits, _ = model(batch["x"])
     loss = ops.cross_entropy(logits, batch["y"])  # auto-chunks at scale
-    return loss, {"perplexity": torch.exp(loss)}
+    return loss, {"perplexity": torch.exp(loss)}, None
 
 
 class Trainer:
@@ -107,13 +116,15 @@ class Trainer:
     # ------------------------------------------------------------ state
 
     def init_state(self) -> TrainState:
-        """Fresh parameters from Flax's default initializers
-        (`models.llama3.init_params`), a fresh optimizer, step 0; the
-        generator is seeded from `config.seed` and draws the parameters."""
-        from solvingpapers_tpu_torch.models.llama3 import init_params
+        """Fresh parameters from the reference's initializers (the model
+        family's `init_params`, `models.init_params_for`), a fresh
+        optimizer, step 0; the generator is seeded from `config.seed` and
+        draws the parameters."""
+        from solvingpapers_tpu_torch.models import init_params_for
 
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.config.seed)
+        init_params = init_params_for(self.model.cfg)
         self.model.load_state_dict(init_params(self.model.cfg, generator))
         optimizer, _ = make_optimizer(self.config.optimizer,
                                       self.model.parameters())
@@ -131,10 +142,17 @@ class Trainer:
         the lr as a float) without waiting for the device."""
         model = state.model
         model.train()
-        loss, aux = self.loss_fn(model, self._on_device(batch))
+        loss, aux, new_state = self.loss_fn(model, self._on_device(batch),
+                                            state.step_seed())
         state.optimizer.zero_grad()
         loss.backward()
         grad_norm, lr = state.optimizer.step(state.step)
+        if new_state:
+            # after the backward, which may recompute (remat) blocks that
+            # must read the state the forward read
+            with torch.no_grad():
+                for name, value in new_state.items():
+                    model.get_buffer(name).copy_(value)
         state.step += 1
         return {"train_loss": loss.detach(), "grad_norm": grad_norm, "lr": lr,
                 **{f"train_{k}": v.detach() for k, v in aux.items()}}
@@ -149,7 +167,7 @@ class Trainer:
         for i, batch in enumerate(eval_iter):
             if i >= self.config.eval_batches:
                 break
-            loss, aux = self.loss_fn(model, self._on_device(batch))
+            loss, aux, _ = self.loss_fn(model, self._on_device(batch), None)
             for k, v in {"val_loss": loss,
                          **{f"val_{k}": v for k, v in aux.items()}}.items():
                 acc[k] = acc.get(k, 0.0) + float(v)

@@ -3,7 +3,8 @@
 The reference's `TrainState` is a pytree of params, optimizer state,
 step and PRNG key. Here the model owns its parameters and the optimizer
 its state and schedule, so the train state holds the two objects, the
-step count and a `torch.Generator`, and (de)serialises them for
+step count and a `torch.Generator` (which draws the initial parameters
+and seeds every step's dropout), and (de)serialises them for
 checkpoints.
 """
 
@@ -13,6 +14,7 @@ import dataclasses
 
 import torch
 
+from solvingpapers_tpu_torch.kernels.dropout import mix_seed
 from solvingpapers_tpu_torch.train.optim import Optimizer
 
 
@@ -22,6 +24,12 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
     generator: torch.Generator  # seeded from TrainConfig.seed
+
+    def step_seed(self) -> int:
+        """This step's 64-bit dropout seed: the generator's seed mixed
+        with the step count (the reference folds the step into its key),
+        so a resumed run draws the masks an unbroken one would."""
+        return mix_seed(self.generator.initial_seed(), self.step)
 
     def state_dict(self) -> dict:
         return {

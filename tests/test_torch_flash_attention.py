@@ -165,11 +165,12 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
 
 
 def test_dropout_raises():
+    """Dropout runs in the kernels now; a rate outside [0, 1) raises."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 8, 8, 2, 2, 32))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention(q, k, v, dropout_rate=0.5)
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=1.0)
+    with pytest.raises(ValueError, match="dropout"):
+        tfa.flash_attention(q, k, v, dropout_rate=-0.5)
 
 
 @pytest.mark.parametrize("shapes,match", [

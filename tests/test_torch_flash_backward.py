@@ -146,8 +146,9 @@ def test_kernel_wrappers_refuse_cpu_and_meta_tensors(wrapper):
 
 def test_backward_dropout_and_shape_errors_raise():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(5, 1, 8, 8, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="B4"):
-        tfa.flash_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        tfa.flash_attention_bwd(q, k, v, do, torch.zeros(2, 1, 8),
+                                torch.zeros(2, 1, 8), dropout_rate=1.5)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention_bwd(q, k, v, do, torch.zeros(2, 8),
                                 torch.zeros(2, 1, 8))

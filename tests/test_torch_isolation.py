@@ -5,9 +5,10 @@ package, and its entry points run on the card unless told otherwise.
   no `jax`, `flax`, `optax` or `solvingpapers_tpu` import;
 * a fresh interpreter that imports the port's engine has no `jax` in
   `sys.modules`;
-* with no device named and no CUDA available, `Llama`, `generate`,
-  `ServeEngine` and `Trainer` raise instead of running quietly on the
-  CPU.
+* with no device named and no CUDA available, `Llama`, `DeepSeekV3`,
+  `generate`, `ServeEngine` and `Trainer` raise instead of running
+  quietly on the CPU, and the kernels' wrappers refuse tensors that are
+  neither on the CPU nor on a CUDA device.
 """
 
 import ast
@@ -20,7 +21,13 @@ import torch
 
 from solvingpapers_tpu_torch import resolve_device
 from solvingpapers_tpu_torch.infer import generate
-from solvingpapers_tpu_torch.models import Llama, LlamaConfig
+from solvingpapers_tpu_torch.kernels import dropout_mask
+from solvingpapers_tpu_torch.models import (
+    DeepSeekV3,
+    DeepSeekV3Config,
+    Llama,
+    LlamaConfig,
+)
 from solvingpapers_tpu_torch.serve import ServeEngine
 from solvingpapers_tpu_torch.train import TrainConfig, Trainer
 
@@ -67,7 +74,11 @@ def test_engine_import_loads_no_jax():
     code = ("import sys; import solvingpapers_tpu_torch.serve.engine, "
             "solvingpapers_tpu_torch.convert, solvingpapers_tpu_torch.configs, "
             "solvingpapers_tpu_torch.configs.factory, "
-            "solvingpapers_tpu_torch.train; "
+            "solvingpapers_tpu_torch.train, "
+            "solvingpapers_tpu_torch.train.objectives, "
+            "solvingpapers_tpu_torch.models.deepseekv3, "
+            "solvingpapers_tpu_torch.ops.moe, "
+            "solvingpapers_tpu_torch.kernels.dropout; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'solvingpapers_tpu')]; "
             "assert not bad, bad; print('ok')")
@@ -95,6 +106,20 @@ def test_trainer_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, TrainConfig())
     assert Trainer(model, TrainConfig(), device="cpu").device == torch.device("cpu")
+
+
+def test_deepseekv3_and_its_trainer_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DeepSeekV3Config(vocab_size=64, block_size=32, dim=32, n_layers=1,
+                           n_heads=2, latent_dim=8, n_experts=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepSeekV3(cfg)
+    model = DeepSeekV3(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, TrainConfig())
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        dropout_mask(1, 0.1, 1, 8, 8, "meta")
 
 
 def test_entry_points_refuse_a_model_on_another_device():

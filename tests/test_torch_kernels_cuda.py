@@ -9,7 +9,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 (`--noconftest` skips `tests/conftest.py`, which sets up JAX's CPU mesh.)
 Tolerances: forward, bf16 inputs within 2e-2 on o and 1e-3 on lse of the
 float32 plain version, float32 within 1e-4; backward, relative to the
-largest gradient, bf16 within 1e-2 and float32 within 2e-5.
+largest gradient, bf16 within 1e-2 and float32 within 2e-5 — with and
+without in-kernel dropout (the plain versions draw the same mask). The
+dropout mask kernel's bits equal the plain keep function's exactly.
 """
 
 import importlib
@@ -184,3 +186,132 @@ def test_flash_autograd_on_the_card_matches_dense_autograd(cuda_device):
                               (q, k, v), do)
     for got, want in zip(g, ref):
         assert _rel_err(got, want) <= 2e-5
+
+
+# ----------------------------------------------------------------- dropout
+
+tdr = importlib.import_module("solvingpapers_tpu_torch.kernels.dropout")
+
+DROPOUT_CASES = [
+    # (b, sq, skv, n, n_kv, d, causal, dtype, rate)
+    (1, 512, 512, 8, 1, 128, True, torch.bfloat16, 0.1),   # dsv3's heads
+    (1, 300, 100, 4, 2, 64, True, torch.bfloat16, 0.5),    # empty rows
+    (1, 37, 100, 4, 1, 128, True, torch.bfloat16, 0.1),    # ragged
+    (2, 200, 333, 4, 4, 64, False, torch.bfloat16, 0.5),   # MHA, bidirectional
+    (1, 777, 777, 4, 2, 64, True, torch.bfloat16, 0.1),
+    (1, 256, 256, 8, 1, 128, True, torch.float32, 0.1),
+    (2, 150, 97, 4, 2, 128, True, torch.float32, 0.5),     # empty rows
+    (1, 37, 100, 4, 4, 64, False, torch.float32, 0.1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,rate", [(8, 512, 512, 0.1), (3, 37, 100, 0.5),
+                                            (1, 300, 777, 0.1)])
+def test_dropout_mask_kernel_equals_the_plain_mask(cuda_device, bh, sq, skv,
+                                                   rate):
+    """The mask kernel's bits equal the plain keep function's: no
+    element differs; another seed gives another mask."""
+    before = tdr.dropout_mask.launches
+    got = tdr.dropout_mask(1234567890123, rate, bh, sq, skv, cuda_device)
+    torch.cuda.synchronize()
+    assert tdr.dropout_mask.launches == before + 1
+    want = tdr.dropout_keep_reference(1234567890123, rate, bh, sq, skv,
+                                      device=cuda_device)
+    assert got.dtype == torch.bool and got.shape == (bh, sq, skv)
+    assert int((got != want).sum()) == 0
+    other = tdr.dropout_mask(1234567890124, rate, bh, sq, skv, cuda_device)
+    assert int((got != other).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal,dtype,rate", DROPOUT_CASES)
+def test_flash_dropout_kernels_match_reference(cuda_device, b, sq, skv, n,
+                                               n_kv, d, causal, dtype, rate):
+    """Forward, dq and dk/dv kernels with dropout against their plain
+    versions at the same seed, within the dropout-free tolerances."""
+    seed = 987654321
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
+               for x in _qkv(13, b, sq, skv, n, n_kv, d))
+    do = torch.randn(b, sq, n, d, device=cuda_device).to(dtype)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=seed)
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             **kw)
+    o_tol, lse_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    assert (o.float() - ro).abs().max().item() <= o_tol
+    assert (lse - rlse).abs().max().item() <= lse_tol
+    delta = tfa.flash_delta(do, ro.to(dtype))
+    grads = tfa.flash_attention_bwd(q, k, v, do, rlse, delta, **kw)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                            do.float(), rlse, delta, **kw)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    for got, want in zip(grads, ref):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_dropout_seeds_and_rate_zero(cuda_device, dtype):
+    """Two launches at one seed are bit-identical, another seed differs,
+    and rate 0 is the dropout-free kernel bit for bit."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
+               for x in _qkv(3, 1, 256, 256, 8, 1, 128))
+    a = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.3,
+                                dropout_seed=5)[0]
+    b = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.3,
+                                dropout_seed=5)[0]
+    c = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.3,
+                                dropout_seed=6)[0]
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    z = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.0,
+                                dropout_seed=5)
+    plain = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(z[0], plain[0]) and torch.equal(z[1], plain[1])
+
+
+@pytest.mark.cuda
+def test_flash_dropout_linearity_identity_on_the_card(cuda_device):
+    """o is linear in v at a fixed mask: <L(v + u) - L(v)> = <u, dL/dv>
+    through the kernels, float32 (the dv kernel must redraw the forward's
+    exact mask)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, 256, 8, 128, generator=g, device=cuda_device),
+               torch.randn(1, 256, 1, 128, generator=g, device=cuda_device),
+               torch.randn(1, 256, 1, 128, generator=g, device=cuda_device))
+    w = torch.randn(1, 256, 8, 128, generator=g, device=cuda_device)
+    u = torch.randn(v.shape, generator=g, device=cuda_device)
+
+    def loss(vv):
+        return (tfa.flash_attention(q, k, vv, causal=True, dropout_rate=0.3,
+                                    dropout_seed=11) * w).sum()
+
+    vg = v.clone().requires_grad_()
+    (gv,) = torch.autograd.grad(loss(vg), vg)
+    lhs = (loss(v + u) - loss(v)).item()
+    rhs = (u * gv).sum().item()
+    assert abs(lhs - rhs) <= 1e-4 * abs(rhs)
+
+
+@pytest.mark.cuda
+def test_flash_dropout_autograd_matches_dense_autograd(cuda_device):
+    """float32: the kernels' autograd with dropout equals autograd through
+    the dense op with the same mask (MQA; k and v one tensor, as MLA
+    passes its latent stream)."""
+    from solvingpapers_tpu_torch.ops import dot_product_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(2, 192, 8, 128, generator=g, device=cuda_device)
+    c = torch.randn(2, 192, 1, 128, generator=g, device=cuda_device)
+    do = torch.randn(2, 192, 8, 128, generator=g, device=cuda_device)
+    q, c = q.requires_grad_(), c.requires_grad_()
+    got = torch.autograd.grad(
+        tfa.flash_attention(q, c, c, causal=True, dropout_rate=0.1,
+                            dropout_seed=42), (q, c), do)
+    want = torch.autograd.grad(
+        dot_product_attention(q, c, c, causal=True, dropout_rate=0.1,
+                              dropout_seed=42, deterministic=False), (q, c), do)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 2e-5

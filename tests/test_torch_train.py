@@ -379,17 +379,43 @@ def test_trainer_refuses_unported_options(option):
         _tiny_trainer(**option)
 
 
-@pytest.mark.parametrize("field,match", [("dropout", "B4"), ("remat", "remat")])
+@pytest.mark.parametrize("field,match", [
+    pytest.param("dropout", "not ported", id="dropout-B4")])
 def test_training_with_dropout_or_remat_raises(field, match):
-    value = 0.1 if field == "dropout" else True
+    """LLaMA's block dropout is not ported: training with it raises.
+    (remat trains now: test_llama_remat_grads_equal_no_remat.)"""
     cfg = LlamaConfig(vocab_size=64, max_seq_len=32, dim=32, n_layers=1,
-                      n_heads=2, n_kv_heads=1, **{field: value})
+                      n_heads=2, n_kv_heads=1, **{field: 0.1})
     model = Llama(cfg, device="cpu")
     tokens = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError, match=match):
         model(tokens)
     with torch.no_grad():  # serving such a config is fine
         assert model.eval()(tokens)[0].shape == (1, 8, 64)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_llama_remat_grads_equal_no_remat(use_flash):
+    """remat=True recomputes each block in the backward
+    (`maybe_remat`): loss and every gradient equal the plain run's
+    exactly (the same ops run on the same inputs)."""
+    cfg = LlamaConfig(vocab_size=64, max_seq_len=32, dim=32, n_layers=2,
+                      n_heads=2, n_kv_heads=1, use_flash=use_flash)
+    weights = Llama(cfg, device="cpu").state_dict()
+    gen = torch.Generator().manual_seed(0)
+    for k, v in weights.items():
+        v.copy_(torch.randn(v.shape, generator=gen) * 0.1)
+    tokens = torch.randint(0, 64, (2, 16), generator=gen)
+    grads = []
+    for remat in (False, True):
+        model = Llama(dataclasses.replace(cfg, remat=remat), device="cpu",
+                      param_dtype=torch.float32)
+        model.load_state_dict(weights)
+        loss = cross_entropy(model(tokens)[0], tokens)
+        loss.backward()
+        grads.append([loss.detach()] + [p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def test_trainer_refuses_a_model_on_another_device():

@@ -26,48 +26,66 @@
 //     lse = 0) contributes nothing;
 //   * lse and delta come from the caller, so a chunked caller (ring
 //     attention) can pass the GLOBAL statistics;
-//   * GQA: q head h reads kv head h / (N / Nkv). The dq kernel reads kv
-//     without repeating it; the dk/dv kernel folds the repeat INSIDE the
-//     block — it loops over the `group` q heads of its kv head and sums
-//     their contributions in a fixed order — so nothing is repeated in
-//     device memory, no atomics are needed, and the result is
+//   * GQA: q head h reads kv head h / (N / Nkv); nothing is repeated in
+//     device memory, no float sum uses atomics, and results are
 //     deterministic.
 //
-// Design (simple kernels; wgmma/TMA and warp specialisation come later).
 // Both kernels keep their output tile in float32 registers and loop inside
 // the block over the other sequence axis (the loop replaces the TPU grid's
-// sequential axis), skipping tiles the causal mask hides entirely:
-//   dq  — one block per (b*N + h, 64-row q tile), looping over kv tiles up
-//         to the last one its rows can see; tiles are issued heaviest
-//         first (the last q tiles see the most kv);
-//   dkv — one block per (b*Nkv + kv head, 64-row kv tile), looping over the
-//         group's q heads and, for each, over q tiles from the first one
-//         that sees the kv tile.
-// Ragged Sq / Skv are masked, not padded: rows and columns past the end
-// load as zeros, get probability 0 and are never stored.
-// bfloat16 (the training path), `*_mma`: 4 warps of 16 output rows; tiles
-// in shared memory as bf16, row-major and (where a product needs it as its
-// B operand along the other axis) transposed; every product on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The score-shaped
-// accumulators (s, dp) are C fragments whose register layout is the A
-// operand layout of the next product, so p and ds never leave registers.
-// p and ds are split into a bf16 high part and a bf16 remainder (two
-// products each), so those products see ~16 bits of them, as the forward
-// does for P; q, k, v and dO are bf16 already, so their products are exact
-// products summed in f32.
-// float32, `*_fma`: 256 threads, each a 4x4 block of the score tile; all
-// products as f32 FMAs on the CUDA cores, exact to ~1e-6.
-// What bounds them: at the training shape (Sq = Skv = 8192, D 64, causal)
-// dq does 3 and dk/dv 4 products of 2*D operations per visible (row,
-// column) pair against O(D) bytes per row, so both are compute-bound at the
-// tensor-core peak. Tiles move with plain 16-byte loads through registers
-// (no TMA, no prefetch), the transposed tiles are written element by
-// element, and the f32 softmax recompute costs more instructions than the
-// products, so the kernels stay well below that bound; PERF.md keeps their
-// measured times beside it.
+// sequential axis), skipping tiles the causal mask hides entirely. Ragged
+// Sq / Skv are masked, not padded: rows past the end load as zeros, get
+// probability 0 and are never stored.
+//
+// bfloat16 (the training path): warp-specialised wgmma kernels.
+//   * A block is one producer warpgroup and CONSUMERS = 2 consumer
+//     warpgroups, each owning a 64-row output tile (the wgmma M): dq — 128
+//     q rows of one (b, q head), looping over 64-row kv tiles; dk/dv — 128
+//     kv rows of one (b, kv head), looping over the q heads it was given
+//     and, for each, over 64-row q tiles. One producer thread starts TMA
+//     loads (cp.async.bulk.tensor, 128-byte swizzle, rows past the end
+//     zero-filled) into a ring of up to 8 stages on mbarriers — k, v for
+//     dq; q, dO for dk/dv, whose producer warp also copies each tile's
+//     lse and delta — while the consumers run wgmma.mma_async (m64nNk16,
+//     bf16 in, f32 accumulate) and the softmax recompute. setmaxnreg moves
+//     registers from the producer (24) to the consumers (240); ptxas then
+//     allocates the consumers' region up to 240 (it reports the launch
+//     bound's 168 for the kernel).
+//   * Every operand lives in shared memory once, row-major as in device
+//     memory; no transposed copy is made. dq: S = Q K^T and dP = dO V^T with
+//     both operands K-major, then dQ += dS K with dS from registers and K
+//     read through wgmma's transpose (MN-major) mode. dk/dv: S^T = K Q^T and
+//     dP^T = V dO^T (M = kv rows), so P^T and dS^T come out as accumulators
+//     whose register layout is the A operand of dV += P^T dO and
+//     dK += dS^T Q, with dO and Q MN-major. The accumulator layout is the
+//     mma.sync C layout per warp (rows 16w + g, +8), so philox.cuh's
+//     keep_bits_rows / keep_bits_cols give the forward's mask bit for bit.
+//   * Within a tile the score products run as two groups: p is recomputed
+//     from S while dP's products still run, and the dropout bits are drawn
+//     while both run. Per-tile decisions (the whole-tile test) are made
+//     before the products start: with that test's branch between the
+//     products and their wait, ptxas serialised every wgmma of the
+//     dropout-free dk/dv kernels.
+//   * p and ds enter their products rounded to bf16, as FlashAttention's
+//     backward does.
+//   * Work split, decided in Python (kernels/flash_attention.py::bwd_plan)
+//     and read here: Params::tiles is the launch order of the output tiles
+//     (heaviest first), and block i takes tile tiles[i / per-tile blocks].
+//     When B * Nkv * kv tiles is too few blocks to fill the card (MQA:
+//     DeepSeek-V3's 8 q heads over one kv head), dk/dv splits the GQA
+//     group over Params::splits blocks per kv tile, each writing float32
+//     partials that the wrapper folds in head order; otherwise the group
+//     folds inside the block and the kernel writes bf16 dk, dv.
+// float32 (the parity path), `*_fma`: 256 threads, each a 4x4 block of the
+// score tile; all products as f32 FMAs on the CUDA cores, exact to ~1e-6.
+// What bounds them: at the training shapes dq does 3 and dk/dv 4 products
+// of 2*D operations per visible (row, column) pair against O(D) bytes per
+// row, so both are compute-bound at the tensor-core peak; PERF.md keeps
+// their measured times beside that bound.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
 
@@ -75,14 +93,14 @@
 
 namespace {
 
-constexpr int BQ = 64;            // q rows per tile
-constexpr int BK = 64;            // kv rows per tile
+constexpr int BQ = 64;            // fma kernels: q rows per tile
+constexpr int BK = 64;            // fma kernels: kv rows per tile
 constexpr int THREADS = 256;      // fma kernels: 16 row groups x 16 lanes
-constexpr int MMA_THREADS = 128;  // mma kernels: 4 warps x 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
 
 // All tensors contiguous: q, dO, dq (B, Sq, N, D); k, v, dk, dv
-// (B, Skv, Nkv, D); lse, delta (B*N, Sq).
+// (B, Skv, Nkv, D), or with splits > 1 float32 dk, dv partials
+// (splits, B, Skv, Nkv, D); lse, delta (B*N, Sq).
 struct Params {
   const void* q;
   const void* k;
@@ -99,10 +117,12 @@ struct Params {
   unsigned long long seed;  // dropout: Philox key
   uint32_t threshold;       // dropout: keep iff word < threshold
   float drop_scale;         // dropout: 1 / (1 - rate)
+  int splits;               // bf16 dk/dv: blocks per (b, kv head, kv tile)
+  const int* tiles;         // bf16: output tiles (BLOCK_ROWS rows) in launch order
 };
 
 // first q row at or after which query rows can see kv column `col`, rounded
-// down to a q tile (0 when every row sees it)
+// down to a 64-row q tile (0 when every row sees it)
 __device__ __forceinline__ int first_live_q(const Params& p, int col) {
   if (!p.causal) return 0;
   const int r = col - (p.Skv - p.Sq);
@@ -434,19 +454,264 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16: warp-specialised wgmma kernels fed by TMA
 
-// mma.sync m16n8k16, row.col, bf16 x bf16 -> f32, accumulating into c.
-// Fragments (g = lane / 4, t = lane % 4): A a0 (g, 2t..2t+1), a1 (g+8, ..),
-// a2 (g, 2t+8..2t+9), a3 (g+8, ..); B b0 (k 2t..2t+1, n g), b1 (k 2t+8..,
-// n g); C c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+constexpr int WG = 128;                           // threads of a warpgroup
+constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
+constexpr int WG_THREADS = WG * (1 + CONSUMERS);  // + the producer warpgroup
+constexpr int TR = 64;                            // rows of a tile (wgmma M)
+constexpr int BLOCK_ROWS = CONSUMERS * TR;        // output rows of a block
+// setmaxnreg budgets within the block's pool of 384 x 168 registers (168:
+// what the launch bound gives a thread): 128 * 24 + 256 * 240 = 64,512
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr uint32_t SMEM_MAX = 227 * 1024;         // a block's shared memory
+constexpr uint32_t PANEL = 64 * 64 * 2;           // one TMA box: 64 rows x 64 bf16
+constexpr uint32_t ROW_BYTES = 128;               // a panel row (8 rows: one swizzle atom)
+
+// A 64-row tile of D columns is D / 64 panels, each a TMA box of 64 rows x
+// 128 bytes in the 128-byte swizzle, 1024-byte aligned.
+template <int D>
+constexpr uint32_t tile_bytes() {
+  return (D / 64) * PANEL;
+}
+
+// shared memory of the dq kernel (byte offsets from a 1024-aligned base):
+// q and dO of the block's CONSUMERS tiles, then per stage a k and a v tile
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t T = tile_bytes<D>();
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t DO = CONSUMERS * T;
+  static constexpr uint32_t KV = 2 * CONSUMERS * T;  // stage s: k at +2sT, v at +(2s+1)T
+  // as many stages as fit, up to 8
+  static constexpr int STAGES = (SMEM_MAX - 2048 - KV) / (2 * T) < 8
+                                    ? (SMEM_MAX - 2048 - KV) / (2 * T)
+                                    : 8;
+  static constexpr uint32_t BARS = KV + STAGES * 2 * T;  // q, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+
+// shared memory of the dk/dv kernel: k and v of the block's CONSUMERS tiles,
+// then per stage a q and a dO tile and the tile's lse (x log2 e) and delta
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t T = tile_bytes<D>();
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = CONSUMERS * T;
+  static constexpr uint32_t STAGE0 = 2 * CONSUMERS * T;
+  static constexpr uint32_t STAGE = 2 * T + 1024;  // q, dO, lse[64], delta[64]
+  static constexpr int STAGES = (SMEM_MAX - 2048 - STAGE0) / STAGE < 8
+                                    ? (SMEM_MAX - 2048 - STAGE0) / STAGE
+                                    : 8;
+  static constexpr uint32_t BARS = STAGE0 + STAGES * STAGE;  // kv, full, empty
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// --- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// arrive and add `bytes` to the transactions the current phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the phase of parity `parity` has completed (the consumers)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// the same for the producer, bounded: a wait of 10 s is a lost arrival, not
+// a slow load, so it traps and the launch fails instead of hanging the card.
+// (Only the producer may trap: a trap in the consumers' region makes ptxas
+// allocate it within the launch bound's 168 registers, not setmaxnreg's.)
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
+  }
+}
+
+// the producer's last wait: until the consumers have released the last
+// STAGES of `iters` loads (so a consumer stuck on a load traps here too)
+template <int STAGES>
+__device__ __forceinline__ void drain(uint32_t bar_empty, int iters) {
+  for (int it = iters > STAGES ? iters - STAGES : 0; it < iters; ++it)
+    mbar_wait_or_trap(bar_empty + 8 * (it % STAGES), (it / STAGES) & 1);
+}
+
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// the D / 64 panels of a 64-row tile starting at `row` of (b, head)
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row, int b) {
+#pragma unroll
+  for (int pn = 0; pn < D / 64; ++pn)
+    tma_load(dst + pn * PANEL, map, bar, pn * 64, head, row, b);
+}
+
+// --- warpgroup register budgets
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// --- wgmma
+
+// shared-memory matrix descriptor in the 128-byte swizzle (start address,
+// leading and stride byte offsets in 16-byte units; layout type 1)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+// K-major operand: a 64-row tile whose D columns are the product's K; step
+// kk is columns 16kk..16kk+15 (32 bytes into a panel row; 8-row groups
+// 1024 bytes apart)
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * PANEL + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand: a 64-row tile whose rows are the product's K and whose D
+// columns are N; step kk is rows 16kk..16kk+15 (8-row groups 1024 bytes
+// apart, 64-column panels PANEL apart)
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * ROW_BYTES, PANEL, 1024);
+}
+
+// 2^x on the SFU (ex2.approx.ftz: relative error ~2^-22, subnormals to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins accumulator registers in place around asynchronous wgmma: code
+// after a wait reads them only after it
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B^T for a 64 x 64 tile: A (64 x 16) and B (64 x 16) both
+// K-major in shared memory (descriptors); accumulate iff `accumulate`
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for a 64 x 64 tile: A (64 x 16) from registers (the
+// mma.sync A fragment layout, warp w holding rows 16w..16w+15), B (16 x 64)
+// MN-major in shared memory (descriptor, transpose mode)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for a 64 x 128 tile: A (64 x 16) from registers (the
+// mma.sync A fragment layout, warp w holding rows 16w..16w+15), B (16 x 128)
+// MN-major in shared memory (descriptor, transpose mode)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // two floats -> one register of two bf16 (the first in the low half)
@@ -455,385 +720,416 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the bf16 remainder x - bf16(x)
-__device__ __forceinline__ float bf16_rest(float x) {
-  return x - __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* x) {
-  return *reinterpret_cast<const uint32_t*>(x);
-}
-
-// A fragment of k-step kk from a row-major bf16 tile (16 rows from `rows`,
-// pitch `pitch`)
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* rows,
-                                       int pitch, int kk, int g, int t) {
-  const __nv_bfloat16* lo = rows + g * pitch + kk * 16 + t * 2;
-  const __nv_bfloat16* hi = lo + 8 * pitch;
-  a[0] = ld32(lo);
-  a[1] = ld32(hi);
-  a[2] = ld32(lo + 8);
-  a[3] = ld32(hi + 8);
-}
-
-// x (in) += the product of a 16 x 64 score-shaped operand held as the C
-// fragments c[0..7] (columns 8n..8n+7 in c[n]) with a (64, 8*NO) B operand
-// stored transposed as bt (8*NO rows of 64, pitch `pitch`): the operand is
-// split into bf16 high and low parts, two products each. With DROP the
-// operand is keep * c * drop_scale, keep = bit n * 4 + e of `keep` for
-// c[n][e] (dropout applied as the fragments are packed: no extra registers).
-template <int NO, bool DROP>
-__device__ __forceinline__ void mma_scores(float acc[NO][4], const float c[8][4],
-                                           const __nv_bfloat16* bt, int pitch,
-                                           int g, int t, uint32_t keep = 0,
-                                           float drop_scale = 1.f) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    float c0[4], c1[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      c0[e] = c[2 * kk][e];
-      c1[e] = c[2 * kk + 1][e];
-      if (DROP) {
-        c0[e] = (keep >> (8 * kk + e)) & 1u ? c0[e] * drop_scale : 0.f;
-        c1[e] = (keep >> (8 * kk + 4 + e)) & 1u ? c1[e] * drop_scale : 0.f;
-      }
-    }
-    const uint32_t hi[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]),
-                            pack_bf16(c1[0], c1[1]), pack_bf16(c1[2], c1[3])};
-    const uint32_t lo[4] = {
-        pack_bf16(bf16_rest(c0[0]), bf16_rest(c0[1])),
-        pack_bf16(bf16_rest(c0[2]), bf16_rest(c0[3])),
-        pack_bf16(bf16_rest(c1[0]), bf16_rest(c1[1])),
-        pack_bf16(bf16_rest(c1[2]), bf16_rest(c1[3]))};
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      const __nv_bfloat16* br = bt + (dn * 8 + g) * pitch + kk * 16 + t * 2;
-      const uint32_t b0 = ld32(br);
-      const uint32_t b1 = ld32(br + 8);
-      mma_bf16(acc[dn], hi, b0, b1);
-      mma_bf16(acc[dn], lo, b0, b1);
-    }
-  }
-}
-
-// c[n] = A (16 x D, as KD fragments read from `arows`) times the 8 rows
-// 8n..8n+7 of the row-major tile `brows` (the B operand, (64, D)), for the
-// 8 n-tiles of a 64-wide score tile
-template <int D>
-__device__ __forceinline__ void mma_rows(float c[8][4], const __nv_bfloat16* arows,
-                                         const __nv_bfloat16* brows, int pitch,
-                                         int g, int t) {
-  constexpr int KD = D / 16;
-  uint32_t a[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) load_a(a[kk], arows, pitch, kk, g, t);
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[nt][j] = 0.f;
-    const __nv_bfloat16* br = brows + (nt * 8 + g) * pitch + t * 2;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      mma_bf16(c[nt], a[kk], ld32(br + kk * 16), ld32(br + kk * 16 + 8));
-  }
-}
-
-// a 64-row tile of a contiguous (rows of `stride` elements) bf16 tensor into
-// shared memory as 16-byte chunks, rows past `n_rows` as zeros; with `tr`,
-// also its transpose (D, 64) at pitch `tpitch`
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int pitch,
-                                          __nv_bfloat16* tr, int tpitch,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0, int n_rows,
-                                          int tid) {
-  constexpr int CH = 64 * D / 8 / MMA_THREADS;  // 16-byte chunks per thread
-#pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const int c = tid + i * MMA_THREADS;
-    const int r = c / (D / 8);
-    const int d = (c - r * (D / 8)) * 8;
-    const int row = row0 + r;
-    const uint4 x = row < n_rows
-                        ? *reinterpret_cast<const uint4*>(src + row * stride + d)
-                        : make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(dst + r * pitch + d) = x;
-    if (tr != nullptr) {
-      const __nv_bfloat16* x8 = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tr[(d + e) * tpitch + r] = x8[e];
-    }
-  }
-}
-
-template <int D>
-struct DqMma {
-  // row pitches in bf16: +8 puts the 8 rows a fragment load touches in
-  // distinct banks (a pitch of 4 * odd words)
-  static constexpr int RP = D + 8;   // q, dO, k, v: (64, D)
-  static constexpr int TP = BK + 8;  // k^T: (D, 64)
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * (4 * 64 * RP + D * TP);
+// The A operands, in bf16, of a 64 x 64 score-shaped f32 accumulator c
+// (c[4n + 2i + j] = row g + 8i, column 8n + 2t + j) for the four k-steps of
+// a product over its columns (step kk: columns 16kk..16kk+15). Built before
+// any product starts, so the f32 tile's registers are free while the
+// products run.
+struct Frags {
+  uint32_t a[4][4];
 };
 
-template <int D, bool DROP>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(Params p) {
-  using TL = DqMma<D>;
-  constexpr int KD = D / 16;
-  constexpr int NO = D / 8;  // output n-tiles
-  extern __shared__ __align__(16) __nv_bfloat16 msmem[];
-  __nv_bfloat16* Qs = msmem;
-  __nv_bfloat16* dOs = Qs + BQ * TL::RP;
-  __nv_bfloat16* Ks = dOs + BQ * TL::RP;
-  __nv_bfloat16* Vs = Ks + BK * TL::RP;
-  __nv_bfloat16* Kt = Vs + BK * TL::RP;
+__device__ __forceinline__ void to_frags(Frags& f, const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f.a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bn = blockIdx.y;
+// acc (64 x D) += the score-shaped tile held as `f` times the 64-row tile
+// at `b` (MN-major: its rows are K)
+template <int D>
+__device__ __forceinline__ void mma_frags(float (&acc)[D / 2], const Frags& f,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, f.a[kk], mnmajor_desc(b, kk));
+}
+
+// c (64 x 64) = the 64-row tile at `a` times the 64-row tile at `b`
+// transposed, both K-major over D columns
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&c)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(c, kmajor_desc(a, kk), kmajor_desc(b, kk), kk > 0);
+}
+
+// one past the last kv column any of rows [r0, r0 + n) (clipped to Sq) can
+// see; 0 when the range holds no row
+__device__ __forceinline__ int kv_end_rows(const Params& p, int r0, int n) {
+  if (r0 >= p.Sq) return 0;
+  if (!p.causal) return p.Skv;
+  const int last = min(r0 + n, p.Sq) - 1;
+  return max(0, min(p.Skv, last + (p.Skv - p.Sq) + 1));
+}
+
+// dq: block i = (q tile p.tiles[i / (B * N)], b * N + h = i % (B * N)), so
+// blocks launch in the plan's order; consumer c owns rows q0 + 64c and
+// skips kv tiles its rows do not see.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using SM = DqSmem<D>;
+  constexpr uint32_t T = SM::T;
+  constexpr int STAGES = SM::STAGES;
+  extern __shared__ uint8_t dsmem[];
+  const uint32_t raw = smem_addr(dsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + SM::BARS;
+  const uint32_t bar_full = bar_q + 8;                // + 8s
+  const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8s
+
+  const int n_bh = p.B * p.N;
+  const int t = blockIdx.x / n_bh;
+  const int bn = blockIdx.x - t * n_bh;
   const int b = bn / p.N;
   const int h = bn - b * p.N;
   const int kvh = h / (p.N / p.Nkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const int offset = p.Skv - p.Sq;
-  const float scale2 = p.scale * LOG2E;
-  const long long qstride = static_cast<long long>(p.N) * D;
-  const long long kstride = static_cast<long long>(p.Nkv) * D;
+  const int q0 = p.tiles[t] * BLOCK_ROWS;
+  const int kv_tiles = (kv_end_rows(p, q0, BLOCK_ROWS) + TR - 1) / TR;
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
-                             (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-
-  load_tile<D>(Qs, TL::RP, nullptr, 0, qg, qstride, q0, p.Sq, tid);
-  load_tile<D>(dOs, TL::RP, nullptr, 0, dog, qstride, q0, p.Sq, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // this warp's 16 q rows of q and dO as A fragments, kept in registers
-  const int wr = warp * 16;
-  uint32_t qa[KD][4], da[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a(qa[kk], Qs + wr * TL::RP, TL::RP, kk, g, t);
-    load_a(da[kk], dOs + wr * TL::RP, TL::RP, kk, g, t);
+  // the thread's role, warp-uniform (read from lane 0) so the compiler
+  // sees two regions
+  const int tx = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tx / WG - 1, 0);
+  if (role < 0) {  // producer
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(bar_q, 2 * CONSUMERS * T);
+      for (int c = 0; c < CONSUMERS; ++c) {
+        tma_tile<D>(base + SM::Q + c * T, &tq, bar_q, h, q0 + c * TR, b);
+        tma_tile<D>(base + SM::DO + c * T, &tdo, bar_q, h, q0 + c * TR, b);
+      }
+#pragma unroll 1  // one tile at a time
+      for (int it = 0; it < kv_tiles; ++it) {
+        const int s = it % STAGES;
+        mbar_wait_or_trap(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(bar_full + 8 * s, 2 * T);
+        const uint32_t kt = base + SM::KV + 2 * s * T;
+        tma_tile<D>(kt, &tk, bar_full + 8 * s, kvh, it * TR, b);
+        tma_tile<D>(kt + T, &tv, bar_full + 8 * s, kvh, it * TR, b);
+      }
+      drain<STAGES>(bar_empty, kv_tiles);
+    }
+    return;
   }
-  // rows owned by this thread: wr + g (i = 0) and wr + g + 8 (i = 1)
+
+  // consumer c: rows q0 + 64c + wr + g + 8i of this thread (i = 0, 1)
+  regs_inc<CONSUMER_REGS>();
+  const int c = role;
+  const int tid = tx % WG;
+  const int wr = (tid / 32) * 16;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int qc = q0 + c * TR;
+  const int offset = p.Skv - p.Sq;
+  const float scale2 = p.scale * LOG2E;
+  const int kv_end = kv_end_rows(p, qc, TR);
+
   float lse2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + wr + g + 8 * i;
+    const int row = qc + wr + g + 8 * i;
     const bool in = row < p.Sq;
     lse2[i] = in ? p.lse[static_cast<long long>(bn) * p.Sq + row] * LOG2E : 0.f;
     dl[i] = in ? p.delta[static_cast<long long>(bn) * p.Sq + row] : 0.f;
   }
-
-  float acc[NO][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int dn = 0; dn < NO; ++dn)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dn][j] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int kv_end = kv_end_for(p, q0);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    load_tile<D>(Ks, TL::RP, Kt, TL::TP, kg, kstride, kv0, p.Skv, tid);
-    load_tile<D>(Vs, TL::RP, nullptr, 0, vg, kstride, kv0, p.Skv, tid);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + g) * TL::RP + t * 2;
-      const __nv_bfloat16* vr = Vs + (nt * 8 + g) * TL::RP + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mma_bf16(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-        mma_bf16(dp[nt], da[kk], ld32(vr + kk * 16), ld32(vr + kk * 16 + 8));
-      }
-    }
-
-    // ds = p * (dp - delta), p recomputed in base 2; s[nt][2i + j] is row
-    // wr + g + 8i, column kv0 + 8nt + 2t + j. A tile every row of this
-    // warp sees whole skips the per-element mask. With dropout, dp is
-    // keep * dp / (1 - rate) (the forward's mask, philox.cuh).
-    const bool whole =
-        kv0 + BK <= p.Skv && (!p.causal || kv0 + BK - 1 <= q0 + wr + offset);
-    uint32_t kb = 0;
-    if (DROP)
-      kb = dropout::keep_bits_rows(p.seed, bn, q0 + wr + g, kv0 + 2 * t,
-                                   p.threshold);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int row = q0 + wr + g + 8 * i;
-          const int col = kv0 + nt * 8 + t * 2 + j;
-          float& x = s[nt][2 * i + j];
-          const float pv = (whole || visible(p, row, col))
-                               ? exp2f(x * scale2 - lse2[i])
-                               : 0.f;
-          float dpv = dp[nt][2 * i + j];
-          if (DROP)
-            dpv = (kb >> (nt * 4 + 2 * i + j)) & 1u ? dpv * p.drop_scale : 0.f;
-          x = pv * (dpv - dl[i]);
-        }
-
-    mma_scores<NO, false>(acc, s, Kt, TL::TP, g, t);  // dq += ds k
-    __syncthreads();  // before the next tile overwrites Ks, Vs, Kt
-  }
-
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) +
-                       (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + wr + g + 8 * i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn)
-      *reinterpret_cast<uint32_t*>(dqg + row * qstride + dn * 8 + t * 2) =
-          pack_bf16(acc[dn][2 * i] * p.scale, acc[dn][2 * i + 1] * p.scale);
-  }
-}
-
-template <int D>
-struct DkvMma {
-  static constexpr int RP = D + 8;   // k, v, q, dO: (64, D)
-  static constexpr int TP = BQ + 8;  // q^T, dO^T: (D, 64)
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * (4 * 64 * RP + 2 * D * TP) + sizeof(float) * 2 * BQ;
-};
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(Params p) {
-  using TL = DkvMma<D>;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) __nv_bfloat16 msmem[];
-  __nv_bfloat16* Ks = msmem;
-  __nv_bfloat16* Vs = Ks + BK * TL::RP;
-  __nv_bfloat16* Qs = Vs + BK * TL::RP;
-  __nv_bfloat16* dOs = Qs + BQ * TL::RP;
-  __nv_bfloat16* Qt = dOs + BQ * TL::RP;
-  __nv_bfloat16* dOt = Qt + D * TL::TP;
-  float* lse_s = reinterpret_cast<float*>(dOt + D * TL::TP);  // x log2(e)
-  float* dl_s = lse_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bkv = blockIdx.y;
-  const int b = bkv / p.Nkv;
-  const int kvh = bkv - b * p.Nkv;
-  const int group = p.N / p.Nkv;
-  const int kv0 = blockIdx.x * BK;
-  const int offset = p.Skv - p.Sq;
-  const float scale2 = p.scale * LOG2E;
-  const long long qstride = static_cast<long long>(p.N) * D;
-  const long long kstride = static_cast<long long>(p.Nkv) * D;
-
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  load_tile<D>(Ks, TL::RP, nullptr, 0, kg, kstride, kv0, p.Skv, tid);
-  load_tile<D>(Vs, TL::RP, nullptr, 0, vg, kstride, kv0, p.Skv, tid);
-
-  // this warp's 16 kv rows: kv0 + wr + g (i = 0) and + 8 (i = 1)
-  const int wr = warp * 16;
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int dn = 0; dn < NO; ++dn)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[dn][j] = dv[dn][j] = 0.f;
-
-  const int q_first = first_live_q(p, kv0);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const long long bn = static_cast<long long>(b) * p.N + h;
-    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                              (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-    const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
-                               (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-    for (int q0 = q_first; q0 < p.Sq; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D>(Qs, TL::RP, Qt, TL::TP, qg, qstride, q0, p.Sq, tid);
-      load_tile<D>(dOs, TL::RP, dOt, TL::TP, dog, qstride, q0, p.Sq, tid);
-      if (tid < BQ) {
-        const int row = q0 + tid;
-        lse_s[tid] = row < p.Sq ? p.lse[bn * p.Sq + row] * LOG2E : 0.f;
-      } else {
-        const int row = q0 + tid - BQ;
-        dl_s[tid - BQ] = row < p.Sq ? p.delta[bn * p.Sq + row] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = k q^T (kv rows x q columns); element [nt][2i + j] is kv row
-      // kv0 + wr + g + 8i, q row q0 + 8nt + 2t + j
-      float s[8][4];
-      mma_rows<D>(s, Ks + wr * TL::RP, Qs, TL::RP, g, t);
-      const bool whole = q0 + BQ <= p.Sq && kv0 + wr + 16 <= p.Skv &&
-                         (!p.causal || kv0 + wr + 15 <= q0 + offset);
+  const uint32_t qs = base + SM::Q + c * T;
+  const uint32_t dos = base + SM::DO + c * T;
+  mbar_wait(bar_q, 0);
+#pragma unroll 1  // one tile at a time
+  for (int it = 0; it < kv_tiles; ++it) {
+    const int s = it % STAGES;
+    const int kv0 = it * TR;
+    const uint32_t ks = base + SM::KV + 2 * s * T;
+    mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+    if (kv0 < kv_end) {
+      // s = q k^T and dp = dO v^T, two groups: p is recomputed while dp's
+      // products still run. sc[4nt + 2i + j] is row qc + wr + g + 8i,
+      // column kv0 + 8nt + 2t + j; a tile every row of this warp sees whole
+      // skips the per-element mask (decided before the products: see the
+      // dk/dv kernel). With dropout, dp is keep * dp / (1 - rate) (the
+      // forward's mask, philox.cuh), its bits drawn while the products run.
+      const bool whole = kv0 + TR <= p.Skv &&
+                         (!p.causal || kv0 + TR - 1 <= qc + wr + offset);
+      float sc[32], dp[32];
+      wgmma_fence();
+      mma_rows<D>(sc, qs, ks);
+      wgmma_commit();
+      mma_rows<D>(dp, dos, ks + T);
+      wgmma_commit();
+      uint32_t kb = 0;
+      if (DROP)
+        kb = dropout::keep_bits_rows(p.seed, bn, qc + wr + g, kv0 + 2 * t4,
+                                     p.threshold);
+      wgmma_wait<1>();
+      hold(sc);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int r = nt * 8 + t * 2 + j;
-            float& x = s[nt][2 * i + j];
-            x = (whole || visible(p, q0 + r, kv0 + wr + g + 8 * i))
-                    ? exp2f(x * scale2 - lse_s[r])
-                    : 0.f;
+            const int e = nt * 4 + 2 * i + j;
+            const int row = qc + wr + g + 8 * i;
+            const int col = kv0 + nt * 8 + t4 * 2 + j;
+            sc[e] = (whole || visible(p, row, col))
+                        ? exp2_approx(sc[e] * scale2 - lse2[i])
+                        : 0.f;
           }
-      // with dropout: this q head's mask in the transposed layout
+      wgmma_wait<0>();
+      hold(dp);
+      // ds = p * (dp - delta)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float dpv = dp[e];
+        if (DROP) dpv = (kb >> e) & 1u ? dpv * p.drop_scale : 0.f;
+        sc[e] *= dpv - dl[(e >> 1) & 1];
+      }
+      Frags fs;
+      to_frags(fs, sc);
+      wgmma_fence();
+      mma_frags<D>(acc, fs, ks);  // dq += ds k
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(acc);
+    }
+    mbar_arrive(bar_empty + 8 * s);
+  }
+  const long long qstride = static_cast<long long>(p.N) * D;
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) +
+                       (static_cast<long long>(b) * p.Sq * p.N + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qc + wr + g + 8 * i;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(dqg + row * qstride + dn * 8 + t4 * 2) =
+          pack_bf16(acc[dn * 4 + 2 * i] * p.scale, acc[dn * 4 + 2 * i + 1] * p.scale);
+  }
+}
+
+// dk/dv: block i = (kv tile p.tiles[i / per_tile], b * Nkv + kv head,
+// split), per_tile = B * Nkv * splits, so blocks launch in the plan's order;
+// the block loops over its group / splits q heads and, for each, over the
+// 64-row q tiles from the first that sees the tile; consumer c owns kv rows
+// kv0 + 64c and skips q tiles that see none of them. With splits > 1 it
+// writes float32 partials (unscaled dv, scaled dk) for the wrapper to fold.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using SM = DkvSmem<D>;
+  constexpr uint32_t T = SM::T;
+  constexpr int STAGES = SM::STAGES;
+  extern __shared__ uint8_t dsmem[];
+  const uint32_t raw = smem_addr(dsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = dsmem + (base - raw);  // the same address, generic
+  const uint32_t bar_kv = base + SM::BARS;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+
+  const int per_tile = p.B * p.Nkv * p.splits;
+  const int t = blockIdx.x / per_tile;
+  const int rest = blockIdx.x - t * per_tile;
+  const int bkv = rest / p.splits;
+  const int split = rest - bkv * p.splits;
+  const int b = bkv / p.Nkv;
+  const int kvh = bkv - b * p.Nkv;
+  const int group = p.N / p.Nkv;
+  const int heads = group / p.splits;
+  const int h0 = kvh * group + split * heads;
+  const int kv0 = p.tiles[t] * BLOCK_ROWS;
+  const int q_first = first_live_q(p, kv0);
+  const int n_q = p.Sq > q_first ? (p.Sq - q_first + TR - 1) / TR : 0;
+  const int iters = heads * n_q;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(bar_empty + 8 * s, CONSUMERS * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tx = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tx / WG - 1, 0);
+  if (role < 0) {  // producer: warp 0 (lane 0 starts the TMA loads)
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_kv, 2 * CONSUMERS * T);
+        for (int c = 0; c < CONSUMERS; ++c) {
+          tma_tile<D>(base + SM::K + c * T, &tk, bar_kv, kvh, kv0 + c * TR, b);
+          tma_tile<D>(base + SM::V + c * T, &tv, bar_kv, kvh, kv0 + c * TR, b);
+        }
+      }
+#pragma unroll 1  // one tile at a time
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % STAGES;
+        const int h = h0 + it / n_q;
+        const int q0 = q_first + (it % n_q) * TR;
+        const long long bn = static_cast<long long>(b) * p.N + h;
+        const uint32_t st = base + SM::STAGE0 + s * SM::STAGE;
+        float* lse_s = reinterpret_cast<float*>(gbase + SM::STAGE0 + s * SM::STAGE + 2 * T);
+        mbar_wait_or_trap(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        for (int r = lane; r < TR; r += 32) {
+          const int row = q0 + r;
+          const bool in = row < p.Sq;
+          lse_s[r] = in ? p.lse[bn * p.Sq + row] * LOG2E : 0.f;
+          lse_s[TR + r] = in ? p.delta[bn * p.Sq + row] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(bar_full + 8 * s, 2 * T);
+          tma_tile<D>(st, &tq, bar_full + 8 * s, h, q0, b);
+          tma_tile<D>(st + T, &tdo, bar_full + 8 * s, h, q0, b);
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
+      }
+      if (lane == 0) drain<STAGES>(bar_empty, iters);
+    }
+    return;
+  }
+
+  // consumer c: kv rows kvc + wr + g + 8i of this thread (i = 0, 1)
+  regs_inc<CONSUMER_REGS>();
+  const int c = role;
+  const int tid = tx % WG;
+  const int wr = (tid / 32) * 16;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int kvc = kv0 + c * TR;
+  const int q_live = kvc < p.Skv ? first_live_q(p, kvc) : p.Sq;
+  const int offset = p.Skv - p.Sq;
+  const float scale2 = p.scale * LOG2E;
+  const uint32_t ks = base + SM::K + c * T;
+  const uint32_t vs = base + SM::V + c * T;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+#pragma unroll 1  // one tile at a time
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % STAGES;
+    const int h = h0 + it / n_q;
+    const int q0 = q_first + (it % n_q) * TR;
+    const uint32_t qs = base + SM::STAGE0 + s * SM::STAGE;
+    const float* lse_s =
+        reinterpret_cast<const float*>(gbase + SM::STAGE0 + s * SM::STAGE + 2 * T);
+    const float* dl_s = lse_s + TR;
+    mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+    if (q0 >= q_live) {
+      // s^T = k q^T and dp^T = v dO^T (kv rows x q columns), two groups;
+      // st[4nt + 2i + j] is kv row kvc + wr + g + 8i, q row q0 + 8nt + 2t + j.
+      // A tile every row of this warp sees whole skips the per-element
+      // mask; that is decided before the products start (see the
+      // header: a branch while they run serialised the kernel's wgmma).
+      const bool whole = q0 + TR <= p.Sq && kvc + wr + 16 <= p.Skv &&
+                         (!p.causal || kvc + wr + 15 <= q0 + offset);
+      float st[32], dpt[32];
+      wgmma_fence();
+      mma_rows<D>(st, ks, qs);
+      wgmma_commit();
+      mma_rows<D>(dpt, vs, qs + T);
+      wgmma_commit();
+      // with dropout: this q head's mask in the transposed layout, drawn
+      // while the products run
       uint32_t kb = 0;
       if (DROP)
-        kb = dropout::keep_bits_cols(p.seed, static_cast<uint32_t>(bn),
-                                     q0 + 2 * t, kv0 + wr + g, p.threshold);
-      // dv += (keep p / (1 - rate))^T dO
-      mma_scores<NO, DROP>(dv, s, dOt, TL::TP, g, t, kb, p.drop_scale);
-
-      float dp[8][4];
-      mma_rows<D>(dp, Vs + wr * TL::RP, dOs, TL::RP, g, t);  // dp^T = v dO^T
+        kb = dropout::keep_bits_cols(p.seed, static_cast<uint32_t>(b * p.N + h),
+                                     q0 + 2 * t4, kvc + wr + g, p.threshold);
+      wgmma_wait<1>();  // s^T is in: p while dp^T's products run
+      hold(st);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float dpv = dp[nt][e];
-          if (DROP)
-            dpv = (kb >> (nt * 4 + e)) & 1u ? dpv * p.drop_scale : 0.f;
-          dp[nt][e] = s[nt][e] * (dpv - dl_s[nt * 8 + t * 2 + (e & 1)]);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = nt * 4 + 2 * i + j;
+            const int r = nt * 8 + t4 * 2 + j;
+            st[e] = (whole || visible(p, q0 + r, kvc + wr + g + 8 * i))
+                        ? exp2_approx(st[e] * scale2 - lse_s[r])
+                        : 0.f;
+          }
+      wgmma_wait<0>();
+      hold(dpt);
+      // ds = p * (dp - delta) with dp (and dv's p) keep * x / (1 - rate)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 2) * 8 + t4 * 2 + (e & 1);
+        const float pv = st[e];
+        float dpv = dpt[e];
+        if (DROP) {
+          const bool kp = (kb >> e) & 1u;
+          st[e] = kp ? pv * p.drop_scale : 0.f;
+          dpv = kp ? dpv * p.drop_scale : 0.f;
         }
-      mma_scores<NO, false>(dk, dp, Qt, TL::TP, g, t);  // dk += ds^T q
+        dpt[e] = pv * (dpv - dl_s[r]);
+      }
+      Frags fp, fs;
+      to_frags(fp, st);
+      to_frags(fs, dpt);
+      wgmma_fence();
+      mma_frags<D>(dv, fp, qs + T);  // dv += (keep p / (1 - rate))^T dO
+      mma_frags<D>(dk, fs, qs);      // dk += ds^T q
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dk);
+      hold(dv);
     }
+    mbar_arrive(bar_empty + 8 * s);
   }
-
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) +
-                       (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) +
-                       (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+  const long long kstride = static_cast<long long>(p.Nkv) * D;
+  const long long head0 = (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+  const long long part0 = static_cast<long long>(split) * p.B * p.Skv * kstride;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int col = kv0 + wr + g + 8 * i;
-    if (col >= p.Skv) continue;
+    const int row = kvc + wr + g + 8 * i;
+    if (row >= p.Skv) continue;
 #pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      *reinterpret_cast<uint32_t*>(dkg + col * kstride + dn * 8 + t * 2) =
-          pack_bf16(dk[dn][2 * i] * p.scale, dk[dn][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvg + col * kstride + dn * 8 + t * 2) =
-          pack_bf16(dv[dn][2 * i], dv[dn][2 * i + 1]);
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int e = dn * 4 + 2 * i;
+      const long long at = head0 + row * kstride + dn * 8 + t4 * 2;
+      if (p.splits == 1) {
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dk) + at) =
+            pack_bf16(dk[e] * p.scale, dk[e + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dv) + at) =
+            pack_bf16(dv[e], dv[e + 1]);
+      } else {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.dk) + part0 + at) =
+            make_float2(dk[e] * p.scale, dk[e + 1] * p.scale);
+        *reinterpret_cast<float2*>(static_cast<float*>(p.dv) + part0 + at) =
+            make_float2(dv[e], dv[e + 1]);
+      }
     }
   }
 }
@@ -841,89 +1137,142 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(Params p) {
 // ---------------------------------------------------------------------------
 // launch
 
+// cuTensorMapEncodeTiled, from libcuda.so.1, which the process has loaded
+// (the runtime library exports no tensor-map encoder; looked up once)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// tensor map of a contiguous bf16 (B, S, H, D) tensor: boxes of 64 rows of
+// one (b, head) by 64 columns, 128-byte swizzle, rows past S read as zeros
+bool bsnh_map(CUtensorMap* map, const void* x, int B, int S, int H, int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(TR), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int NO_TENSOR_MAP = -2;  // no tensor map could be encoded
+
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, bool& configured, dim3 grid, int threads,
-           const Params& p, cudaStream_t stream) {
+int set_smem(Kernel kernel, size_t smem, bool& configured) {
   // the shared-memory attribute is set once per kernel instance
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
+  return 0;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, bool& configured, dim3 grid, int threads,
+           const Params& p, cudaStream_t stream) {
+  if (const int e = set_smem(kernel, smem, configured)) return e;
   kernel<<<grid, threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the wgmma kernels: tensor maps of q, k, v, dO, then one block per entry
+// of the plan
+template <typename Kernel>
+int launch_wgmma(Kernel kernel, size_t smem, bool& configured, int blocks, int D,
+                 const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bsnh_map(&tq, p.q, p.B, p.Sq, p.N, D) ||
+      !bsnh_map(&tk, p.k, p.B, p.Skv, p.Nkv, D) ||
+      !bsnh_map(&tv, p.v, p.B, p.Skv, p.Nkv, D) ||
+      !bsnh_map(&tdo, p.dout, p.B, p.Sq, p.N, D))
+    return NO_TENSOR_MAP;
+  if (const int e = set_smem(kernel, smem, configured)) return e;
+  kernel<<<blocks, WG_THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool DROP>
 int launch_dq_t(int dtype, const Params& p, cudaStream_t s) {
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
   if (dtype == 0) {
     static bool configured = false;
     return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
-                  grid, THREADS, p, s);
+                  dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
   }
   static bool configured = false;
-  return launch(flash_bwd_dq_mma<D, DROP>, DqMma<D>::smem_bytes, configured,
-                grid, MMA_THREADS, p, s);
+  const int blocks = (p.Sq + BLOCK_ROWS - 1) / BLOCK_ROWS * p.B * p.N;
+  return launch_wgmma(flash_bwd_dq_wgmma<D, DROP>, DqSmem<D>::bytes,
+                      configured, blocks, D, p, s);
 }
 
 template <int D, bool DROP>
 int launch_dkv_t(int dtype, const Params& p, cudaStream_t s) {
-  const dim3 grid((p.Skv + BK - 1) / BK, p.B * p.Nkv);
   if (dtype == 0) {
     static bool configured = false;
     return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
-                  grid, THREADS, p, s);
+                  dim3((p.Skv + BK - 1) / BK, p.B * p.Nkv), THREADS, p, s);
   }
   static bool configured = false;
-  return launch(flash_bwd_dkv_mma<D, DROP>, DkvMma<D>::smem_bytes, configured,
-                grid, MMA_THREADS, p, s);
+  const int blocks =
+      (p.Skv + BLOCK_ROWS - 1) / BLOCK_ROWS * p.B * p.Nkv * p.splits;
+  return launch_wgmma(flash_bwd_dkv_wgmma<D, DROP>, DkvSmem<D>::bytes,
+                      configured, blocks, D, p, s);
 }
 
 template <int D>
 int launch_dq(int dtype, bool drop, const Params& p, cudaStream_t s) {
-  return drop ? launch_dq_t<D, true>(dtype, p, s)
-              : launch_dq_t<D, false>(dtype, p, s);
+  return drop ? launch_dq_t<D, true>(dtype, p, s) : launch_dq_t<D, false>(dtype, p, s);
 }
 
 template <int D>
 int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
-  return drop ? launch_dkv_t<D, true>(dtype, p, s)
-              : launch_dkv_t<D, false>(dtype, p, s);
-}
-
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int B, int N, int Nkv, int Sq,
-                   int Skv, float scale, int causal, unsigned long long seed,
-                   unsigned int threshold, float drop_scale) {
-  return Params{q,   k,     v,      dout, lse,  delta, dq,        dk,
-                dv,  B,     N,      Nkv,  Sq,   Skv,   scale,     causal,
-                seed, threshold, drop_scale};
+  return drop ? launch_dkv_t<D, true>(dtype, p, s) : launch_dkv_t<D, false>(dtype, p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every tensor contiguous (the wrapper
-// guarantees it). dropout != 0 redraws the forward's mask from (seed,
-// threshold) and scales kept entries by drop_scale. Each returns 0 on
-// success, the CUDA error code of a refused launch, or -1 for a (dtype,
-// head_dim) pair this library was not built for. The caller launches only
-// with B, N, Sq and Skv all positive.
+// dtype: 0 = float32, 1 = bfloat16. Every tensor contiguous with 16-byte
+// aligned rows (the wrapper guarantees it). dropout != 0 redraws the
+// forward's mask from (seed, threshold) and scales kept entries by
+// drop_scale. bf16 takes `tiles`, device int32: the output tiles of
+// BLOCK_ROWS rows (q tiles for dq, kv tiles for dk/dv) in launch order,
+// each once; float32 ignores it. flash_bwd_dkv with splits > 1 (bf16)
+// splits each kv head's q heads over that many blocks and writes float32
+// partials (splits, B, Skv, Nkv, D) to dk, dv for the caller to sum; splits
+// must divide N / Nkv, and float32 takes 1. Each returns 0 on success, the CUDA
+// error code of a refused launch, -1 for a (dtype, head_dim) pair this
+// library was not built for, or -2 when no tensor map could be made. The
+// caller launches only with B, N, Sq and Skv all positive.
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dq,
                             int B, int N, int Nkv, int Sq, int Skv, float scale,
                             int causal, int dropout, unsigned long long seed,
                             unsigned int threshold, float drop_scale,
-                            void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                               B, N, Nkv, Sq, Skv, scale, causal, seed,
-                               threshold, drop_scale);
+                            const int* tiles, void* stream) {
+  const Params p{q,     k,       v, dout, lse,   delta,  dq,
+                 nullptr, nullptr, B, N,    Nkv,   Sq,     Skv,
+                 scale, causal,  seed, threshold, drop_scale, 1, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1)) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
   if (head_dim == 64) return launch_dq<64>(dtype, dropout != 0, p, s);
   if (head_dim == 128) return launch_dq<128>(dtype, dropout != 0, p, s);
   return -1;
@@ -935,12 +1284,15 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                              void* dv, int B, int N, int Nkv, int Sq, int Skv,
                              float scale, int causal, int dropout,
                              unsigned long long seed, unsigned int threshold,
-                             float drop_scale, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, B, N,
-                               Nkv, Sq, Skv, scale, causal, seed, threshold,
-                               drop_scale);
+                             float drop_scale, int splits, const int* tiles,
+                             void* stream) {
+  const Params p{q,     k,      v,    dout,      lse,        delta,  nullptr,
+                 dk,    dv,     B,    N,         Nkv,        Sq,     Skv,
+                 scale, causal, seed, threshold, drop_scale, splits, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1)) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  if (splits < 1 || (N / Nkv) % splits != 0 || (dtype == 0 && splits != 1))
+    return -1;
   if (head_dim == 64) return launch_dkv<64>(dtype, dropout != 0, p, s);
   if (head_dim == 128) return launch_dkv<128>(dtype, dropout != 0, p, s);
   return -1;

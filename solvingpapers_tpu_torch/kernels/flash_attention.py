@@ -35,6 +35,8 @@ can show which one its main path went through.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -83,14 +85,16 @@ def _bwd_library():
         lib = ctypes.CDLL(str(build.ensure_built("flash_bwd")))
         # (dtype, head_dim, q, k, v, dO, lse, delta, <outputs>, B, N, Nkv,
         #  Sq, Skv, scale, causal, dropout, seed, threshold, drop_scale,
-        #  stream)
-        for fn, n_out in ((lib.flash_bwd_dq, 1), (lib.flash_bwd_dkv, 2)):
+        #  [splits,] tiles, stream)
+        for fn, n_out, n_splits in ((lib.flash_bwd_dq, 1, 0),
+                                    (lib.flash_bwd_dkv, 2, 1)):
             fn.argtypes = (
                 [ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_void_p] * (6 + n_out)
                 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
-                + [ctypes.c_void_p]
+                + [ctypes.c_int] * n_splits
+                + [ctypes.c_void_p] * 2
             )
             fn.restype = ctypes.c_int
         _bwd_lib = lib
@@ -355,32 +359,159 @@ def _bwd_kernel_inputs(q, k, v, do, lse, delta):
     return tuple(ready(x) for x in (q, k, v, do, lse, delta))
 
 
+# The bf16 backward kernels' work split, decided here and read by
+# csrc/flash_bwd.cu. A block is BWD_CONSUMERS warpgroups, each owning
+# BWD_TILE output rows, that loop over BWD_TILE-row tiles of the other
+# sequence axis. dk/dv splits a kv head's q heads over several blocks
+# while it would have fewer than BWD_WAVES blocks per SM of the card.
+BWD_TILE = 64
+BWD_CONSUMERS = 2
+BWD_BLOCK_ROWS = BWD_TILE * BWD_CONSUMERS
+BWD_WAVES = 4
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The bf16 backward kernels' blocks at one shape. Each kernel's
+    output tiles of BWD_BLOCK_ROWS rows (dq: q tiles; dk/dv: kv tiles)
+    launch in the order of `dq_tiles` / `dkv_tiles`, heaviest first: the
+    kernel's block i takes tile ``tiles[i // per_tile]`` and, as
+    ``i % per_tile``, ``b * N + h`` (dq) or ``(b * Nkv + kv head) * splits
+    + split`` (dk/dv). A dk/dv block takes ``group // splits``
+    consecutive q heads of its kv head; with ``splits > 1`` the blocks
+    write float32 partials that `fold_partials` sums in head order, else
+    the group folds inside the block."""
+
+    b: int
+    sq: int
+    skv: int
+    n: int
+    n_kv: int
+    causal: bool
+    splits: int
+    dq_tiles: tuple
+    dkv_tiles: tuple
+
+    @property
+    def group(self) -> int:
+        return self.n // self.n_kv
+
+    @property
+    def dq_blocks(self) -> int:
+        return len(self.dq_tiles) * self.b * self.n
+
+    @property
+    def dkv_blocks(self) -> int:
+        return len(self.dkv_tiles) * self.b * self.n_kv * self.splits
+
+
+def _kv_end(sq, skv, causal, r0, rows):
+    """One past the last kv column rows [r0, r0 + rows) (clipped to Sq)
+    see; 0 when the range holds no row."""
+    if r0 >= sq:
+        return 0
+    if not causal:
+        return skv
+    last = min(r0 + rows, sq) - 1
+    return max(0, min(skv, last + skv - sq + 1))
+
+
+def _first_live_q(sq, skv, causal, col):
+    """The first BWD_TILE-row q tile with a row that sees kv column col."""
+    r = col - (skv - sq) if causal else 0
+    return 0 if r <= 0 else r // BWD_TILE * BWD_TILE
+
+
+@functools.cache
+def bwd_plan(b, sq, skv, n, n_kv, causal, sms=H100_SMS) -> BwdPlan:
+    """The work split of the bf16 backward kernels: dk/dv takes the fewest
+    splits of the GQA group (a divisor of it) that give BWD_WAVES blocks
+    per SM, or one q head per block when none does; each kernel's tiles
+    launch by the BWD_TILE x BWD_TILE tile pairs their consumers compute,
+    most first (ties: later q tiles, earlier kv tiles first)."""
+    causal = bool(causal)
+    t, group = BWD_TILE, n // n_kv
+    folded = -(-skv // BWD_BLOCK_ROWS) * b * n_kv
+    splits = next((s for s in range(1, group + 1)
+                   if group % s == 0 and folded * s >= BWD_WAVES * sms), group)
+
+    def dq_work(j):  # kv tiles the consumers of q tile j compute
+        return sum(-(-_kv_end(sq, skv, causal, r0, t) // t) for r0 in
+                   range(j * BWD_BLOCK_ROWS, (j + 1) * BWD_BLOCK_ROWS, t))
+
+    def dkv_work(j):  # q tiles the consumers of kv tile j compute, a head
+        return sum(-(-(sq - _first_live_q(sq, skv, causal, c)) // t)
+                   for c in range(j * BWD_BLOCK_ROWS,
+                                  min((j + 1) * BWD_BLOCK_ROWS, skv), t))
+
+    dq_tiles = sorted(range(-(-sq // BWD_BLOCK_ROWS)),
+                      key=lambda j: (-dq_work(j), -j))
+    dkv_tiles = sorted(range(-(-skv // BWD_BLOCK_ROWS)),
+                       key=lambda j: (-dkv_work(j), j))
+    return BwdPlan(b, sq, skv, n, n_kv, causal, splits, tuple(dq_tiles),
+                   tuple(dkv_tiles))
+
+
+@functools.cache
+def _tiles_on(tiles: tuple, device: torch.device) -> torch.Tensor:
+    """A plan's tile order as the kernels read it: int32 on the card, made
+    once per order and device and kept for later launches."""
+    return torch.tensor(tiles, dtype=torch.int32, device=device)
+
+
+def fold_partials(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the first axis of float32 partials, in index order
+    (head order): the fold of the GQA group's per-head dk, dv that the
+    reference's `_flash_bwd` does after its kernels."""
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_args(q, k, scale, causal, dropout_rate, dropout_seed):
     b, sq, n, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     scale = d**-0.5 if scale is None else scale
     check_rate(dropout_rate)
     return ((b, n, n_kv, sq, skv, float(scale), int(bool(causal)),
-             *_dropout_args(dropout_rate, dropout_seed),
-             torch.cuda.current_stream(q.device).cuda_stream),
+             *_dropout_args(dropout_rate, dropout_seed)),
             b * n * sq * skv == 0)
+
+
+def _plan_of(q, k, causal):
+    """`bwd_plan` for a launch on q's device (bf16 only)."""
+    b, sq, n, _ = q.shape
+    return bwd_plan(b, sq, k.shape[1], n, k.shape[2], bool(causal),
+                    sms=_sm_count(q.device))
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
                  dropout_rate=0.0, dropout_seed=0):
     """dq by the sm_90a dq kernel (CUDA tensors only; raises on others
-    and when the build or the launch fails)."""
+    and when the build or the launch fails). bf16 blocks launch in
+    `bwd_plan`'s order."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
     args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:
         return torch.zeros_like(q)
+    tiles = None
+    if q.dtype == torch.bfloat16:
+        tiles = _tiles_on(_plan_of(q, k, causal).dq_tiles, q.device).data_ptr()
     dq = torch.empty_like(q)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dq(
             _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), *args)
+            dq.data_ptr(), *args, tiles,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
     flash_bwd_dq.launches += 1
@@ -392,23 +523,48 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
                   dropout_rate=0.0, dropout_seed=0):
-    """(dk, dv) by the sm_90a dk/dv kernel, the GQA fold inside it (CUDA
-    tensors only; raises on others and when the build or the launch
-    fails)."""
+    """(dk, dv) by the sm_90a dk/dv kernel (CUDA tensors only; raises on
+    others and when the build or the launch fails). bf16 takes
+    `bwd_plan`'s split of each kv head's q heads over blocks and folds
+    their float32 partials here in head order; with one split, and always
+    in float32, the group folds inside the block."""
+    return _launch_dkv(q, k, v, do, lse, delta, None, causal=causal,
+                       scale=scale, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, splits, *, causal=False, scale=None,
+                dropout_rate=0.0, dropout_seed=0):
+    """`flash_bwd_dkv` with bf16's split given (None: the plan's), for the
+    checks and timings that compare the split with the in-block fold."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
     args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:
         return torch.zeros_like(k), torch.zeros_like(v)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    tiles = None
+    if q.dtype == torch.float32:
+        splits = 1
+    else:
+        plan = _plan_of(q, k, causal)
+        splits = plan.splits if splits is None else splits
+        tiles = _tiles_on(plan.dkv_tiles, q.device).data_ptr()
+    if splits == 1:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    else:
+        dk, dv = (torch.empty((splits, *k.shape), dtype=torch.float32,
+                              device=k.device) for _ in range(2))
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dkv(
             _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *args)
+            dk.data_ptr(), dv.data_ptr(), *args, int(splits), tiles,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
     flash_bwd_dkv.launches += 1
+    if splits > 1:
+        dk, dv = fold_partials(dk).to(k.dtype), fold_partials(dv).to(v.dtype)
     return dk, dv
 
 

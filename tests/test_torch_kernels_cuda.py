@@ -315,3 +315,78 @@ def test_flash_dropout_autograd_matches_dense_autograd(cuda_device):
                               dropout_seed=42, deterministic=False), (q, c), do)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= 2e-5
+
+
+# ------------------------------------------- the bf16 backward's work split
+
+def _chip_smoke():
+    """`chip_smoke.py` (no JAX), for its exact read-out of the kernels'
+    dropout masks."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n,n_kv,d,rate,splits,folds", [
+    # MQA at D 128, group 8, ragged: the plan splits the group, one q head
+    # a block, float32 partials folded in head order
+    (1, 1000, 8, 1, 128, 0.0, None, False),
+    (1, 1000, 8, 1, 128, 0.1, None, False),
+    # four q heads folded in a block, two partials
+    (1, 1000, 8, 1, 128, 0.1, 2, False),
+    # GQA group 2 at D 64 with 17 x 32 = 544 blocks: the in-block fold
+    (4, 2112, 16, 8, 64, 0.0, None, True),
+])
+def test_flash_backward_split_and_fold_are_right_and_deterministic(
+        cuda_device, b, s, n, n_kv, d, rate, splits, folds):
+    """bf16 dq and dk/dv on both sides of the plan's split, against the
+    plain backward (max |kernel - plain| / max |plain| within 1e-2), and
+    a second call on the same inputs bit-identical (no atomics; the fold
+    sums the partials in head order)."""
+    plan = tfa.bwd_plan(b, s, s, n, n_kv, True,
+                        sms=tfa._sm_count(cuda_device))
+    assert (plan.splits == 1) == folds
+    kw = dict(causal=True, dropout_rate=rate, dropout_seed=77)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in _qkv(21, b, s, s, n, n_kv, d))
+    do = torch.randn(b, s, n, d, device=cuda_device).bfloat16()
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    delta = tfa.flash_delta(do, o)
+
+    def grads():
+        return (tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *tfa._launch_dkv(q, k, v, do, lse, delta, splits, **kw))
+
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                            do.float(), lse, delta, **kw)
+    for x, y, want in zip(got, again, ref):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all()
+        assert torch.equal(x, y)
+        assert _rel_err(x, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_backward_split_path_redraws_the_mask_bit_for_bit(cuda_device):
+    """MQA at D 128, group 8, S 1000, rate 0.1 (the dk/dv split path): the
+    dq and dk/dv kernels' masks, read out exactly through their outputs,
+    equal the plain keep function's on every visible element."""
+    from solvingpapers_tpu_torch.ops.attention import causal_mask
+
+    b, s, n, d, rate, seed = 1, 1000, 8, 128, 0.1, 20261017
+    assert tfa.bwd_plan(b, s, s, n, 1, True,
+                        sms=tfa._sm_count(cuda_device)).splits == 8
+    got = _chip_smoke().kernel_masks(cuda_device, torch.bfloat16, b, s, n, d,
+                                     rate, seed)
+    want = (tdr.dropout_keep_reference(seed, rate, b * n, s, s,
+                                       device=cuda_device)
+            & causal_mask(s, s, device=cuda_device))
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert int((got[kernel] != want).sum()) == 0, kernel

@@ -46,7 +46,8 @@
 //     zero-filled) into a ring of up to 8 stages on mbarriers — k, v for
 //     dq; q, dO for dk/dv, whose producer warp also copies each tile's
 //     lse and delta — while the consumers run wgmma.mma_async (m64nNk16,
-//     bf16 in, f32 accumulate) and the softmax recompute. setmaxnreg moves
+//     bf16 in, f32 accumulate) and the softmax recompute (those Hopper
+//     helpers, shared with the forward, live in hopper.cuh). setmaxnreg moves
 //     registers from the producer (24) to the consumers (240); ptxas then
 //     allocates the consumers' region up to 240 (it reports the launch
 //     bound's 168 for the kernel).
@@ -82,16 +83,17 @@
 // row, so both are compute-bound at the tensor-core peak; PERF.md keeps
 // their measured times beside that bound.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;            // fma kernels: q rows per tile
 constexpr int BK = 64;            // fma kernels: kv rows per tile
@@ -456,18 +458,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
 // ---------------------------------------------------------------------------
 // bfloat16: warp-specialised wgmma kernels fed by TMA
 
-constexpr int WG = 128;                           // threads of a warpgroup
 constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
 constexpr int WG_THREADS = WG * (1 + CONSUMERS);  // + the producer warpgroup
 constexpr int TR = 64;                            // rows of a tile (wgmma M)
 constexpr int BLOCK_ROWS = CONSUMERS * TR;        // output rows of a block
-// setmaxnreg budgets within the block's pool of 384 x 168 registers (168:
-// what the launch bound gives a thread): 128 * 24 + 256 * 240 = 64,512
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;
-constexpr uint32_t SMEM_MAX = 227 * 1024;         // a block's shared memory
-constexpr uint32_t PANEL = 64 * 64 * 2;           // one TMA box: 64 rows x 64 bf16
-constexpr uint32_t ROW_BYTES = 128;               // a panel row (8 rows: one swizzle atom)
 
 // A 64-row tile of D columns is D / 64 panels, each a TMA box of 64 rows x
 // 128 bytes in the 128-byte swizzle, 1024-byte aligned.
@@ -507,218 +501,6 @@ struct DkvSmem {
   static constexpr uint32_t BARS = STAGE0 + STAGES * STAGE;  // kv, full, empty
   static constexpr size_t bytes = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// --- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// arrive and add `bytes` to the transactions the current phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the phase of parity `parity` has completed (the consumers)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// the same for the producer, bounded: a wait of 10 s is a lost arrival, not
-// a slow load, so it traps and the launch fails instead of hanging the card.
-// (Only the producer may trap: a trap in the consumers' region makes ptxas
-// allocate it within the launch bound's 168 registers, not setmaxnreg's.)
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  uint64_t t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
-  while (!mbar_try_wait(bar, parity)) {
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    if (t - t0 > 10000000000ull) __trap();
-  }
-}
-
-// the producer's last wait: until the consumers have released the last
-// STAGES of `iters` loads (so a consumer stuck on a load traps here too)
-template <int STAGES>
-__device__ __forceinline__ void drain(uint32_t bar_empty, int iters) {
-  for (int it = iters > STAGES ? iters - STAGES : 0; it < iters; ++it)
-    mbar_wait_or_trap(bar_empty + 8 * (it % STAGES), (it / STAGES) & 1);
-}
-
-// one box of a 4-d tensor map (coordinates innermost first) into shared
-// memory at `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// the D / 64 panels of a 64-row tile starting at `row` of (b, head)
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int head, int row, int b) {
-#pragma unroll
-  for (int pn = 0; pn < D / 64; ++pn)
-    tma_load(dst + pn * PANEL, map, bar, pn * 64, head, row, b);
-}
-
-// --- warpgroup register budgets
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// --- wgmma
-
-// shared-memory matrix descriptor in the 128-byte swizzle (start address,
-// leading and stride byte offsets in 16-byte units; layout type 1)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-
-// K-major operand: a 64-row tile whose D columns are the product's K; step
-// kk is columns 16kk..16kk+15 (32 bytes into a panel row; 8-row groups
-// 1024 bytes apart)
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk / 4) * PANEL + (kk % 4) * 32, 16, 1024);
-}
-
-// MN-major operand: a 64-row tile whose rows are the product's K and whose D
-// columns are N; step kk is rows 16kk..16kk+15 (8-row groups 1024 bytes
-// apart, 64-column panels PANEL apart)
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  return sw128_desc(tile + kk * 16 * ROW_BYTES, PANEL, 1024);
-}
-
-// 2^x on the SFU (ex2.approx.ftz: relative error ~2^-22, subnormals to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// pins accumulator registers in place around asynchronous wgmma: code
-// after a wait reads them only after it
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A B^T for a 64 x 64 tile: A (64 x 16) and B (64 x 16) both
-// K-major in shared memory (descriptors); accumulate iff `accumulate`
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B for a 64 x 64 tile: A (64 x 16) from registers (the
-// mma.sync A fragment layout, warp w holding rows 16w..16w+15), B (16 x 64)
-// MN-major in shared memory (descriptor, transpose mode)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for a 64 x 128 tile: A (64 x 16) from registers (the
-// mma.sync A fragment layout, warp w holding rows 16w..16w+15), B (16 x 128)
-// MN-major in shared memory (descriptor, transpose mode)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// two floats -> one register of two bf16 (the first in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // The A operands, in bf16, of a 64 x 64 score-shaped f32 accumulator c
 // (c[4n + 2i + j] = row g + 8i, column 8n + 2t + j) for the four k-steps of
@@ -1137,43 +919,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 // ---------------------------------------------------------------------------
 // launch
 
-// cuTensorMapEncodeTiled, from libcuda.so.1, which the process has loaded
-// (the runtime library exports no tensor-map encoder; looked up once)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// tensor map of a contiguous bf16 (B, S, H, D) tensor: boxes of 64 rows of
-// one (b, head) by 64 columns, 128-byte swizzle, rows past S read as zeros
-bool bsnh_map(CUtensorMap* map, const void* x, int B, int S, int H, int D) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(TR), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int NO_TENSOR_MAP = -2;  // no tensor map could be encoded
-
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem, bool& configured) {
   // the shared-memory attribute is set once per kernel instance
@@ -1200,10 +945,10 @@ template <typename Kernel>
 int launch_wgmma(Kernel kernel, size_t smem, bool& configured, int blocks, int D,
                  const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  if (!bsnh_map(&tq, p.q, p.B, p.Sq, p.N, D) ||
-      !bsnh_map(&tk, p.k, p.B, p.Skv, p.Nkv, D) ||
-      !bsnh_map(&tv, p.v, p.B, p.Skv, p.Nkv, D) ||
-      !bsnh_map(&tdo, p.dout, p.B, p.Sq, p.N, D))
+  if (!bsnh_map(&tq, p.q, p.B, p.Sq, p.N, D, TR) ||
+      !bsnh_map(&tk, p.k, p.B, p.Skv, p.Nkv, D, TR) ||
+      !bsnh_map(&tv, p.v, p.B, p.Skv, p.Nkv, D, TR) ||
+      !bsnh_map(&tdo, p.dout, p.B, p.Sq, p.N, D, TR))
     return NO_TENSOR_MAP;
   if (const int e = set_smem(kernel, smem, configured)) return e;
   kernel<<<blocks, WG_THREADS, smem, stream>>>(tq, tk, tv, tdo, p);

@@ -3,73 +3,106 @@
 // kernels/flash_attention.py).
 //
 // Replaces the Pallas TPU kernel solvingpapers_tpu/kernels/flash_attention.py
-// `_fwd_kernel` (launched by `_fwd`) with its in-kernel dropout: online-
-// softmax attention over BSNH tensors that never writes the (Sq, Skv) score
-// matrix to device memory, returning o (input dtype) and the per-row
-// log-sum-exp (float32).
+// `_fwd_kernel` (launched by `_fwd`, pallas_call at line 271) with its
+// in-kernel dropout: online-softmax attention over BSNH tensors that never
+// writes the (Sq, Skv) score matrix to device memory, returning o (input
+// dtype) and the per-row log-sum-exp (float32).
 //
 // Semantics, exactly those of the TPU kernel:
 //   * causal or bidirectional; the causal mask is END-aligned,
 //     offset = Skv - Sq: query row r sees kv columns c <= r + offset;
 //   * offset < 0 leaves the first rows with no visible key: such rows get
-//     o = 0 and lse = 0 (masked probabilities are zeroed, not exp(0));
+//     o = 0 and lse = 0 (a masked probability is 0, never exp(BIG_NEG - m));
 //   * GQA: q head h reads kv head h / (N / Nkv), kv is never repeated;
+//   * ragged Sq / Skv are masked, not padded;
 //   * attention-prob dropout at rate > 0: the row sum l takes the
 //     UNdropped probabilities (lse is of the undropped mass), the PV
 //     product takes keep * p / (1 - rate), with keep the philox.cuh mask of
 //     (seed, b * N + h, row, col) — the one the backward kernels redraw;
 //     rate 0 compiles the kernels without any of it (template DROP);
 //   * scores, softmax state, the PV accumulator and the final division
-//     are float32 (the float32 kernel scales q before QK^T as the TPU
-//     kernel does; the bf16 kernel scales the float32 scores, the same
-//     value up to rounding, and runs the softmax in base 2).
+//     are float32.
 //
-// Design (simple kernels; wgmma/TMA and warp specialisation come later).
-// Common to both dtypes:
-//   * one thread block per (b*N + h, 64-row q tile);
-//   * an in-block loop over 64-column kv tiles, stopping at the last tile
-//     any row of the q tile can see (the causal skip) — this loop takes
-//     the place of the TPU grid's sequential kv axis;
-//   * the row's online-softmax state (max, sum) and its output
-//     accumulator stay in registers, in float32;
-//   * ragged Sq / Skv are masked: rows past Sq are computed and not
-//     stored, columns past Skv get probability 0 (and zeroed V rows).
-// bfloat16 (the serving path), `flash_fwd_mma`: 4 warps, 16 q rows each;
-// Q, K and V^T tiles in shared memory as bf16; QK^T and PV on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The score
-// accumulator's register layout is the A operand layout of the PV
-// product, so P never leaves registers. P is split into a bf16 high part
-// and a bf16 remainder (two PV products), so PV sees ~16 bits of P and
-// the result stays as close to the float32 reference as the CUDA-core
-// kernel was; QK^T is exact products of bf16 inputs summed in f32.
-// float32, `flash_fwd_fma`: 256 threads, Q, K, V and P tiles in shared
-// memory as f32, each thread a 4x4 block of the score tile; both products
-// as f32 FMAs on the CUDA cores, so f32 stays exact to ~1e-6.
-// What bounds it: at the serving shapes (Sq, Skv in the thousands, D 64)
-// the work is ~4*D operations per visible (row, column) pair against
-// 2*D bytes per kv row, i.e. compute-bound at the tensor-core peak. The
-// bf16 kernel moves tiles with plain 16-byte loads through registers
-// into shared memory (the next tile's loads overlap this tile's
-// products; no TMA), runs mma.sync rather than wgmma, and its f32
-// softmax costs more instructions than its products, so it stays well
-// below that bound.
+// What bounds it on an H100: per visible (row, column) pair the two
+// products take 4 * D operations against O(D) bytes per row, so at the
+// serving and training shapes (sequences in the thousands) the kernel is
+// compute-bound at the bf16 tensor-core rate (989 TFLOP/s, about 4096
+// operations a clock an SM). At D 64 the softmax weighs as much: each pair
+// needs one ex2 on the SFU (16 a clock an SM), 1/16 clock, the same as
+// its 256 tensor operations. A kernel that runs the softmax after its
+// products reaches at most half the tensor rate there.
+//
+// bfloat16 (every training and serving call), `flash_fwd_wgmma<D, DROP>`:
+//   * A block is one producer warpgroup and two consumer warpgroups; each
+//     consumer owns 64 q rows (the wgmma M) of one (b, q head), so a block
+//     covers 128 q rows. setmaxnreg moves registers from the producer (24)
+//     to the consumers (240). Blocks launch heaviest first: block i takes
+//     q tile (tiles - 1 - i / (B * N)), so under the causal mask the tiles
+//     that see the most keys start first and the grid's tail is light.
+//   * One producer thread loads the block's q tiles once, then keeps k and
+//     v tiles of BKV = 128 rows in flight: TMA (cp.async.bulk.tensor) in
+//     the 128-byte swizzle into a ring of stages on mbarriers, rows past
+//     Skv zero-filled. Tiles of 128 kv rows make the score product
+//     m64n128 (half the issue overhead of n64 per operation) and keep
+//     S (64 floats a thread) + P (32 registers of bf16) + O (D / 2 floats)
+//     within 240 registers at D 128 without spills. Stages: as many as the
+//     227 KB of shared memory hold after the q tiles, up to 8 (32 KB each
+//     at D 64: 6; 64 KB at D 128: 3); k_j and v_j share a stage, released
+//     when P_j V_j is done, so two stages are held and the rest prefetch.
+//     The tensor maps take each tensor's own strides and Skv as the row
+//     extent, so a sequence slice of the serving cache is read in place.
+//   * S = Q K^T runs as wgmma m64n128k16 with both operands K-major from
+//     shared memory; the softmax runs in base 2 on the float32 accumulator
+//     (ex2.approx). It masks only tiles a row does not see whole, with
+//     -inf where the TPU kernel fills BIG_NEG: the probability is 0 either
+//     way, and 2^-inf needs no select per element, which the softmax-bound
+//     D 64 kernel pays for. P goes to bf16 once, as the register A operand
+//     of O += P V, whose V tile wgmma reads in its MN-major (transpose) mode
+//     straight from the tile TMA wrote. No transposed copy of V exists.
+//     With dropout P V also takes P's bf16 remainder (see to_frags_split):
+//     one more product a tile, under the Philox work's time.
+//   * The softmax overlaps the products two ways. Within a consumer, the
+//     loop issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} together, then
+//     runs tile j's softmax while P_{j-1} V_{j-1} is still in the tensor
+//     cores (FlashAttention-3's two-stage pipeline); O is rescaled by
+//     tile j's factor once that product is done. Between consumers, two
+//     named barriers make them take turns issuing their products, so one
+//     consumer's softmax runs while the other's products do. With dropout
+//     (P and its remainder, below) a consumer runs S_j, the softmax and
+//     P_j V_j in order and draws tile j+1's Philox bits after P_j V_j,
+//     while the other consumer's products run: the pipeline's registers
+//     (S, P twice, O), or Philox beside a product's, made ptxas spill.
+//   * Every per-tile decision (whole tile or masked) is made before the
+//     products issue: a branch between a wgmma and its wait makes ptxas
+//     serialise every wgmma of the kernel.
+//   * Epilogue: o = acc * (1 / l) (times 1 / (1 - rate) with dropout) in
+//     float32, written as bf16 into the consumer's q tile in the swizzled
+//     layout and stored by TMA (rows past Sq are not written); lse by the
+//     first thread of each row's quad.
+// float32 (the parity paths), `flash_fwd_fma`: one block per (b * N + h,
+// 64-row q tile), 256 threads, Q, K, V and P tiles in shared memory as f32,
+// each thread a 4x4 block of the score tile; both products as f32 FMAs on
+// the CUDA cores, exact to ~1e-6; q scaled before QK^T as the TPU kernel
+// does. Its in-block loop over 64-column kv tiles stops at the last tile
+// any row of the q tile can see (the causal skip).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // kv columns per tile
+using namespace hopper;
+
+constexpr int BQ = 64;        // fma kernel: q rows per block
+constexpr int BK = 64;        // fma kernel: kv columns per tile
 constexpr int THREADS = 256;  // fma kernel: 16 row groups x 16 column lanes
-constexpr int MMA_THREADS = 128;  // mma kernel: 4 warps x 16 q rows
 constexpr float BIG_NEG = -1073741824.0f;  // -2**30, the reference's fill
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -258,274 +291,377 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_fma(Params p) {
           empty ? 0.f : m[i] + logf(l[i]);
   }
 }
-
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// bfloat16: a warp-specialised wgmma kernel fed by a TMA ring
 
-// mma.sync m16n8k16, row.col, bf16 x bf16 -> f32, accumulating into c.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
+constexpr int WG_THREADS = WG * (1 + CONSUMERS);  // + the producer warpgroup
+constexpr int TQ = 64;                            // q rows of a consumer (wgmma M)
+constexpr int BLOCK_Q = CONSUMERS * TQ;           // q rows of a block
+constexpr int BKV = 128;                          // kv rows of a tile (S's N)
+constexpr uint32_t KV_PANEL = BKV * ROW_BYTES;    // a 64-column panel of a kv tile
+constexpr int SCHED_BAR = 1;   // named barriers 1, 2: the consumers' turns
+constexpr int STORE_BAR = 3;   // 3, 4: a consumer's o tile is written
 
-// two floats -> one register of two bf16 (the first in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the bf16 remainder x - bf16(x), for the low half of a split P
-__device__ __forceinline__ float bf16_rest(float x) {
-  return x - __bfloat162float(__float2bfloat16_rn(x));
-}
-
+// shared memory (byte offsets from a 1024-aligned base): the consumers' q
+// tiles (each later its o tile), then per stage a k and a v tile, then the
+// mbarriers
 template <int D>
-struct MmaTile {
-  // row pitches in bf16: +8 puts the 8 rows a fragment load touches in
-  // distinct banks (a pitch of 4*odd words)
-  static constexpr int QP = D + 8;
-  static constexpr int KP = D + 8;
-  static constexpr int VP = BK + 8;  // V is stored transposed: (D, BK)
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * (BQ * QP + BK * KP + D * VP);
+struct FwdSmem {
+  static constexpr uint32_t QT = (D / 64) * PANEL;     // a consumer's q tile
+  static constexpr uint32_t KT = (D / 64) * KV_PANEL;  // a k or v tile
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t KV = CONSUMERS * QT;  // stage s: k at +2sKT, v at +(2s+1)KT
+  static constexpr int STAGES = (SMEM_MAX - 2048 - KV) / (2 * KT) < 8
+                                    ? (SMEM_MAX - 2048 - KV) / (2 * KT)
+                                    : 8;
+  static_assert(STAGES >= 2, "k_j and v_{j-1} are held together");
+  static constexpr uint32_t BARS = KV + STAGES * 2 * KT;  // q, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
 };
 
-template <int D, bool DROP>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(Params p) {
-  using TL = MmaTile<D>;
-  constexpr int KD = D / 16;  // k-steps of QK^T
-  constexpr int NS = BK / 8;  // score n-tiles per kv tile
-  constexpr int NO = D / 8;   // output n-tiles
-  constexpr int CH = BQ * D / 8 / MMA_THREADS;  // 16-byte chunks per thread
-  static_assert(BQ == BK, "one chunk count serves the Q and K/V tiles");
-  extern __shared__ __align__(16) __nv_bfloat16 msmem[];
-  __nv_bfloat16* Qs = msmem;
-  __nv_bfloat16* Ks = Qs + BQ * TL::QP;
-  __nv_bfloat16* Vt = Ks + BK * TL::KP;
+// one past the last kv column any of rows [r0, r0 + n) (clipped to Sq) can
+// see; 0 when the range holds no row
+__device__ __forceinline__ int kv_end_rows(const Params& p, int r0, int n) {
+  if (r0 >= p.Sq) return 0;
+  if (!p.causal) return p.Skv;
+  const int last = min(r0 + n, p.Sq) - 1;
+  return max(0, min(p.Skv, last + (p.Skv - p.Sq) + 1));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row (and B column) group
-  const int t = lane & 3;   // thread in the group
-  const int bn = blockIdx.y;
+// sc (64 x 128) = the q tile at `q` times the kv tile at `k` transposed,
+// both K-major over D columns (sc's old values are not read)
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&sc)[64], uint32_t q, uint32_t k) {
+  wgmma_ss_n128_first(sc, kmajor_desc(q, 0), kmajor_desc(k, 0, KV_PANEL));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk)
+    wgmma_ss_n128(sc, kmajor_desc(q, kk), kmajor_desc(k, kk, KV_PANEL), 1);
+}
+
+// P of a 64 x 128 score tile as the bf16 A operands of the 8 k-steps of
+// P V: sc[4nt + 2i + j] is row g + 8i, column 8nt + 2t + j, and step kk
+// takes columns 16kk..16kk+15 (the mma.sync A fragment layout)
+__device__ __forceinline__ void to_frags(uint32_t (&pf)[8][4], const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pf[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// With dropout, P as bf16 and its bf16 remainder sc - bf16(sc), for a
+// second P V product: P then enters with ~16 bits. At rate 0.5 an output is
+// twice its kept keys' weighted mean, up to ~8 in the smoke's cases, where
+// o's own bf16 rounding takes 0.0156 of the 0.02 limit, and P rounded once
+// moved o 0.0204 from the plain version (measured on an H100).
+__device__ __forceinline__ void to_frags_split(uint32_t (&pf)[8][4], uint32_t (&pl)[8][4],
+                                               const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = sc[8 * kk + 2 * r], b = sc[8 * kk + 2 * r + 1];
+      pf[kk][r] = pack_bf16(a, b);
+      pl[kk][r] = pack_bf16(a - __bfloat162float(__float2bfloat16_rn(a)),
+                            b - __bfloat162float(__float2bfloat16_rn(b)));
+    }
+}
+
+// the A operands' registers stay untouched until the wait before this
+__device__ __forceinline__ void hold_frags(uint32_t (&pf)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) hold(pf[kk]);
+}
+
+// o (64 x D) += P (A operands) times the kv tile at `v` (MN-major: its
+// rows are K)
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&pf)[8][4],
+                                       uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pf[kk], mnmajor_desc(v, kk, KV_PANEL));
+}
+
+// One tile's online softmax, in place: sc holds the raw scores of kv
+// columns kv0.. of this thread's rows row0 and row0 + 8 and leaves with
+// their probabilities 2^((s - m) scale log2 e) for P V (0 where masked, and
+// with dropout 0 where dropped). m (raw units: scale > 0) and this thread's
+// share of l are updated; returns through alpha the factor O must be
+// rescaled by. `whole` (every element visible) was decided before the
+// products issued; it skips the masking pass (one branch a tile).
+template <bool DROP>
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const Params& p, int row0, int kv0,
+                                             int t4, bool whole, float scale2,
+                                             const uint32_t (&kb)[2]) {
+  if (!whole) {
+    // row row0 + 8i sees the columns below lim[i] (relative to this
+    // thread's first column of the tile); a masked score is -inf
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lim = (p.causal ? min(p.Skv, row0 + 8 * i + p.Skv - p.Sq + 1) : p.Skv) -
+                      (kv0 + 2 * t4);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& x = sc[4 * nt + 2 * i + j];
+          x = 8 * nt + j < lim ? x : -INFINITY;
+        }
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+  float ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // a row that has seen no visible key keeps max -inf: it subtracts 0,
+    // so its masked scores give 2^-inf = 0 (never 2^(-inf + inf)) and l
+    // stays 0 (the empty-row guard); alpha is 0 until its first key
+    ms[i] = mx[i] == -INFINITY ? 0.f : mx[i] * scale2;
+    alpha[i] = m[i] == -INFINITY ? 0.f : exp2_approx((m[i] - mx[i]) * scale2);
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const int i = (e >> 1) & 1;
+    const float pv = exp2_approx(fmaf(sc[e], scale2, -ms[i]));
+    l[i] += pv;
+    sc[e] = (!DROP || ((kb[e >> 5] >> (e & 31)) & 1u)) ? pv : 0.f;
+  }
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to, const Params p) {
+  using SM = FwdSmem<D>;
+  constexpr uint32_t QT = SM::QT;
+  constexpr uint32_t KT = SM::KT;
+  constexpr int STAGES = SM::STAGES;
+  extern __shared__ uint8_t dsmem[];
+  const uint32_t raw = smem_addr(dsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = dsmem + (base - raw);  // the same address, generic
+  const uint32_t bar_q = base + SM::BARS;
+  const uint32_t bar_full = bar_q + 8;                // + 8s
+  const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8s
+
+  const int n_bh = p.B * p.N;
+  const int q_tiles = (p.Sq + BLOCK_Q - 1) / BLOCK_Q;
+  const int bn = blockIdx.x % n_bh;
+  const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.x) / n_bh) * BLOCK_Q;  // heaviest first
   const int b = bn / p.N;
   const int h = bn - b * p.N;
   const int kvh = h / (p.N / p.Nkv);
-  const int q0 = blockIdx.x * BQ;
-  const int offset = p.Skv - p.Sq;
-  const float scale2 = p.scale * LOG2E;
+  const int kv_tiles = (kv_end_rows(p, q0, BLOCK_Q) + BKV - 1) / BKV;
 
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.sk_b + kvh * p.sk_h;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.sv_b + kvh * p.sv_h;
-
-  // Q tile: 16-byte chunks of 8 bf16 (the wrapper guarantees 16-byte
-  // aligned rows), zero past Sq
-#pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const int c = tid + i * MMA_THREADS;
-    const int r = c / (D / 8);
-    const int d = (c - r * (D / 8)) * 8;
-    const int row = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * TL::QP + d) =
-        row < p.Sq ? *reinterpret_cast<const uint4*>(qg + row * p.sq_s + d)
-                   : make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // this warp's 16 q rows as A fragments, kept in registers
-  const int wr = warp * 16;
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const __nv_bfloat16* q_lo = Qs + (wr + g) * TL::QP + kk * 16 + t * 2;
-    const __nv_bfloat16* q_hi = q_lo + 8 * TL::QP;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_lo);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_hi);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_lo + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_hi + 8);
+  // the thread's role, warp-uniform (read from lane 0) so the compiler
+  // sees two regions
+  const int tx = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tx / WG - 1, 0);
+  if (role < 0) {  // producer
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(bar_q, CONSUMERS * QT);
+      for (int c = 0; c < CONSUMERS; ++c)
+        tma_tile<D>(base + SM::Q + c * QT, &tq, bar_q, h, q0 + c * TQ, b);
+#pragma unroll 1  // one tile at a time
+      for (int it = 0; it < kv_tiles; ++it) {
+        const int s = it % STAGES;
+        mbar_wait_or_trap(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(bar_full + 8 * s, 2 * KT);
+        const uint32_t kt = base + SM::KV + 2 * s * KT;
+        tma_tile<D, BKV>(kt, &tk, bar_full + 8 * s, kvh, it * BKV, b);
+        tma_tile<D, BKV>(kt + KT, &tv, bar_full + 8 * s, kvh, it * BKV, b);
+      }
+      drain<STAGES>(bar_empty, kv_tiles);
+    }
+    return;
   }
 
-  int kv_end = p.Skv;
-  if (p.causal) {
-    const int last_row = min(q0 + BQ, p.Sq) - 1;
-    kv_end = min(p.Skv, last_row + offset + 1);
-  }
+  // consumer c: rows row0 = qc + wr + g and row0 + 8 of this thread
+  regs_inc<CONSUMER_REGS>();
+  const int c = role;
+  const int tid = tx % WG;
+  const int wr = (tid / 32) * 16;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int qc = q0 + c * TQ;
+  const int row0 = qc + wr + g;
+  const int offset = p.Skv - p.Sq;
+  const float scale2 = p.scale * LOG2E;
+  const uint32_t qs = base + SM::Q + c * QT;
 
-  // rows owned by this thread: wr + g (i = 0) and wr + g + 8 (i = 1)
-  float m[2] = {BIG_NEG, BIG_NEG};
-  float l[2] = {0.f, 0.f};
-  float o[NO][4];
+  float o[D / 2];
 #pragma unroll
-  for (int dn = 0; dn < NO; ++dn)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[dn][j] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float alpha[2];
+  float sc[64];
+  uint32_t pf[8][4], pl[8][4];  // P (with dropout: and its remainder), bf16
+  uint32_t kb[2] = {0u, 0u};
 
-  // K and V tiles move as 16-byte chunks through registers: the next
-  // tile's loads are issued before this tile's products, so their
-  // latency hides behind the compute. Columns past Skv load as zeros.
-  uint4 kbuf[CH], vbuf[CH];
-  auto load_kv = [&](int kv0) {
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = tid + i * MMA_THREADS;
-      const int r = c / (D / 8);
-      const int d = (c - r * (D / 8)) * 8;
-      const int col = kv0 + r;
-      const bool in = col < p.Skv;
-      kbuf[i] = in ? *reinterpret_cast<const uint4*>(kg + col * p.sk_s + d)
-                   : make_uint4(0, 0, 0, 0);
-      vbuf[i] = in ? *reinterpret_cast<const uint4*>(vg + col * p.sv_s + d)
-                   : make_uint4(0, 0, 0, 0);
+  // a tile every row of this warp sees whole skips the per-element mask
+  auto whole_tile = [&](int kv0) {
+    return kv0 + BKV <= p.Skv && (!p.causal || kv0 + BKV - 1 <= qc + wr + offset);
+  };
+  auto draw_bits = [&](int kv0) {
+    if (DROP) {
+      kb[0] = dropout::keep_bits_rows(p.seed, bn, row0, kv0 + 2 * t4, p.threshold);
+      kb[1] = dropout::keep_bits_rows(p.seed, bn, row0, kv0 + 64 + 2 * t4, p.threshold);
     }
   };
-  if (kv_end > 0) load_kv(0);
+  auto k_tile = [&](int s) { return base + SM::KV + 2 * s * KT; };
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+  // the consumers take turns issuing their products: consumer 0 first
+  if (c == 1) bar_arrive(SCHED_BAR, 2 * WG);
+  mbar_wait(bar_q, 0);
+  if (kv_tiles > 0) {
+    // tile 0: its scores and softmax
+    bool whole = whole_tile(0);
+    draw_bits(0);
+    mbar_wait(bar_full, 0);
+    bar_sync(SCHED_BAR + c, 2 * WG);
+    wgmma_fence();
+    mma_scores<D>(sc, qs, k_tile(0));
+    wgmma_commit();
+    bar_arrive(SCHED_BAR + (c ^ 1), 2 * WG);
+    wgmma_wait<0>();
+    hold(sc);
+    softmax_tile<DROP>(sc, m, l, alpha, p, row0, 0, t4, whole, scale2, kb);
+    if constexpr (!DROP) {
+      // tile it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} issue
+      // together; tile it's softmax runs while the second still does
+#pragma unroll 1  // one tile at a time
+      for (int it = 1; it < kv_tiles; ++it) {
+        const int s = it % STAGES;
+        const int sp = (it - 1) % STAGES;
+        const int kv0 = it * BKV;
+        to_frags(pf, sc);
+        whole = whole_tile(kv0);
+        mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+        bar_sync(SCHED_BAR + c, 2 * WG);
+        wgmma_fence();
+        mma_scores<D>(sc, qs, k_tile(s));
+        wgmma_commit();
+        mma_pv<D>(o, pf, k_tile(sp) + KT);
+        wgmma_commit();
+        bar_arrive(SCHED_BAR + (c ^ 1), 2 * WG);
+        wgmma_wait<1>();
+        hold(sc);
+        softmax_tile<DROP>(sc, m, l, alpha, p, row0, kv0, t4, whole, scale2, kb);
+        wgmma_wait<0>();
+        hold(o);
+        hold_frags(pf);
+        mbar_arrive(bar_empty + 8 * sp);
 #pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = tid + i * MMA_THREADS;
-      const int r = c / (D / 8);
-      const int d = (c - r * (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ks + r * TL::KP + d) = kbuf[i];
-      const __nv_bfloat16* v8 = reinterpret_cast<const __nv_bfloat16*>(&vbuf[i]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(d + e) * TL::VP + r] = v8[e];
-    }
-    __syncthreads();
-    if (kv0 + BK < kv_end) load_kv(kv0 + BK);
-
-    float s[NS][4];
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + g) * TL::KP + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_bf16(s[nt], qa[kk],
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-    }
-
-    // online softmax in base 2 (scores times scale * log2(e), m in the
-    // same units); s[nt][2*i + j] is row wr + g + 8*i, column
-    // kv0 + nt*8 + t*2 + j. A tile every row of this warp sees whole
-    // skips the per-element mask.
-    const bool whole =
-        kv0 + BK <= p.Skv && (!p.causal || kv0 + BK - 1 <= q0 + wr + offset);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + wr + g + 8 * i;
-      if (whole) {
-#pragma unroll
-        for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) s[nt][2 * i + j] *= scale2;
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = kv0 + nt * 8 + t * 2 + j;
-            const bool vis = col < p.Skv && (!p.causal || col <= row + offset);
-            float& x = s[nt][2 * i + j];
-            x = vis ? x * scale2 : BIG_NEG;
-          }
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
       }
-      float rmax = BIG_NEG;
+      // the last tile's P V
+      const int sp = (kv_tiles - 1) % STAGES;
+      to_frags(pf, sc);
+      wgmma_fence();
+      mma_pv<D>(o, pf, k_tile(sp) + KT);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(o);
+      mbar_arrive(bar_empty + 8 * sp);
+    } else {
+      // With dropout P V takes P and its remainder (64 registers): held
+      // beside S and O while the softmax ran, they made ptxas spill. So a
+      // consumer runs its tiles in order — S_it, softmax, P_it V_it — and
+      // draws the next tile's Philox bits between P_it V_it and S_it+1,
+      // when only O is held (drawn while a product ran, the 16 Philox
+      // chains ptxas interleaves spilled at D 128); the other consumer's
+      // products fill the tensor cores meanwhile.
+#pragma unroll 1  // one tile at a time
+      for (int it = 0; it < kv_tiles; ++it) {
+        const int sp = it % STAGES;
+        const int kv1 = (it + 1) * BKV;
+        const bool more = it + 1 < kv_tiles;
+        to_frags_split(pf, pl, sc);
+        whole = whole_tile(kv1);
+        wgmma_fence();
+        mma_pv<D>(o, pf, k_tile(sp) + KT);
+        mma_pv<D>(o, pl, k_tile(sp) + KT);
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(o);
+        hold_frags(pf);
+        hold_frags(pl);
+        mbar_arrive(bar_empty + 8 * sp);
+        if (!more) break;
+        draw_bits(kv1);
+        const int s = (it + 1) % STAGES;
+        mbar_wait(bar_full + 8 * s, ((it + 1) / STAGES) & 1);
+        bar_sync(SCHED_BAR + c, 2 * WG);
+        wgmma_fence();
+        mma_scores<D>(sc, qs, k_tile(s));
+        wgmma_commit();
+        bar_arrive(SCHED_BAR + (c ^ 1), 2 * WG);
+        wgmma_wait<0>();
+        hold(sc);
+        softmax_tile<DROP>(sc, m, l, alpha, p, row0, kv1, t4, whole, scale2, kb);
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-        rmax = fmaxf(rmax, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = exp2f(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          // a masked probability is 0, never 2^(BIG_NEG - m_new): a row
-          // that has seen no visible key keeps l == 0 (the empty-row guard)
-          float& x = s[nt][2 * i + j];
-          x = x > 0.5f * BIG_NEG ? exp2f(x - m_new) : 0.f;
-          rsum += x;
-        }
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int dn = 0; dn < NO; ++dn) {
-        o[dn][2 * i] *= alpha;
-        o[dn][2 * i + 1] *= alpha;
-      }
-    }
-
-    // dropout after the row sums: l keeps the undropped mass, PV takes
-    // keep * p / (1 - rate); one Philox call per four of this thread's
-    // elements (philox.cuh)
-    if (DROP) {
-      const uint32_t kb = dropout::keep_bits_rows(
-          p.seed, bn, q0 + wr + g, kv0 + 2 * t, p.threshold);
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[nt][e] = (kb >> (nt * 4 + e)) & 1u ? s[nt][e] * p.drop_scale : 0.f;
-    }
-
-    // PV: the score accumulators of n-tiles 2kk and 2kk+1 are the A
-    // fragment of k-step kk; P = hi + lo, both bf16
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const float* s0 = s[2 * kk];
-      const float* s1 = s[2 * kk + 1];
-      const uint32_t ph[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                              pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-      const uint32_t pl[4] = {
-          pack_bf16(bf16_rest(s0[0]), bf16_rest(s0[1])),
-          pack_bf16(bf16_rest(s0[2]), bf16_rest(s0[3])),
-          pack_bf16(bf16_rest(s1[0]), bf16_rest(s1[1])),
-          pack_bf16(bf16_rest(s1[2]), bf16_rest(s1[3]))};
-#pragma unroll
-      for (int dn = 0; dn < NO; ++dn) {
-        const __nv_bfloat16* vr = Vt + (dn * 8 + g) * TL::VP + kk * 16 + t * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vr + 8);
-        mma_bf16(o[dn], ph, b0, b1);
-        mma_bf16(o[dn], pl, b0, b1);
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
       }
     }
-    __syncthreads();  // before the next tile overwrites Ks and Vt
   }
+  if (c == 0) bar_sync(SCHED_BAR, 2 * WG);  // consumer 1's last turn
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o);
+  // epilogue: o = acc / l (times 1 / (1 - rate)), lse = m scale + ln l;
+  // rows that saw no key get o = 0 and lse = 0
+  float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + wr + g + 8 * i;
-    if (row >= p.Sq) continue;
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const bool empty = !(l[i] > 0.f);
-    const float inv = empty ? 0.f : 1.f / l[i];
-    // o is allocated contiguous (B, Sq, N, D)
-    __nv_bfloat16* orow =
-        og + ((static_cast<long long>(b) * p.Sq + row) * p.N + h) * D;
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + t * 2) =
-          pack_bf16(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
-    if (t == 0)
+    inv[i] = empty ? 0.f : (DROP ? p.drop_scale : 1.f) / l[i];
+    const int row = row0 + 8 * i;
+    if (t4 == 0 && row < p.Sq)
       p.lse[static_cast<long long>(bn) * p.Sq + row] =
-          empty ? 0.f : m[i] * LN2 + logf(l[i]);
+          empty ? 0.f : m[i] * p.scale + logf(l[i]);
+  }
+  // o into this consumer's q tile (its last reader, S, is done) in the
+  // 128-byte swizzle: 16-byte chunk k of row r sits at chunk k ^ (r % 8),
+  // and r % 8 == g; then one TMA store a panel
+  uint8_t* ot = gbase + SM::Q + c * QT;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(ot + (dn / 8) * PANEL + r * ROW_BYTES +
+                                   (((dn % 8) ^ g) * 16) + t4 * 4) =
+          pack_bf16(o[dn * 4 + 2 * i] * inv[i], o[dn * 4 + 2 * i + 1] * inv[i]);
+  }
+  fence_async_shared();
+  bar_sync(STORE_BAR + c, WG);
+  if (tid == 0 && qc < p.Sq) {
+#pragma unroll
+    for (int pn = 0; pn < D / 64; ++pn) tma_store(qs + pn * PANEL, &to, pn * 64, h, qc, b);
+    tma_store_wait();
   }
 }
 
@@ -554,13 +690,23 @@ int launch_fma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// tensor maps of q, k, v (their own strides; Skv rows, at least one: with
+// Skv 0 no tile is loaded) and of o (allocated contiguous), then one block
+// per 128-row q tile and (b, q head)
 template <int D, bool DROP>
-int launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = MmaTile<D>::smem_bytes;
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  const int skv = p.Skv > 0 ? p.Skv : 1;
+  if (!bsnh_map(&tq, p.q, p.B, p.Sq, p.N, D, p.sq_b, p.sq_s, p.sq_h, TQ) ||
+      !bsnh_map(&tk, p.k, p.B, skv, p.Nkv, D, p.sk_b, p.sk_s, p.sk_h, BKV) ||
+      !bsnh_map(&tv, p.v, p.B, skv, p.Nkv, D, p.sv_b, p.sv_s, p.sv_h, BKV) ||
+      !bsnh_map(&to, p.o, p.B, p.Sq, p.N, D, TQ))
+    return NO_TENSOR_MAP;
+  constexpr size_t smem = FwdSmem<D>::bytes;
   static bool configured = false;
-  if (const int e = set_smem(flash_fwd_mma<D, DROP>, smem, configured)) return e;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
-  flash_fwd_mma<D, DROP><<<grid, MMA_THREADS, smem, stream>>>(p);
+  if (const int e = set_smem(flash_fwd_wgmma<D, DROP>, smem, configured)) return e;
+  const int blocks = (p.Sq + BLOCK_Q - 1) / BLOCK_Q * p.B * p.N;
+  flash_fwd_wgmma<D, DROP><<<blocks, WG_THREADS, smem, stream>>>(tq, tk, tv, to, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,16 +714,19 @@ template <int D>
 int launch(int dtype, bool drop, const Params& p, cudaStream_t s) {
   if (dtype == 0)
     return drop ? launch_fma<D, true>(p, s) : launch_fma<D, false>(p, s);
-  return drop ? launch_mma<D, true>(p, s) : launch_mma<D, false>(p, s);
+  return drop ? launch_wgmma<D, true>(p, s) : launch_wgmma<D, false>(p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dropout != 0 applies attention-prob
-// dropout with the Philox key `seed`, keeping a probability iff its word is
-// below `threshold` and scaling it by `drop_scale`. Returns 0 on success,
-// the CUDA error code of a refused launch, or -1 for a (dtype, head_dim)
-// pair this library was not built for.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, the head_dim
+// axis has unit stride; bf16 takes a base and (b, s, h) strides on 16-byte
+// boundaries (the wrapper copies what is not), float32 any. dropout != 0
+// applies attention-prob dropout with the Philox key `seed`, keeping a
+// probability iff its word is below `threshold` and scaling it by
+// `drop_scale`. Returns 0 on success, the CUDA error code of a refused
+// launch, -1 for a (dtype, head_dim) pair this library was not built for,
+// or -2 when no tensor map could be made.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, void* o, float* lse,
                          int B, int N, int Nkv, int Sq, int Skv,

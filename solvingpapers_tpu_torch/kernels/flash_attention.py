@@ -119,12 +119,44 @@ def _check_shapes(q, k, v) -> None:
         raise ValueError(f"q heads {n} not a multiple of kv heads {k.shape[2]}")
 
 
-def _rows_16b_aligned(x: torch.Tensor) -> bool:
-    """Every (b, s, h) row of `x` starts on a 16-byte boundary."""
+_TMA_STRIDE_LIMIT = 2**40  # bytes: a tensor map's strides stay below it
+
+
+def tma_strides(x: torch.Tensor) -> tuple | None:
+    """The (B, S, H) strides, in elements, with which the bf16 forward
+    kernel's tensor maps read the (B, S, H, D) tensor `x` in place, or
+    None when TMA cannot: a base off 16 bytes, or a stride that is not a
+    positive multiple of 16 bytes below 2**40. An axis of length 1 is
+    never stepped over, so its stride is replaced by the one a contiguous
+    layout would give it. The kernel takes the extents from the shape, so
+    a cache slice keeps its own batch stride and TMA zero-fills past its
+    length."""
     el = x.element_size()
-    return x.data_ptr() % 16 == 0 and all(
-        (st * el) % 16 == 0 for st, size in zip(x.stride()[:3], x.shape[:3])
-        if size > 1)
+    if x.data_ptr() % 16:
+        return None
+    strides, inner = [], x.shape[3]  # inner: the elements one step spans
+    for size, st in zip(reversed(x.shape[:3]), reversed(x.stride()[:3])):
+        st = inner if size == 1 else st
+        if st <= 0 or st * el % 16 or st * el >= _TMA_STRIDE_LIMIT:
+            return None
+        strides.append(st)
+        inner = size * st
+    return tuple(reversed(strides))
+
+
+def fwd_tma_inputs(q, k, v):
+    """q, k and v as the bf16 forward kernel reads them, each with its
+    `tma_strides`: a tensor TMA can read in place passes as it is (a
+    sequence slice of the serving cache among them); only one it cannot
+    is copied, contiguous, first."""
+    out = []
+    for x in (q, k, v):
+        strides = tma_strides(x)
+        if strides is None:
+            x = x.clone(memory_format=torch.contiguous_format)
+            strides = tma_strides(x)
+        out.append((x, strides))
+    return out
 
 
 def _visible(sq, skv, causal, device):
@@ -233,8 +265,9 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     tensors this is the plain version; on CUDA tensors it launches the
     sm_90a kernel (float32 or bfloat16, D in {64, 128}, unit stride on
     the last axis — other strides are passed through, so a cache slice
-    needs no copy) on the current stream, and raises if the build or the
-    launch fails. ``dropout_rate > 0`` drops attention probabilities with
+    needs no copy; see `fwd_tma_inputs` for what bf16 copies) on the
+    current stream, and raises if the build, a tensor map or the launch
+    fails. ``dropout_rate > 0`` drops attention probabilities with
     the keep mask of `dropout_seed` (a 64-bit int; see `kernels.dropout`).
     """
     _check_shapes(q, k, v)
@@ -249,10 +282,15 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
                                          dropout_seed=dropout_seed)
     _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
-        # the tensor-core kernel moves rows as 16-byte chunks
-        q, k, v = (x if _rows_16b_aligned(x)
-                   else x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
+        if not scale > 0:
+            raise ValueError(f"the bf16 kernel takes scale > 0 (its softmax "
+                             f"keeps the row max of unscaled scores), got {scale}")
+        # the tensor-core kernel reads q, k, v through TMA tensor maps of
+        # their own strides
+        (q, qs), (k, ks), (v, vs) = fwd_tma_inputs(q, k, v)
+        strides = [*qs, *ks, *vs]
+    else:
+        strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
     o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * n, 1, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -262,14 +300,14 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
         err = lib.flash_fwd(
             _DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, n, n_kv, sq, skv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            lse.data_ptr(), b, n, n_kv, sq, skv, *strides,
             float(scale), int(bool(causal)),
             *_dropout_args(dropout_rate, dropout_seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed: error {err} "
+                           "(-2: no tensor map could be encoded)")
     flash_attention_fwd.launches += 1
     return o, lse
 

@@ -187,14 +187,15 @@ def test_bad_shapes_raise(shapes, match):
 
 def test_row_alignment_check():
     """The bf16 kernel's wrapper copies a tensor whose rows do not all
-    start on 16-byte boundaries; the check looks at the base pointer and
-    at the strides of every axis longer than one."""
+    start on 16-byte boundaries (no tensor map reads it in place); the
+    check looks at the base pointer and at the strides of every axis
+    longer than one."""
     x = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
-    assert tfa._rows_16b_aligned(x)
-    assert tfa._rows_16b_aligned(x[:, 2:5])  # a sequence slice, as prefill
-    assert not tfa._rows_16b_aligned(x.view(-1)[1:1 + 8 * 4 * 64].view(1, 8, 4, 64))
+    assert tfa.tma_strides(x) is not None
+    assert tfa.tma_strides(x[:, 2:5]) is not None  # a sequence slice, as prefill
+    assert tfa.tma_strides(x.view(-1)[1:1 + 8 * 4 * 64].view(1, 8, 4, 64)) is None
     y = torch.zeros(1, 8, 4, 68, dtype=torch.bfloat16)[..., :64]
-    assert not tfa._rows_16b_aligned(y)  # 136-byte rows
+    assert tfa.tma_strides(y) is None  # 136-byte rows
 
 
 def test_library_path_follows_source_and_flags(monkeypatch):

@@ -43,6 +43,12 @@ def _qkv(seed, b, sq, skv, n, n_kv, d):
     (1, 128, 1152, 16, 8, 64, True, torch.bfloat16),
     (1, 2048, 2048, 16, 8, 64, True, torch.bfloat16),
     (2, 256, 384, 16, 8, 64, False, torch.bfloat16),
+    (1, 1000, 1300, 16, 8, 64, True, torch.bfloat16),  # not multiples of 64
+    (2, 700, 700, 16, 8, 64, True, torch.bfloat16),    # B 2, GQA group 2
+    (2, 333, 515, 16, 2, 64, True, torch.bfloat16),    # B 2, GQA group 8
+    (1, 1, 1000, 16, 8, 64, True, torch.bfloat16),     # Sq 1
+    (2, 1, 77, 8, 1, 128, False, torch.bfloat16),
+    (1, 300, 100, 8, 2, 128, True, torch.bfloat16),    # empty rows
     (1, 96, 32, 4, 2, 128, True, torch.float32),
     (2, 37, 100, 4, 4, 64, False, torch.float32),
     (1, 37, 100, 4, 2, 64, True, torch.float32),
@@ -81,9 +87,59 @@ def test_flash_kernel_reads_a_strided_cache_slice(cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_bf16_kernel_reads_a_cache_slice_in_place(cuda_device):
+    """bf16 prefill over a sequence slice of a batch-2 cache (Skv > Sq):
+    the kernel's tensor maps take the slice's strides, so the call
+    allocates o and lse only, never a copy of k or v; two calls are
+    bit-identical."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cache_k, cache_v = (torch.randn(2, 4096, 8, 64, generator=g,
+                                    device=cuda_device).bfloat16()
+                        for _ in range(2))
+    k, v = cache_k[:, :3072], cache_v[:, :3072]
+    q = torch.randn(2, 512, 16, 64, generator=g, device=cuda_device).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    allocated = torch.cuda.memory_allocated(cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (torch.cuda.max_memory_allocated(cuda_device) - allocated
+            < k.numel() * k.element_size())
+    ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=True)
+    assert (o.float() - ro).abs().max().item() <= 2e-2
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    o2, lse2 = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,skv,rate", [(1, 1000, 1000, 0.0), (2, 777, 901, 0.0),
+                                          (1, 1000, 1000, 0.1)])
+def test_flash_bf16_kernel_with_k_is_v_at_d128(cuda_device, b, s, skv, rate):
+    """MLA's call: one (B, S, 1, 128) tensor as both k and v, 8 q heads,
+    ragged; within the bf16 limits of the plain version, two calls
+    bit-identical."""
+    r = np.random.default_rng(9)
+    q = torch.from_numpy(r.standard_normal((b, s, 8, 128)).astype(np.float32)
+                         ).to(cuda_device, torch.bfloat16)
+    c = torch.from_numpy(r.standard_normal((b, skv, 1, 128)).astype(np.float32)
+                         ).to(cuda_device, torch.bfloat16)
+    kw = dict(causal=True, dropout_rate=rate, dropout_seed=19)
+    o, lse = tfa.flash_attention_fwd(q, c, c, **kw)
+    ro, rlse = tfa.flash_attention_reference(q.float(), c.float(), c.float(),
+                                             **kw)
+    assert (o.float() - ro).abs().max().item() <= 2e-2
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    o2, lse2 = tfa.flash_attention_fwd(q, c, c, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_copies_rows_off_16_byte_boundaries(cuda_device):
-    """The bf16 kernel moves rows as 16-byte chunks: a view that starts
-    off a 16-byte boundary is copied first, never read misaligned."""
+    """The bf16 kernel reads rows through TMA, which takes 16-byte
+    boundaries: a view that starts off one is copied first, never read
+    misaligned."""
     shape = (1, 40, 4, 64)
     flat = torch.randn(2 * 40 * 4 * 64, device=cuda_device, dtype=torch.bfloat16)
     q = flat[1:1 + 40 * 4 * 64].view(shape)
@@ -97,11 +153,15 @@ def test_flash_kernel_copies_rows_off_16_byte_boundaries(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "stride", "device"])
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "stride", "device",
+                                 "scale"])
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, bad):
     q = torch.randn(1, 8, 2, 64, device=cuda_device)
     k = torch.randn(1, 8, 2, 64, device=cuda_device)
-    if bad == "dtype":
+    scale = None
+    if bad == "scale":  # the bf16 kernel keeps row maxima of unscaled scores
+        q, k, scale = q.bfloat16(), k.bfloat16(), -0.125
+    elif bad == "dtype":
         q, k = q.half(), k.half()
     elif bad == "head_dim":
         q, k = q[..., :32], k[..., :32].contiguous()
@@ -112,7 +172,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, bad):
     elif bad == "device":
         k = k.cpu()
     with pytest.raises(ValueError):
-        tfa.flash_attention_fwd(q, k, k, causal=True)
+        tfa.flash_attention_fwd(q, k, k, causal=True, scale=scale)
 
 
 # ---------------------------------------------------------------- backward

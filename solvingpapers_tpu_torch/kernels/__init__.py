@@ -7,6 +7,8 @@ version and a launch counter beside its wrapper.
 
 from solvingpapers_tpu_torch.kernels.dropout import (
     dropout,
+    dropout_apply,
+    dropout_apply_reference,
     dropout_keep_reference,
     dropout_mask,
 )
@@ -27,13 +29,17 @@ def reset_counts() -> None:
     flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = 0
     dropout_mask.launches = 0
+    dropout_apply.launches = 0
     flash_attention_reference.calls = 0
     flash_attention_bwd_reference.calls = 0
     dropout_keep_reference.calls = 0
+    dropout_apply_reference.calls = 0
 
 
 __all__ = [
     "dropout",
+    "dropout_apply",
+    "dropout_apply_reference",
     "dropout_keep_reference",
     "dropout_mask",
     "flash_attention",

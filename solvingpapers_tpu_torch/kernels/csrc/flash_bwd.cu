@@ -76,8 +76,11 @@
 //     group over Params::splits blocks per kv tile, each writing float32
 //     partials that the wrapper folds in head order; otherwise the group
 //     folds inside the block and the kernel writes bf16 dk, dv.
-// float32 (the parity path), `*_fma`: 256 threads, each a 4x4 block of the
-// score tile; all products as f32 FMAs on the CUDA cores, exact to ~1e-6.
+// float32 (the parity path and the small float32 configs), `*_fma` at D 16,
+// 32, 64 and 128: 256 threads, each a 4x4 block of the score tile and D / 16
+// output columns; all products as f32 FMAs on the CUDA cores, exact to
+// ~1e-6. Their row pitches (D + 4, D + 1) keep shared-memory reads
+// conflict-free at every D, as in flash_fwd.cu.
 // What bounds them: at the training shapes dq does 3 and dk/dv 4 products
 // of 2*D operations per visible (row, column) pair against O(D) bytes per
 // row, so both are compute-bound at the tensor-core peak; PERF.md keeps
@@ -956,12 +959,21 @@ int launch_wgmma(Kernel kernel, size_t smem, bool& configured, int blocks, int D
 }
 
 template <int D, bool DROP>
-int launch_dq_t(int dtype, const Params& p, cudaStream_t s) {
-  if (dtype == 0) {
-    static bool configured = false;
-    return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
-                  dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
-  }
+int launch_dq_fma(const Params& p, cudaStream_t s) {
+  static bool configured = false;
+  return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
+                dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
+}
+
+template <int D, bool DROP>
+int launch_dkv_fma(const Params& p, cudaStream_t s) {
+  static bool configured = false;
+  return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
+                dim3((p.Skv + BK - 1) / BK, p.B * p.Nkv), THREADS, p, s);
+}
+
+template <int D, bool DROP>
+int launch_dq_wgmma(const Params& p, cudaStream_t s) {
   static bool configured = false;
   const int blocks = (p.Sq + BLOCK_ROWS - 1) / BLOCK_ROWS * p.B * p.N;
   return launch_wgmma(flash_bwd_dq_wgmma<D, DROP>, DqSmem<D>::bytes,
@@ -969,12 +981,7 @@ int launch_dq_t(int dtype, const Params& p, cudaStream_t s) {
 }
 
 template <int D, bool DROP>
-int launch_dkv_t(int dtype, const Params& p, cudaStream_t s) {
-  if (dtype == 0) {
-    static bool configured = false;
-    return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
-                  dim3((p.Skv + BK - 1) / BK, p.B * p.Nkv), THREADS, p, s);
-  }
+int launch_dkv_wgmma(const Params& p, cudaStream_t s) {
   static bool configured = false;
   const int blocks =
       (p.Skv + BLOCK_ROWS - 1) / BLOCK_ROWS * p.B * p.Nkv * p.splits;
@@ -982,14 +989,24 @@ int launch_dkv_t(int dtype, const Params& p, cudaStream_t s) {
                       configured, blocks, D, p, s);
 }
 
+// float32 is built for D 16, 32, 64 and 128; bfloat16 (wgmma: whole
+// 64-column panels) for 64 and 128 only
 template <int D>
 int launch_dq(int dtype, bool drop, const Params& p, cudaStream_t s) {
-  return drop ? launch_dq_t<D, true>(dtype, p, s) : launch_dq_t<D, false>(dtype, p, s);
+  if (dtype == 0)
+    return drop ? launch_dq_fma<D, true>(p, s) : launch_dq_fma<D, false>(p, s);
+  if constexpr (D % 64 == 0)
+    return drop ? launch_dq_wgmma<D, true>(p, s) : launch_dq_wgmma<D, false>(p, s);
+  return -1;
 }
 
 template <int D>
 int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
-  return drop ? launch_dkv_t<D, true>(dtype, p, s) : launch_dkv_t<D, false>(dtype, p, s);
+  if (dtype == 0)
+    return drop ? launch_dkv_fma<D, true>(p, s) : launch_dkv_fma<D, false>(p, s);
+  if constexpr (D % 64 == 0)
+    return drop ? launch_dkv_wgmma<D, true>(p, s) : launch_dkv_wgmma<D, false>(p, s);
+  return -1;
 }
 
 }  // namespace
@@ -1018,9 +1035,13 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q,
                  scale, causal,  seed, threshold, drop_scale, 1, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return -1;
-  if (head_dim == 64) return launch_dq<64>(dtype, dropout != 0, p, s);
-  if (head_dim == 128) return launch_dq<128>(dtype, dropout != 0, p, s);
-  return -1;
+  switch (head_dim) {
+    case 16: return launch_dq<16>(dtype, dropout != 0, p, s);
+    case 32: return launch_dq<32>(dtype, dropout != 0, p, s);
+    case 64: return launch_dq<64>(dtype, dropout != 0, p, s);
+    case 128: return launch_dq<128>(dtype, dropout != 0, p, s);
+    default: return -1;
+  }
 }
 
 extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
@@ -1038,7 +1059,11 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
   if (dtype != 0 && dtype != 1) return -1;
   if (splits < 1 || (N / Nkv) % splits != 0 || (dtype == 0 && splits != 1))
     return -1;
-  if (head_dim == 64) return launch_dkv<64>(dtype, dropout != 0, p, s);
-  if (head_dim == 128) return launch_dkv<128>(dtype, dropout != 0, p, s);
-  return -1;
+  switch (head_dim) {
+    case 16: return launch_dkv<16>(dtype, dropout != 0, p, s);
+    case 32: return launch_dkv<32>(dtype, dropout != 0, p, s);
+    case 64: return launch_dkv<64>(dtype, dropout != 0, p, s);
+    case 128: return launch_dkv<128>(dtype, dropout != 0, p, s);
+    default: return -1;
+  }
 }

@@ -79,12 +79,16 @@
 //     float32, written as bf16 into the consumer's q tile in the swizzled
 //     layout and stored by TMA (rows past Sq are not written); lse by the
 //     first thread of each row's quad.
-// float32 (the parity paths), `flash_fwd_fma`: one block per (b * N + h,
-// 64-row q tile), 256 threads, Q, K, V and P tiles in shared memory as f32,
-// each thread a 4x4 block of the score tile; both products as f32 FMAs on
-// the CUDA cores, exact to ~1e-6; q scaled before QK^T as the TPU kernel
-// does. Its in-block loop over 64-column kv tiles stops at the last tile
-// any row of the q tile can see (the causal skip).
+// float32 (the parity paths and the small float32 configs), `flash_fwd_fma`
+// at D 16, 32, 64 and 128: one block per (b * N + h, 64-row q tile), 256
+// threads, Q, K, V and P tiles in shared memory as f32, each thread a 4x4
+// block of the score tile and D / 16 output columns; both products as f32
+// FMAs on the CUDA cores, exact to ~1e-6; q scaled before QK^T as the TPU
+// kernel does. Its in-block loop over 64-column kv tiles stops at the last
+// tile any row of the q tile can see (the causal skip). Row pitches D + 4
+// (Q) and D + 1 (K) keep the accesses conflict-free at every D: a warp's
+// two row groups sit 4 (D + 4) = 16 banks apart (mod 32), and K's 16
+// column lanes read rows D + 1 apart, an odd stride.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -710,11 +714,15 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// float32 is built for D 16, 32, 64 and 128; bfloat16 (wgmma: whole
+// 64-column panels) for 64 and 128 only
 template <int D>
 int launch(int dtype, bool drop, const Params& p, cudaStream_t s) {
   if (dtype == 0)
     return drop ? launch_fma<D, true>(p, s) : launch_fma<D, false>(p, s);
-  return drop ? launch_wgmma<D, true>(p, s) : launch_wgmma<D, false>(p, s);
+  if constexpr (D % 64 == 0)
+    return drop ? launch_wgmma<D, true>(p, s) : launch_wgmma<D, false>(p, s);
+  return -1;
 }
 
 }  // namespace
@@ -742,7 +750,11 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
   if (Sq == 0 || B * N == 0) return 0;
   if ((dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(dtype, dropout != 0, p, s);
-  if (head_dim == 128) return launch<128>(dtype, dropout != 0, p, s);
-  return -1;
+  switch (head_dim) {
+    case 16: return launch<16>(dtype, dropout != 0, p, s);
+    case 32: return launch<32>(dtype, dropout != 0, p, s);
+    case 64: return launch<64>(dtype, dropout != 0, p, s);
+    case 128: return launch<128>(dtype, dropout != 0, p, s);
+    default: return -1;
+  }
 }

@@ -1,5 +1,6 @@
-"""The port's dropout keep function: the `dropout_mask` kernel, its plain
-PyTorch version, and the dropout built on them.
+"""The port's dropout keep function and the dropout built on it: the
+`dropout_mask` and `dropout_apply` kernels (two modes of one source,
+`csrc/dropout_mask.cu`) and their plain PyTorch versions.
 
 What it replaces: `_dropout_keep` and the tile uid `_uid` of
 `solvingpapers_tpu/kernels/flash_attention.py` (lines 60-70, 128-131),
@@ -19,9 +20,17 @@ version (uint32 arithmetic carried in int64) and the `dropout_mask` kernel
 all compute it, so `use_flash` on and off, the CPU and the card apply the
 same mask at the same seed, and a recomputation (remat) redraws it.
 
-`dropout_mask` launches the kernel on a CUDA device and counts it in
-``.launches``; on the CPU it computes `dropout_keep_reference`, which
-counts its calls in ``.calls``. There is no fallback between the two.
+`dropout_mask` writes the mask (the dense attention paths' probability
+mask); `dropout` applies it in one pass, ``keep ? x / (1 - rate) : 0``
+(Flax's `nn.Dropout`), as a `torch.autograd.Function` whose backward is
+the same map on the gradient. Each kernel's wrapper launches it on a
+CUDA device and counts it in ``.launches``; on the CPU it computes its
+plain version (`dropout_keep_reference`, `dropout_apply_reference`),
+which counts its calls in ``.calls``. There is no fallback between the
+two. The division is IEEE float32 division by ``float32(1 - rate)`` on
+both: PyTorch on a CUDA tensor turns division by a Python scalar into
+multiplication by its reciprocal, one ulp off in places, so the plain
+version divides by a float32 tensor.
 """
 
 from __future__ import annotations
@@ -37,6 +46,11 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _GRID_MAX = 65535
 
+# the dtype codes every C entry point of the port takes, and the largest
+# index its int32 arithmetic holds
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT32_MAX = 2**31 - 1
+
 _lib = None  # the loaded mask library, built at first CUDA use
 
 
@@ -47,8 +61,22 @@ def _library():
         lib.dropout_mask.argtypes = [ctypes.c_uint64, ctypes.c_uint32] + [
             ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
         lib.dropout_mask.restype = ctypes.c_int
+        # (dtype, seed, threshold, 1 - rate, BH, Sq, Skv, x, y, stream)
+        lib.dropout_apply.argtypes = [ctypes.c_int, ctypes.c_uint64,
+                                      ctypes.c_uint32, ctypes.c_float] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        lib.dropout_apply.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _check_region(bh: int, sq: int, skv: int) -> None:
+    """A (bh, sq, skv) region the kernels' grid covers: bh blocks along y,
+    each bh's 2 x 16 strips in int32."""
+    strips = (sq + 15) // 16 * 8 * ((skv + 15) // 16)
+    if bh > _GRID_MAX or strips > INT32_MAX:
+        raise ValueError(f"region out of the dropout kernels' range: "
+                         f"({bh}, {sq}, {skv})")
 
 
 def check_rate(rate: float) -> None:
@@ -134,9 +162,7 @@ def dropout_mask(seed: int, rate: float, bh: int, sq: int, skv: int,
     out = torch.empty((bh, sq, skv), dtype=torch.uint8, device=device)
     if bh * sq * skv == 0:
         return out.bool()
-    if bh > _GRID_MAX or (sq + 15) // 16 * 8 > _GRID_MAX or skv >= 2**31:
-        raise ValueError(f"mask region out of the kernel's range: "
-                         f"({bh}, {sq}, {skv})")
+    _check_region(bh, sq, skv)
     lib = _library()
     with torch.cuda.device(device):
         err = lib.dropout_mask(int(seed) & 0xFFFFFFFFFFFFFFFF, thr, bh, sq, skv,
@@ -151,19 +177,98 @@ def dropout_mask(seed: int, rate: float, bh: int, sq: int, skv: int,
 dropout_mask.launches = 0
 
 
+def _region(x: torch.Tensor) -> tuple[int, int, int]:
+    """(leading slices, S, D) of `x` (..., S, D): the keep function's
+    (bh, row, col) axes."""
+    s, d = x.shape[-2], x.shape[-1]
+    return x.numel() // max(s * d, 1), s, d
+
+
+def dropout_apply_reference(x: torch.Tensor, rate: float,
+                            seed: int) -> torch.Tensor:
+    """Plain PyTorch version of the `dropout_apply` kernel:
+    ``where(keep, float(x) / float32(1 - rate), 0)`` in x's dtype, with
+    element (..., s, d) of the b-th leading slice kept iff keep(seed, b, s,
+    d). On the CPU this is bit for bit ``torch.where(keep, x / (1 - rate),
+    0)``."""
+    dropout_apply_reference.calls += 1
+    lead, s, d = _region(x)
+    keep = dropout_keep_reference(seed, rate, lead, s, d,
+                                  device=x.device).view(x.shape)
+    denom = torch.tensor(1.0 - rate, dtype=torch.float32, device=x.device)
+    return torch.where(keep, x.float() / denom, 0.0).to(x.dtype)
+
+
+dropout_apply_reference.calls = 0
+
+
+def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """``keep ? x / (1 - rate) : 0`` over `x` (..., S, D), float32 or
+    bfloat16 on a CUDA device, by the sm_90a `dropout_apply` kernel in one
+    pass (x read once, y written once, the mask never stored); raises if
+    the build or the launch fails. The result equals
+    `dropout_apply_reference`'s bit for bit."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the dropout_apply kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"the dropout_apply kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    thr = keep_threshold(rate)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    lead, s, d = _region(x)
+    if x.numel() == 0:
+        return y
+    _check_region(lead, s, d)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.dropout_apply(DTYPE_CODES[x.dtype],
+                                int(seed) & 0xFFFFFFFFFFFFFFFF, thr, 1.0 - rate,
+                                lead, s, d, x.data_ptr(), y.data_ptr(),
+                                torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_apply kernel launch failed: CUDA error {err}")
+    dropout_apply.launches += 1
+    return y
+
+
+dropout_apply.launches = 0
+
+
+def _apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return dropout_apply_reference(x, rate, seed)
+    return dropout_apply(x, rate, seed)
+
+
+class _Dropout(torch.autograd.Function):
+    """y = where(keep, x / (1 - rate), 0): linear in x with a diagonal
+    Jacobian, so the backward is the same map on the gradient, redrawn
+    from (seed, rate); nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, x, rate, seed):
+        ctx.rate, ctx.seed = rate, seed
+        return _apply(x, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _apply(g, ctx.rate, ctx.seed), None, None
+
+
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Inverted dropout of `x` (..., S, D) with the keep function: element
     (..., s, d) of the b-th leading slice is kept iff keep(seed, b, s, d);
     kept values become ``x / (1 - rate)`` in x's dtype, as Flax's
     `nn.Dropout` computes them. A pure function of (x, rate, seed), so a
-    recomputation draws the same mask."""
+    recomputation draws the same mask; one kernel pass forward and one
+    backward on the card."""
+    check_rate(rate)
     if rate == 0.0:
         return x
-    s, d = x.shape[-2], x.shape[-1]
-    lead = x.numel() // max(s * d, 1)
-    keep = dropout_mask(seed, rate, lead, s, d, x.device).view(x.shape)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                           device=x.device))
+    return _Dropout.apply(x, float(rate), int(seed))
 
 
 def _splitmix64(z: int) -> int:

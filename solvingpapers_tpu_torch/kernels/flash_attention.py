@@ -42,15 +42,18 @@ import torch
 
 from solvingpapers_tpu_torch.kernels import build
 from solvingpapers_tpu_torch.kernels.dropout import (
+    DTYPE_CODES,
+    INT32_MAX,
     check_rate,
     dropout_keep_reference,
     keep_threshold,
 )
 from solvingpapers_tpu_torch.ops.attention import BIG_NEG, causal_mask
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-_INT32_MAX = 2**31 - 1
+# the (dtype, head_dim) pairs the kernels are built for: the float32
+# CUDA-core kernels at any of these, the bf16 wgmma kernels at whole
+# 64-column panels
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _GRID_Y_MAX = 65535
 
 # (dropout on, Philox seed, keep threshold, 1 / (1 - rate))
@@ -241,20 +244,39 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
 
 
 def _check_kernel_inputs(q, k, v) -> None:
-    """What the kernels take: float32 or bfloat16 of one dtype, D in
-    HEAD_DIMS, unit stride on the head_dim axis, sizes within range."""
+    """What the kernels take: float32 or bfloat16 of one dtype, a
+    (dtype, D) pair of HEAD_DIMS, unit stride on the head_dim axis, sizes
+    within range."""
     b, sq, n, d = q.shape
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"the kernel takes float32 or bfloat16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS[q.dtype]:
+        built = "; ".join(f"{str(t)[6:]} at head_dim {', '.join(map(str, ds))}"
+                          for t, ds in HEAD_DIMS.items())
+        raise ValueError(f"the kernels are not built for ({str(q.dtype)[6:]}, "
+                         f"head_dim {d}); they take {built}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k, v need unit stride on the head_dim axis")
-    if b * n > _GRID_Y_MAX or max(sq, k.shape[1], q.numel() // d) > _INT32_MAX:
+    if b * n > _GRID_Y_MAX or max(sq, k.shape[1], q.numel() // d) > INT32_MAX:
         raise ValueError(f"shape out of the kernel's range: q {tuple(q.shape)}")
+
+
+def positive_scale(q: torch.Tensor, scale: float):
+    """``(q', scale')`` with ``scale' > 0`` and ``q' k^T scale' = q k^T
+    scale`` exactly, for the bf16 kernels, whose softmax keeps the row
+    maximum of unscaled scores and so needs ``scale > 0``: ``(-q, -scale)``
+    for a negative scale (negation is exact in bf16, and ``(-q) . k =
+    -(q . k)`` in any summation order), ``(q * 0, 1)`` for scale 0 (every
+    score 0, as in the reference), ``(q, scale)`` otherwise, with no copy.
+    Applied before `_Flash`, autograd carries dq back through it."""
+    if scale > 0:
+        return q, scale
+    if scale < 0:
+        return -q, -scale
+    return q * 0, 1.0
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
@@ -263,12 +285,14 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
 
     q: (B, Sq, N, D); k, v: (B, Skv, Nkv, D) with N % Nkv == 0. On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    sm_90a kernel (float32 or bfloat16, D in {64, 128}, unit stride on
-    the last axis — other strides are passed through, so a cache slice
-    needs no copy; see `fwd_tma_inputs` for what bf16 copies) on the
-    current stream, and raises if the build, a tensor map or the launch
-    fails. ``dropout_rate > 0`` drops attention probabilities with
-    the keep mask of `dropout_seed` (a 64-bit int; see `kernels.dropout`).
+    sm_90a kernel (float32 at D 16, 32, 64 or 128, bfloat16 at D 64 or
+    128 — `HEAD_DIMS` —, unit stride on the last axis — other strides are
+    passed through, so a cache slice needs no copy; see `fwd_tma_inputs`
+    for what bf16 copies) on the current stream, and raises if the build,
+    a tensor map or the launch fails; bf16 takes any scale through
+    `positive_scale`. ``dropout_rate > 0`` drops attention probabilities
+    with the keep mask of `dropout_seed` (a 64-bit int; see
+    `kernels.dropout`).
     """
     _check_shapes(q, k, v)
     check_rate(dropout_rate)
@@ -282,9 +306,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
                                          dropout_seed=dropout_seed)
     _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
-        if not scale > 0:
-            raise ValueError(f"the bf16 kernel takes scale > 0 (its softmax "
-                             f"keeps the row max of unscaled scores), got {scale}")
+        q, scale = positive_scale(q, scale)
         # the tensor-core kernel reads q, k, v through TMA tensor maps of
         # their own strides
         (q, qs), (k, ks), (v, vs) = fwd_tma_inputs(q, k, v)
@@ -298,7 +320,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
-            _DTYPE_CODES[q.dtype], d,
+            DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, n, n_kv, sq, skv, *strides,
             float(scale), int(bool(causal)),
@@ -546,7 +568,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dq(
-            _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
+            DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *args, tiles,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -594,7 +616,7 @@ def _launch_dkv(q, k, v, do, lse, delta, splits, *, causal=False, scale=None,
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dkv(
-            _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
+            DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *args, int(splits), tiles,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -666,7 +688,12 @@ def flash_attention(q, k, v, *, causal=False, scale=None, dropout_rate=0.0,
     `ops.dot_product_attention` when there is no cache mask); returns o,
     differentiable in q, k and v through the backward kernels. At
     ``dropout_rate > 0`` attention probabilities are dropped in the
-    kernels with the keep mask of `dropout_seed` (`kernels.dropout`)."""
+    kernels with the keep mask of `dropout_seed` (`kernels.dropout`).
+    bf16 takes any scale: `positive_scale` turns it into the kernels'
+    ``scale > 0`` before the autograd function, so dq flows back through
+    the exact transform."""
     check_rate(dropout_rate)
+    if q.dtype == torch.bfloat16 and scale is not None:
+        q, scale = positive_scale(q, scale)
     return _Flash.apply(q, k, v, causal, scale, float(dropout_rate),
                         int(dropout_seed))

@@ -6,7 +6,10 @@ kernel's ``(o, lse)`` — run in interpret mode, as the JAX package's own
 tests run it on the CPU — over the grid of `tests/test_flash_attention.py`:
 causal and bidirectional, Sq == Skv, Sq < Skv (end-aligned), Sq > Skv
 (empty rows give o = 0, lse = 0), MHA/GQA/MQA, ragged lengths and bf16
-inputs. Tolerances: float32 rtol/atol 2e-5 on o and lse (the two
+inputs, head dims 16 (`llama3_long_smoke`'s 4 q / 2 kv heads; MQA with
+one tensor as k and v, as MLA passes it), 32 and 64, negative and zero
+softmax scales (the bf16 kernels' exact input transform,
+`positive_scale`). Tolerances: float32 rtol/atol 2e-5 on o and lse (the two
 frameworks sum in different orders); bf16 inputs 1e-2 on o (one bf16
 ulp near 1 is 2**-7 ~ 7.8e-3, and both round a float32 result) and
 2e-5 on lse, which stays float32.
@@ -41,7 +44,7 @@ def _qkv(seed, b, sq, skv, n, n_kv, d):
     return q, k, v
 
 
-def _jax_fwd(q, k, v, causal, dtype=jnp.float32):
+def _jax_fwd(q, k, v, causal, dtype=jnp.float32, scale=None):
     """The JAX kernel's (o, lse) in interpret mode: `flash_attention`'s
     own block choice and layout, through `_fwd` so lse comes back too."""
     q, k, v = (jnp.asarray(x, dtype) for x in (q, k, v))
@@ -53,7 +56,8 @@ def _jax_fwd(q, k, v, causal, dtype=jnp.float32):
     k3 = k.transpose(0, 2, 1, 3).reshape(b * n_kv, skv, d)
     v3 = v.transpose(0, 2, 1, 3).reshape(b * n_kv, skv, d)
     seed = jnp.zeros((1,), jnp.int32)
-    o3, lse = jfa._fwd(q3, k3, v3, seed, n, n_kv, d**-0.5, causal,
+    scale = d**-0.5 if scale is None else scale
+    o3, lse = jfa._fwd(q3, k3, v3, seed, n, n_kv, scale, causal,
                        block_q, block_k, 0.0, True)
     o = o3.reshape(b, n, sq, d).transpose(0, 2, 1, 3)
     return np.asarray(o, np.float32), np.asarray(lse)
@@ -69,6 +73,11 @@ GRID = [
     pytest.param(1, 32, 96, 2, 2, 32, False, id="sq_lt_skv_bidir"),
     pytest.param(1, 96, 32, 4, 2, 32, True, id="sq_gt_skv_empty_rows"),
     pytest.param(1, 37, 100, 4, 2, 64, True, id="ragged_37_100"),
+    # llama3_long_smoke's heads: dim 64 over 4 q / 2 kv heads, D 16
+    pytest.param(2, 64, 64, 4, 2, 16, True, id="llama3_long_smoke_d16"),
+    pytest.param(1, 37, 100, 4, 2, 16, False, id="d16_ragged_bidir"),
+    pytest.param(1, 48, 48, 4, 1, 16, True, id="d16_mqa"),
+    pytest.param(1, 96, 32, 4, 2, 16, True, id="d16_empty_rows"),
 ]
 
 
@@ -81,6 +90,18 @@ def test_reference_matches_jax_kernel(b, sq, skv, n, n_kv, d, causal):
     jo, jlse = _jax_fwd(q, k, v, causal)
     assert o.shape == (b, sq, n, d) and lse.shape == (b * n, 1, sq)
     assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), jo, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_reference_matches_jax_kernel_with_k_is_v_at_d16():
+    """MQA with one tensor as k and v (MLA's latent stream; the small
+    DeepSeek-V3 config's latent 8 + RoPE 8 is D 16)."""
+    q, c, _ = _qkv(8, 2, 40, 40, 4, 1, 16)
+    o, lse = tfa.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(c), torch.from_numpy(c),
+        causal=True)
+    jo, jlse = _jax_fwd(q, c, c, True)
     np.testing.assert_allclose(o.numpy(), jo, rtol=F32_TOL, atol=F32_TOL)
     np.testing.assert_allclose(lse.numpy(), jlse, rtol=F32_TOL, atol=F32_TOL)
 
@@ -205,3 +226,79 @@ def test_library_path_follows_source_and_flags(monkeypatch):
     assert p0.parent == build.BUILD_DIR and p0.suffix == ".so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-DX"])
     assert build.library_path("flash_fwd") != p0
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.float32, 32),
+                                     (torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 64), (torch.bfloat16, 128)])
+def test_kernel_check_takes_the_built_pairs(dtype, d):
+    """The wrapper's check passes every (dtype, head_dim) pair the kernels
+    are built for (meta tensors: nothing is computed)."""
+    q = torch.empty(1, 8, 4, d, dtype=dtype, device="meta")
+    k = torch.empty(1, 8, 2, d, dtype=dtype, device="meta")
+    tfa._check_kernel_inputs(q, k, k)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.bfloat16, 16),
+                                     (torch.float32, 24), (torch.float32, 256)])
+def test_kernel_check_refuses_pairs_not_built(dtype, d):
+    """Any other pair raises, naming the pair and the supported set; no
+    plain version runs in its place."""
+    q = torch.empty(1, 8, 4, d, dtype=dtype, device="meta")
+    k = torch.empty(1, 8, 2, d, dtype=dtype, device="meta")
+    name = str(dtype)[6:]
+    with pytest.raises(ValueError) as err:
+        tfa._check_kernel_inputs(q, k, k)
+    msg = str(err.value)
+    assert f"({name}, head_dim {d})" in msg
+    assert "float32 at head_dim 16, 32, 64, 128" in msg
+    assert "bfloat16 at head_dim 64, 128" in msg
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_positive_scale_transform_is_exact(scale, dtype):
+    """The plain version on `positive_scale`'s (q', scale') gives the same
+    o and lse as on (q, scale) exactly, and dq through autograd of the
+    transform equals the untransformed call's; `flash_attention` on bf16
+    applies it (the path the card's kernels take) with the same result."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(9, 1, 40, 56, 4, 2, 64))
+    do = torch.from_numpy(_qkv(10, 1, 40, 40, 4, 4, 64)[0]).to(dtype)
+    qt, st = tfa.positive_scale(q, scale)
+    assert st > 0
+    o, lse = tfa.flash_attention_reference(q, k, v, causal=True, scale=scale)
+    ot, lset = tfa.flash_attention_reference(qt, k, v, causal=True, scale=st)
+    assert torch.equal(o, ot) and torch.equal(lse, lset)
+
+    def grads(transform):
+        qg = q.clone().requires_grad_()
+        qq, ss = tfa.positive_scale(qg, scale) if transform else (qg, scale)
+        out = tfa._Flash.apply(qq, k, v, True, ss, 0.0, 0)
+        return out, torch.autograd.grad(out, qg, do)[0]
+
+    (o0, dq0), (o1, dq1) = grads(False), grads(True)
+    assert torch.equal(o0, o1) and torch.equal(dq0, dq1)
+    qg = q.clone().requires_grad_()
+    o2 = tfa.flash_attention(qg, k, v, causal=True, scale=scale)
+    assert torch.equal(o2, o0)
+    assert torch.equal(torch.autograd.grad(o2, qg, do)[0], dq0)
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_transformed_call_matches_jax_kernel_at_any_scale(scale):
+    """The transformed plain call against the JAX kernel at the same
+    (untransformed) scale, float32, within F32_TOL."""
+    q, k, v = _qkv(11, 1, 64, 64, 4, 2, 32)
+    qt, st = tfa.positive_scale(torch.from_numpy(q), scale)
+    o, lse = tfa.flash_attention_reference(qt, torch.from_numpy(k),
+                                           torch.from_numpy(v), causal=True,
+                                           scale=st)
+    jo, jlse = _jax_fwd(q, k, v, True, scale=scale)
+    np.testing.assert_allclose(o.numpy(), jo, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_positive_scale_passes_a_positive_scale_through():
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    qt, st = tfa.positive_scale(q, 0.125)
+    assert qt is q and st == 0.125

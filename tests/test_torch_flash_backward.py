@@ -7,8 +7,11 @@ of `jax.vjp` through the JAX package's `flash_attention`, whose custom
 VJP runs the Pallas dq and dk/dv kernels in interpret mode, as the JAX
 package's own tests run them on the CPU. Grid: causal and
 bidirectional; group 1, 2 and 4; Sq > Skv with empty rows; Sq < Skv;
-odd lengths. Tolerance: 1e-5 absolute and relative, float32 (the two
-frameworks sum in different orders).
+odd lengths; head dims 16 (`llama3_long_smoke`'s 4 q / 2 kv heads, and
+MQA with one tensor as k and v, as MLA passes it) and 32; negative and
+zero scales through the bf16 kernels' input transform. Tolerance: 1e-5
+absolute and relative, float32 (the two frameworks sum in different
+orders).
 
 The kernels themselves run only on the card: `test_torch_kernels_cuda.py`.
 """
@@ -45,6 +48,7 @@ def _inputs(seed, b, sq, skv, n, n_kv, d):
     pytest.param(1, 40, 16, 4, 2, 16, True, id="sq_gt_skv_empty_rows"),
     pytest.param(2, 37, 37, 4, 2, 32, True, id="odd_37"),
     pytest.param(1, 21, 29, 8, 2, 16, False, id="gqa4_odd_bidir"),
+    pytest.param(2, 64, 64, 4, 2, 16, True, id="llama3_long_smoke_d16"),
 ])
 def test_flash_grads_match_jax_vjp(b, sq, skv, n, n_kv, d, causal):
     q, k, v, do = _inputs(0, b, sq, skv, n, n_kv, d)
@@ -60,6 +64,49 @@ def test_flash_grads_match_jax_vjp(b, sq, skv, n, n_kv, d, causal):
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
                                rtol=TOL, atol=TOL)
     for name, g, jg in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=TOL,
+                                   atol=TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,s,n", [(1, 40, 4), (2, 33, 8)])
+def test_flash_grads_with_k_is_v_match_jax_vjp_at_d16(b, s, n):
+    """MQA with one tensor as k and v (MLA's latent stream): its gradient
+    is dk + dv, against `jax.vjp` of the JAX package's flash with the same
+    tensor passed twice."""
+    q, c, _, do = _inputs(6, b, s, s, n, 1, 16)
+    tq, tc = (torch.from_numpy(x).requires_grad_() for x in (q, c))
+    o = tfa.flash_attention(tq, tc, tc, causal=True)
+    grads = torch.autograd.grad(o, (tq, tc), torch.from_numpy(do))
+    jo, vjp = jax.vjp(
+        lambda q_, c_: jfa.flash_attention(q_, c_, c_, causal=True,
+                                           interpret=True),
+        jnp.asarray(q), jnp.asarray(c))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), rtol=TOL,
+                               atol=TOL)
+    for name, g, jg in zip(("q", "c"), grads, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=TOL,
+                                   atol=TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_transformed_scale_grads_match_jax_vjp(scale):
+    """The bf16 kernels' path at a scale <= 0 — `positive_scale` before
+    the autograd function, whose forward and backward see (q', scale' >
+    0) — run here through the plain versions in float32: o and every
+    gradient match `jax.vjp` of the JAX package's flash at the
+    untransformed scale."""
+    q, k, v, do = _inputs(7, 1, 32, 48, 4, 2, 16)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    qt, st = tfa.positive_scale(tq, scale)
+    o = tfa._Flash.apply(qt, tk, tv, True, st, 0.0, 0)
+    grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    jo, vjp = jax.vjp(
+        lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, causal=True,
+                                               scale=scale, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), rtol=TOL,
+                               atol=TOL)
+    for name, g, jg in zip("qkv", grads, vjp(jnp.asarray(do))):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=TOL,
                                    atol=TOL, err_msg=f"d{name}")
 

@@ -11,7 +11,10 @@ Tolerances: forward, bf16 inputs within 2e-2 on o and 1e-3 on lse of the
 float32 plain version, float32 within 1e-4; backward, relative to the
 largest gradient, bf16 within 1e-2 and float32 within 2e-5 — with and
 without in-kernel dropout (the plain versions draw the same mask). The
-dropout mask kernel's bits equal the plain keep function's exactly.
+dropout mask kernel's bits equal the plain keep function's exactly, and
+the dropout apply kernel's outputs (forward and backward) the plain
+dropout's. float32 head dims 16 and 32 and the bf16 forward at scales
+<= 0 (through `positive_scale`) are held to the same limits.
 """
 
 import importlib
@@ -153,26 +156,27 @@ def test_flash_kernel_copies_rows_off_16_byte_boundaries(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "stride", "device",
-                                 "scale"])
+@pytest.mark.parametrize("bad", ["dtype", "bf16_head_dim_32", "f32_head_dim_24",
+                                 "stride", "device"])
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, bad):
     q = torch.randn(1, 8, 2, 64, device=cuda_device)
     k = torch.randn(1, 8, 2, 64, device=cuda_device)
-    scale = None
-    if bad == "scale":  # the bf16 kernel keeps row maxima of unscaled scores
-        q, k, scale = q.bfloat16(), k.bfloat16(), -0.125
-    elif bad == "dtype":
+    if bad == "dtype":
         q, k = q.half(), k.half()
-    elif bad == "head_dim":
-        q, k = q[..., :32], k[..., :32].contiguous()
-        q = q.contiguous()
+    elif bad == "bf16_head_dim_32":  # no bf16 wgmma kernel below 64 columns
+        q, k = q[..., :32].bfloat16().contiguous(), k[..., :32].bfloat16().contiguous()
+    elif bad == "f32_head_dim_24":  # not a built head dim
+        q, k = q[..., :24].contiguous(), k[..., :24].contiguous()
     elif bad == "stride":
         q = torch.randn(1, 8, 2, 128, device=cuda_device)[..., ::2]
         k = k.contiguous()
     elif bad == "device":
         k = k.cpu()
+    before = (tfa.flash_attention_fwd.launches, tfa.flash_attention_reference.calls)
     with pytest.raises(ValueError):
-        tfa.flash_attention_fwd(q, k, k, causal=True, scale=scale)
+        tfa.flash_attention_fwd(q, k, k, causal=True)
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_reference.calls) == before
 
 
 # ---------------------------------------------------------------- backward
@@ -450,3 +454,114 @@ def test_flash_backward_split_path_redraws_the_mask_bit_for_bit(cuda_device):
             & causal_mask(s, s, device=cuda_device))
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert int((got[kernel] != want).sum()) == 0, kernel
+
+
+# --------------------------------- float32 at head dims 16 and 32; any scale
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal,rate,kv", [
+    (4, 256, 256, 4, 2, 16, True, 0.0, "own"),      # llama3_long_smoke's heads
+    (2, 37, 100, 4, 2, 16, False, 0.0, "own"),      # ragged, bidirectional
+    (1, 300, 100, 8, 1, 16, True, 0.1, "k_is_v"),   # MQA, k is v, empty rows
+    (1, 777, 777, 4, 2, 32, True, 0.5, "own"),
+    (2, 129, 129, 8, 1, 32, True, 0.1, "k_is_v"),
+])
+def test_flash_f32_small_head_dims_match_reference(cuda_device, b, sq, skv, n,
+                                                   n_kv, d, causal, rate, kv):
+    """The float32 forward, dq and dk/dv kernels at D 16 and 32 against the
+    plain versions (o, lse within 1e-4; grads within 2e-5 of the largest),
+    with and without dropout; two calls bit-identical."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device)
+               for x in _qkv(31, b, sq, skv, n, n_kv, d))
+    if kv == "k_is_v":
+        v = k
+    do = torch.randn(b, sq, n, d, device=cuda_device)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=4242)
+    before = (tfa.flash_attention_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    delta = tfa.flash_delta(do, o)
+    grads = tfa.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(x + 1 for x in before)
+    ro, rlse = tfa.flash_attention_reference(q, k, v, **kw)
+    assert (o - ro).abs().max().item() <= 1e-4
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    ref = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta, **kw)
+    for got, want in zip(grads, ref):
+        assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
+    assert torch.equal(o, tfa.flash_attention_fwd(q, k, v, **kw)[0])
+    for x, y in zip(grads, tfa.flash_attention_bwd(q, k, v, do, lse, delta, **kw)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bf16_takes_any_scale(cuda_device, scale, rate):
+    """bf16 at a scale <= 0 through `flash_attention` (the kernels run on
+    `positive_scale`'s exact transform): o within 2e-2 of the plain
+    version at the untransformed scale, grads within 1e-2 of the
+    largest."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in _qkv(33, 1, 300, 300, 8, 2, 64))
+    do = torch.randn(1, 300, 8, 64, device=cuda_device).bfloat16()
+    kw = dict(causal=True, scale=scale, dropout_rate=rate, dropout_seed=8)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(qg, kg, vg, **kw)
+    grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    assert (o.float() - ro).abs().max().item() <= 2e-2
+    _, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    ref = tfa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), rlse,
+        tfa.flash_delta(do.float(), ro), **kw)
+    for got, want in zip(grads, ref):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= 1e-2  # dq at scale 0: exactly 0
+
+
+# -------------------------------------------------- dropout mask and apply
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv", [(1, 64, 1), (2, 33, 15), (3, 31, 17),
+                                        (2, 17, 100), (1, 16384, 512)])
+def test_dropout_mask_kernel_at_ragged_edges(cuda_device, bh, sq, skv):
+    """Skv below, around and off 16, odd Sq, BH > 1: no element differs
+    from the plain mask."""
+    got = tdr.dropout_mask(99, 0.3, bh, sq, skv, cuda_device)
+    want = tdr.dropout_keep_reference(99, 0.3, bh, sq, skv, device=cuda_device)
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 16384, 512), (2, 33, 15), (3, 31, 17),
+                                   (1, 7, 1), (2, 2, 17, 100)])
+def test_dropout_apply_kernel_equals_plain_dropout(cuda_device, dtype, shape):
+    """The apply kernel, forward and backward through `dropout`, equals the
+    plain version bit for bit, and launches once each way."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    xg = x.clone().requires_grad_()
+    before = tdr.dropout_apply.launches
+    y = tdr.dropout(xg, 0.1, 1234)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    torch.cuda.synchronize()
+    assert tdr.dropout_apply.launches == before + 2
+    assert torch.equal(y, tdr.dropout_apply_reference(x, 0.1, 1234))
+    assert torch.equal(dx, tdr.dropout_apply_reference(dy, 0.1, 1234))
+
+
+@pytest.mark.cuda
+def test_dropout_apply_kernel_reads_an_offset_view(cuda_device):
+    """A contiguous view that starts off 16 bytes goes to the kernel as is
+    (no copy), so its element-wise path runs, and comes out right."""
+    flat = torch.randn(1 + 3 * 40 * 24, device=cuda_device)
+    x = flat[1:].view(3, 40, 24)
+    assert x.data_ptr() % 16
+    assert torch.equal(tdr.dropout_apply(x, 0.5, 3),
+                       tdr.dropout_apply_reference(x, 0.5, 3))

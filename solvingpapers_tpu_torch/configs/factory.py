@@ -1,10 +1,12 @@
 """Build model / data / trainer objects from a RunConfig (port of the
-LLaMA-3 and DeepSeek-V3, token-file subset of
+GPT, LLaMA-3 and DeepSeek-V3 language-model part of
 `solvingpapers_tpu/configs/factory.py`).
 
-Only `data.kind == "tokens"` (a pre-tokenized token file with a `.meta`
-sidecar) is ported; char and BPE corpora need the tokenizers (ROADMAP
-A3) and raise.
+Corpora: a pre-tokenized token file (`data.kind == "tokens"`, with a
+`.meta` sidecar), the Markov corpus (`source: "markov"`) and the char
+corpus (`kind: "char"`: a local text file, else synthetic prose), the last
+two with a char vocab the model is resized to. BPE corpora need the BPE
+tokenizer (ROADMAP A3) and raise.
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ import torch
 
 from solvingpapers_tpu_torch.configs.registry import RunConfig
 from solvingpapers_tpu_torch.data import (
+    CharTokenizer,
     lm_batch_iterator,
+    load_char_corpus,
     load_token_file,
+    markov_text,
     prefetch_batches,
     split_train_val,
     token_file_max_id,
@@ -36,13 +41,17 @@ def build_model(cfg: RunConfig, device=None, param_dtype=None):
         from solvingpapers_tpu_torch.models.deepseekv3 import DeepSeekV3
 
         return DeepSeekV3(cfg.model, device=device, param_dtype=param_dtype)
+    if cfg.model_family == "gpt":
+        from solvingpapers_tpu_torch.models.gpt import GPT
+
+        return GPT(cfg.model, device=device, param_dtype=param_dtype)
     raise NotImplementedError(
         f"model family {cfg.model_family!r} is not ported yet (ROADMAP A2, A6)")
 
 
 def loss_fn_for(cfg: RunConfig):
     """Objective for a RunConfig's family (the LM families only)."""
-    if cfg.model_family == "llama3":
+    if cfg.model_family in ("gpt", "llama3"):
         return lm_loss_fn
     if cfg.model_family == "deepseekv3":
         from solvingpapers_tpu_torch.train.objectives import dsv3_loss_fn
@@ -73,25 +82,37 @@ class IdTokenizer:
 
 
 def build_char_lm_run(cfg: RunConfig, device=None):
-    """Returns (cfg, model, tokenizer, train_iter, eval_iter_fn) for a
-    token-file LM run; the model is built for training (float32 master
-    weights) on `device`."""
-    kind = cfg.data.get("kind")
-    if kind != "tokens":
+    """Returns (cfg with the corpus's vocab, model, tokenizer, train_iter,
+    eval_iter_fn) for an LM run; the model is built for training (float32
+    master weights) on `device`."""
+    data = cfg.data
+    if data.get("kind") == "bpe":
         raise NotImplementedError(
-            f"data kind {kind!r} is not ported yet: the port trains from "
-            "pre-tokenized token files (kind 'tokens'); char and BPE corpora "
-            "need the tokenizers (ROADMAP A3)")
-    path = cfg.data["path"]
-    toks = load_token_file(path)
-    max_id = token_file_max_id(path, toks)
-    if max_id >= cfg.model.vocab_size:
-        raise ValueError(
-            f"token file {path} holds id {max_id} but model.vocab_size is "
-            f"{cfg.model.vocab_size}; it must match the writing tokenizer")
-    tok = IdTokenizer(cfg.model.vocab_size)
-    train_toks, val_toks = split_train_val(toks)
-    block = cfg.data.get("block_size", 256)
+            "data kind 'bpe' is not ported yet: the BPE tokenizer comes with "
+            "ROADMAP A3; the port trains from token files (kind 'tokens') and "
+            "the char and Markov corpora")
+    if data.get("kind") == "tokens":
+        path = data["path"]
+        toks = load_token_file(path)
+        max_id = token_file_max_id(path, toks)
+        if max_id >= cfg.model.vocab_size:
+            raise ValueError(
+                f"token file {path} holds id {max_id} but model.vocab_size is "
+                f"{cfg.model.vocab_size}; it must match the writing tokenizer")
+        tok = IdTokenizer(cfg.model.vocab_size)
+        train_toks, val_toks = split_train_val(toks)
+    elif data.get("source") == "markov":
+        # entropy-calibrated corpus: its chain's entropy rate is the
+        # val-loss target (data.synthetic.markov_entropy_nats)
+        text = markov_text(data)
+        tok = CharTokenizer(text)
+        train_toks, val_toks = split_train_val(tok.encode(text))
+    elif data.get("kind") == "char":
+        tok, train_toks, val_toks = load_char_corpus(path=data.get("path"))
+    else:
+        raise ValueError(f"unknown data kind {data.get('kind')!r}")
+    block = data.get("block_size", 256)
+    # the char vocab comes from the corpus; resize the model to match
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model,
                                        vocab_size=max(tok.vocab_size, 2)))

@@ -1,11 +1,12 @@
-"""Workload registry (port of the LLaMA-3 entries and `dsv3_long` of
-`solvingpapers_tpu/configs/registry.py`): name -> RunConfig (model +
-train + data settings), with the reference's own values.
+"""Workload registry (port of the GPT, LLaMA-3 and DeepSeek-V3 entries of
+`solvingpapers_tpu/configs/registry.py` that the port runs): name ->
+RunConfig (model + train + data settings), with the reference's own
+values.
 
-Vocabulary: the reference's factory resizes `vocab_size` to the corpus
-tokenizer (char or BPE) before building a model. The tokenizers are not
-ported yet, so prompts and token files carry ids and the vocabulary
-stays at the registry's 50257 (tiktoken gpt2).
+Vocabulary: the factory resizes `vocab_size` to the corpus's char
+tokenizer (the char and Markov corpora), as the reference's does. The
+BPE tokenizer is not ported yet, so token files carry ids and keep the
+registry's vocabulary.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 from typing import Any, Callable
 
 from solvingpapers_tpu_torch.models.deepseekv3 import DeepSeekV3Config
+from solvingpapers_tpu_torch.models.gpt import GPTConfig
 from solvingpapers_tpu_torch.models.llama3 import LlamaConfig
 from solvingpapers_tpu_torch.train.engine import TrainConfig
 from solvingpapers_tpu_torch.train.optim import OptimizerConfig
@@ -61,6 +63,71 @@ def dense_twin(cfg: RunConfig) -> RunConfig:
         cfg,
         model=dataclasses.replace(cfg.model, context_parallel=False),
         train=dataclasses.replace(cfg.train, context_parallel=False, mesh=None),
+    )
+
+
+@register("gpt_tiny")
+def _gpt_tiny() -> RunConfig:
+    """CPU-runnable smoke config (debugging / CI)."""
+    return RunConfig(
+        name="gpt_tiny",
+        model_family="gpt",
+        model=GPTConfig(vocab_size=64, block_size=64, dim=64, n_layers=2,
+                        n_heads=2, dropout=0.0),
+        train=TrainConfig(
+            steps=100, batch_size=16, log_every=20, eval_every=50, eval_batches=5,
+            optimizer=OptimizerConfig(max_lr=3e-3, warmup_steps=10, total_steps=100),
+            tokens_per_step=16 * 64,
+        ),
+        data={"kind": "char", "path": None, "block_size": 64},
+        notes="smoke-test config, not a reference workload",
+    )
+
+
+@register("gpt_tiny_long")
+def _gpt_tiny_long() -> RunConfig:
+    """gpt_tiny with a 256-position budget (the serving benches' long-stream
+    smoke config)."""
+    return RunConfig(
+        name="gpt_tiny_long",
+        model_family="gpt",
+        model=GPTConfig(vocab_size=64, block_size=256, dim=64, n_layers=2,
+                        n_heads=2, dropout=0.0),
+        train=TrainConfig(
+            steps=300, batch_size=16, log_every=50, eval_every=0,
+            optimizer=OptimizerConfig(max_lr=3e-3, warmup_steps=10,
+                                      total_steps=300),
+            tokens_per_step=16 * 256,
+        ),
+        data={"kind": "char", "path": None, "block_size": 256},
+        notes="smoke/bench config for long serve streams, not a "
+              "reference workload",
+    )
+
+
+@register("gpt_shakespeare")
+def _gpt_shakespeare() -> RunConfig:
+    """The reference's gpt/gpt-jax.ipynb cell 8 hyperparameters: dim 256,
+    8 layers, 1 head, dropout 0.1, bf16, 128 x 256 tokens a step, windows
+    of 10 steps (`scan_steps`)."""
+    return RunConfig(
+        name="gpt_shakespeare",
+        model_family="gpt",
+        model=GPTConfig(
+            vocab_size=65, block_size=256, dim=256, n_layers=8, n_heads=1,
+            dropout=0.1, dtype="bfloat16",
+        ),
+        train=TrainConfig(
+            steps=1000, batch_size=128, log_every=50, eval_every=100,
+            eval_batches=20, scan_steps=10,
+            optimizer=OptimizerConfig(
+                name="adamw", max_lr=1e-3, warmup_steps=0, total_steps=1000,
+                weight_decay=0.1, grad_clip=1.0,
+            ),
+            tokens_per_step=128 * 256,
+        ),
+        data={"kind": "char", "path": None, "block_size": 256},
+        notes="gpt/gpt-jax.ipynb cells 8-19; val loss 1.8871 @ step 1000 on T4",
     )
 
 
@@ -175,4 +242,68 @@ def _dsv3_long() -> RunConfig:
               "bpe_vocab_size": 32_000, "synthetic_chars": 2_000_000},
         notes="beyond-reference: 64x the reference's maximum context for "
               "its own flagship architecture, one chip",
+    )
+
+
+# Entropy-calibrated rows on the order-2 Markov corpus (`data.synthetic`
+# MarkovSource): the corpus's exact entropy rate is an absolute val-loss
+# target.
+_MARKOV_DATA = {"kind": "char", "source": "markov", "block_size": 256,
+                "n_chars": 4_000_000}
+
+
+def _markov_train(steps: int, batch_size: int, block: int,
+                  max_lr: float = 1e-3) -> TrainConfig:
+    return TrainConfig(
+        steps=steps, batch_size=batch_size, log_every=100,
+        eval_every=max(steps // 4, 1), eval_batches=20,
+        optimizer=OptimizerConfig(
+            name="adamw", max_lr=max_lr, warmup_steps=min(100, steps // 10),
+            total_steps=steps, weight_decay=0.01, grad_clip=1.0,
+        ),
+        tokens_per_step=batch_size * block,
+    )
+
+
+@register("gpt_markov")
+def _gpt_markov() -> RunConfig:
+    return RunConfig(
+        name="gpt_markov",
+        model_family="gpt",
+        model=GPTConfig(vocab_size=64, block_size=256, dim=256, n_layers=4,
+                        n_heads=4, dropout=0.0, dtype="bfloat16"),
+        train=_markov_train(3000, 64, 256),
+        data=dict(_MARKOV_DATA),
+        notes="entropy-calibrated quality row; target val_loss -> H ~= 2.362",
+    )
+
+
+@register("llama3_markov")
+def _llama3_markov() -> RunConfig:
+    return RunConfig(
+        name="llama3_markov",
+        model_family="llama3",
+        model=LlamaConfig(vocab_size=64, max_seq_len=256, dim=256, n_layers=3,
+                          n_heads=4, n_kv_heads=2, dropout=0.0, dtype="bfloat16"),
+        train=_markov_train(3000, 64, 256),
+        data=dict(_MARKOV_DATA),
+        notes="entropy-calibrated quality row; target val_loss -> H ~= 2.362",
+    )
+
+
+@register("dsv3_markov")
+def _dsv3_markov() -> RunConfig:
+    """The MoE row of the Markov corpus, on a 16M-char corpus (the
+    reference's capacity-matched size: on 4M chars the MoE memorizes)."""
+    return RunConfig(
+        name="dsv3_markov",
+        model_family="deepseekv3",
+        model=DeepSeekV3Config(vocab_size=64, block_size=256, dim=256,
+                               n_layers=4, n_heads=4, latent_dim=32,
+                               rope_dim=32, pe_scale=0.02,
+                               n_experts=8, top_experts=2, dropout=0.0,
+                               attn_dropout=0.0, dtype="bfloat16"),
+        train=_markov_train(3000, 64, 256),
+        data={**_MARKOV_DATA, "n_chars": 16_000_000},
+        notes="entropy-calibrated quality row; target val_loss -> H ~= 2.362",
     )

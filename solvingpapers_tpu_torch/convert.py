@@ -21,6 +21,13 @@ Mapping (Flax path -> port name):
     norm_f/weight                        -> norm_f.weight
     lm_head/kernel (D, V)                -> lm_head.weight
 
+GPT (its attention is MHA, so `qkv` above, with biases):
+
+    pos_emb (block_size, D)              -> pos_emb
+    block_i/{ln1,ln2}/{weight,bias}      -> blocks.i.{ln1,ln2}.{weight,bias}
+    block_i/mlp/{fc,proj}/{kernel,bias}  -> blocks.i.mlp.{fc,proj}.{weight,bias}
+    ln_f/{weight,bias}                   -> ln_f.{weight,bias}
+
 DeepSeek-V3 (`layer_i` -> `layers.i`; the raw einsum weights keep their
 Flax shapes):
 
@@ -48,9 +55,9 @@ import numpy as np
 import torch
 
 _SPLITS = {"kv": ("k", "v"), "qkv": ("q", "k", "v")}
-# leaves that keep their Flax shape: the MLA and expert einsum weights and
-# the MoE routing bias
-_RAW = {"w_q", "w_k", "w_v", "w_qr", "w1", "w2", "w3", "routing_bias"}
+# leaves that keep their Flax shape: the MLA and expert einsum weights, the
+# MoE routing bias and GPT's position table
+_RAW = {"w_q", "w_k", "w_v", "w_qr", "w1", "w2", "w3", "routing_bias", "pos_emb"}
 
 
 def _dense(prefix: str, node: dict, out: dict) -> None:
@@ -80,7 +87,7 @@ def _walk(prefix: str, node: dict, out: dict) -> None:
             if key == "embedding":
                 out[f"{prefix}.weight"] = torch.from_numpy(
                     np.asarray(child, np.float32).copy())
-            elif key == "weight" or key in _RAW:  # norm scale, einsum weight
+            elif key in ("weight", "bias") or key in _RAW:  # norm, einsum weight
                 out[path] = torch.from_numpy(np.asarray(child, np.float32).copy())
             else:
                 raise KeyError(f"unmapped Flax param {path!r}")

@@ -13,8 +13,8 @@
 //     dense attention paths' probability mask and what the checks read;
 //   * apply (`dropout_apply`): y = keep ? x / (1 - rate) : 0 for float32 or
 //     bfloat16 x, the residual dropout in one pass (forward, and backward on
-//     the gradient: the map is its own derivative). The division is IEEE
-//     float32 (__fdiv_rn) of float(x) by float32(1 - rate), rounded to x's
+//     the gradient: the map is its own derivative). The quotient is IEEE
+//     float32 division's of float(x) by float32(1 - rate), rounded to x's
 //     dtype (round to nearest even), as the plain version computes it.
 //
 // What bounds it on an H100 (3.35 TB/s; 32-bit integer multiplies at a
@@ -39,12 +39,29 @@
 // key schedule is shared) and no call is repeated by another thread.
 // Neighbouring threads take neighbouring strips of one row pair, so a warp
 // reads and writes 32 x 16 elements of each row contiguously: 16-byte
-// vector stores (one a row in mask mode) and loads. Apply mode issues its
-// loads before the Philox work so the memory latency hides under it. Ragged
-// edges (Skv not a multiple of 16, Sq not one of 16, a row base off 16
-// bytes) take element-wise accesses. The grid is one block row per bh and
-// enough 128-thread blocks for every strip: 2048 blocks at (1, 16384, 512),
-// many waves on 132 SMs.
+// vector stores (one a row in mask mode) and loads. Mask mode's grid is one
+// block row per bh and enough 128-thread blocks for every strip; ragged
+// edges take element-wise stores.
+//
+// Apply mode works against the sum of issue and bytes that held its first
+// design (one strip a thread, an IEEE division and a packed keep byte an
+// element: its integer work and its memory traffic added up):
+//   * no division on the fast path: the host passes d = float32(1 - rate)
+//     and rcp = RN(1 / d), and an element takes one multiply and two fmas
+//     (`quotient`, exact by Markstein's theorem); a row whose quotients
+//     leave the range where that holds (zeros stay in it) takes __fdiv_rn;
+//   * the keep flags stay predicates: each Philox word is compared with the
+//     threshold where its element is selected;
+//   * the Philox products written as IMAD.WIDE.U32: left to itself, ptxas
+//     splits them into IMAD.HI.U32 + IMAD, and an H100 issues IMAD.HI.U32
+//     at 30.4 a clock an SM (probes/imad_hi_rate.cu), so a product costs
+//     more of the multiply pipe and more issue slots;
+//   * a strip a thread, its loads issued before its Philox work, so its
+//     bytes are in flight while the integer pipes run (a resident grid
+//     with the next strip in registers gained only at bf16 regions larger
+//     than the L2 cache, which no path has: probes/dropout_apply_ab.py);
+//   * a ragged row whose length is a multiple of 16 bytes moves 16-byte
+//     vectors up to its end; only what is left takes element-wise accesses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,86 +141,164 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// element types of apply mode, as bits: float32 and bfloat16
+// ---------------------------------------------------------------- apply mode
+
+// element types of apply mode, as bits
 struct F32 {
   using Bits = uint32_t;
-  static __device__ __forceinline__ float load(Bits b) { return __uint_as_float(b); }
-  static __device__ __forceinline__ Bits store(float f) { return __float_as_uint(f); }
 };
 
 struct BF16 {
   using Bits = uint16_t;
-  static __device__ __forceinline__ float load(Bits b) {
-    return __uint_as_float(static_cast<uint32_t>(b) << 16);
-  }
-  static __device__ __forceinline__ Bits store(float f) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-  }
 };
 
-// 16-byte vectors of a strip row of 16 elements
+// one strip row of 16 elements: its 16-byte vectors, its 32-bit words and
+// its elements
 template <typename E>
-__host__ __device__ constexpr int row_vecs() {
-  return STRIP * sizeof(typename E::Bits) / 16;
-}
-
-// a strip row, as its elements or its 16-byte vectors
-template <typename E>
-union RowVec {
-  uint4 v[row_vecs<E>()];
-  typename E::Bits e[STRIP];
+struct RowBits {
+  static constexpr int PER_VEC = 16 / sizeof(typename E::Bits);  // elements
+  static constexpr int VECS = STRIP / PER_VEC;
+  static constexpr int WORDS = STRIP * sizeof(typename E::Bits) / 4;
+  union {
+    uint4 v[VECS];
+    uint32_t w[WORDS];
+    typename E::Bits e[STRIP];
+  };
 };
 
+// element j of a row as float32 (bf16: its bits in the top half)
 template <typename E>
-__device__ __forceinline__ typename E::Bits drop1(typename E::Bits x, bool keep,
-                                                  float denom) {
-  return E::store(keep ? __fdiv_rn(E::load(x), denom) : 0.f);
+__device__ __forceinline__ float elem(const RowBits<E>& r, int j) {
+  if constexpr (sizeof(typename E::Bits) == 4) {
+    return __uint_as_float(r.w[j]);
+  } else {
+    const uint32_t w = r.w[j >> 1];
+    return __uint_as_float((j & 1) ? (w & 0xFFFF0000u) : (w << 16));
+  }
 }
 
+// a row's 16 results, rounded to E (bf16: round to nearest even, two a word)
+template <typename E>
+__device__ __forceinline__ void put(RowBits<E>& r, const float (&f)[STRIP]) {
+  if constexpr (sizeof(typename E::Bits) == 4) {
+#pragma unroll
+    for (int j = 0; j < STRIP; ++j) r.w[j] = __float_as_uint(f[j]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < STRIP / 2; ++k) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+      r.w[k] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
+}
+
+// x / d, correctly rounded, from y = RN(1 / d) without a division (d in
+// [2^-20, 1], so y >= 1): q = RN(x y) is within an ulp of x / d, the
+// residual rn = q d - x is exact (an fma), and RN(q - rn y) is x / d
+// rounded to nearest (Markstein's theorem), with the sign of zero kept.
+// That holds while no step over- or underflows, which `ok` tracks: it
+// stays true for q = 0 (then x = 0) and for 2^-80 <= |q| < 2^126, and
+// turns false otherwise (NaN and infinite x among them); the caller then
+// divides with __fdiv_rn.
+__device__ __forceinline__ float quotient(float x, float d, float y, bool& ok) {
+  constexpr uint32_t TINY2 = 2u * 0x17800000u;  // bits of 2^-80, doubled
+  const float q = __fmul_rn(x, y);
+  const float rn = __fmaf_rn(q, d, -x);
+  ok &= (fabsf(q) < 0x1p126f) & ((__float_as_uint(q) << 1) - 2u >= TINY2 - 2u);
+  return __fmaf_rn(-rn, y, q);
+}
+
+// what a thread holds of one strip between its loads and its stores: each
+// row's offset, how many of its elements lie in the region (0 past Sq) and
+// how many leading 16-byte vectors it moves whole (0 when its base in x or
+// y is off 16 bytes), and its elements
+template <typename E>
+struct StripData {
+  long long off[2];
+  int n[2], nv[2];
+  RowBits<E> in[2];
+};
+
+// issues the strip's loads: whole 16-byte vectors where they fit, single
+// elements at a ragged row end or an unaligned row
+template <typename E>
+__device__ __forceinline__ void load_strip(StripData<E>& s, const Strip& st, int bh,
+                                           int Sq, int Skv,
+                                           const typename E::Bits* x,
+                                           const typename E::Bits* y) {
+  using R = RowBits<E>;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = st.r + 8 * i;
+    s.off[i] = (static_cast<long long>(bh) * Sq + row) * Skv + st.c0;
+    s.n[i] = row < Sq ? min(STRIP, Skv - st.c0) : 0;
+    s.nv[i] = aligned16(x + s.off[i]) && aligned16(y + s.off[i])
+                  ? s.n[i] / R::PER_VEC : 0;
+    const uint4* src = reinterpret_cast<const uint4*>(x + s.off[i]);
+#pragma unroll
+    for (int u = 0; u < R::VECS; ++u)
+      if (u < s.nv[i]) s.in[i].v[u] = src[u];
+    if (s.nv[i] < R::VECS) {  // a ragged or unaligned row, or one past Sq
+#pragma unroll
+      for (int j = 0; j < STRIP; ++j)
+        if (j >= s.nv[i] * R::PER_VEC) s.in[i].e[j] = j < s.n[i] ? x[s.off[i] + j] : 0;
+    }
+  }
+}
+
+// y = keep ? x / d : 0 over the strip from its Philox words (g[j]: group
+// (r, c0 + j), whose words 2i + h are (r + 8i, c0 + j + 8h)), then its
+// stores
+template <typename E>
+__device__ __forceinline__ void apply_strip(const StripData<E>& s,
+                                            const dropout::Words (&g)[8],
+                                            uint32_t threshold, float d, float rcp,
+                                            bool fast, typename E::Bits* y) {
+  using R = RowBits<E>;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float f[STRIP];
+    bool ok = fast;
+#pragma unroll
+    for (int j = 0; j < STRIP; ++j) f[j] = quotient(elem(s.in[i], j), d, rcp, ok);
+    if (!ok) {
+#pragma unroll
+      for (int j = 0; j < STRIP; ++j) f[j] = __fdiv_rn(elem(s.in[i], j), d);
+    }
+#pragma unroll
+    for (int j = 0; j < STRIP; ++j)
+      f[j] = g[j & 7].w[2 * i + (j >> 3)] < threshold ? f[j] : 0.f;
+    R out;
+    put(out, f);
+    uint4* dst = reinterpret_cast<uint4*>(y + s.off[i]);
+#pragma unroll
+    for (int u = 0; u < R::VECS; ++u)
+      if (u < s.nv[i]) dst[u] = out.v[u];
+    if (s.nv[i] * R::PER_VEC < s.n[i]) {
+#pragma unroll
+      for (int j = 0; j < STRIP; ++j)
+        if (j >= s.nv[i] * R::PER_VEC && j < s.n[i]) y[s.off[i] + j] = out.e[j];
+    }
+  }
+}
+
+// A strip a thread: its loads, then its Philox words (the products as
+// mul.wide.u32) and its results.
 template <typename E>
 __global__ void __launch_bounds__(THREADS)
-    dropout_apply_kernel(unsigned long long seed, uint32_t threshold, float denom,
-                         int Sq, int Skv, int strips_per_row, int strips,
+    dropout_apply_kernel(unsigned long long seed, uint32_t threshold, float d,
+                         float rcp, int Sq, int Skv, int strips_per_row, int strips,
                          const typename E::Bits* x, typename E::Bits* y) {
-  constexpr int VECS = row_vecs<E>();
   const int t = blockIdx.x * THREADS + threadIdx.x;
   if (t >= strips) return;
   const int bh = blockIdx.y;
   const Strip st = strip_of(t, strips_per_row);
-  long long off[2];
-  bool vec[2];
-  RowVec<E> in[2];
-  // whole, aligned rows: load before the Philox work
+  StripData<E> s;
+  load_strip(s, st, bh, Sq, Skv, x, y);
+  dropout::Words g[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = st.r + 8 * i;
-    off[i] = (static_cast<long long>(bh) * Sq + row) * Skv + st.c0;
-    vec[i] = row < Sq && st.c0 + STRIP <= Skv && aligned16(x + off[i]) &&
-             aligned16(y + off[i]);
-    if (vec[i]) {
-      const uint4* src = reinterpret_cast<const uint4*>(x + off[i]);
-#pragma unroll
-      for (int u = 0; u < VECS; ++u) in[i].v[u] = src[u];
-    }
-  }
-  const StripKeep s = strip_keep(seed, bh, st.r, st.c0, threshold);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (vec[i]) {
-      RowVec<E> out;
-#pragma unroll
-      for (int j = 0; j < STRIP; ++j)
-        out.e[j] = drop1<E>(in[i].e[j], kept(s, i, j), denom);
-      uint4* dst = reinterpret_cast<uint4*>(y + off[i]);
-#pragma unroll
-      for (int u = 0; u < VECS; ++u) dst[u] = out.v[u];
-    } else if (st.r + 8 * i < Sq) {
-#pragma unroll
-      for (int j = 0; j < STRIP; ++j)
-        if (st.c0 + j < Skv)
-          y[off[i] + j] = drop1<E>(x[off[i] + j], kept(s, i, j), denom);
-    }
-  }
+  for (int j = 0; j < 8; ++j) g[j] = dropout::group_words<true>(seed, bh, st.r, st.c0 + j);
+  apply_strip(s, g, threshold, d, rcp, d >= 0x1p-20f, y);
 }
 
 // strips along a row, and of a bh: row pairs (Sq rounded up to 16, halved)
@@ -227,27 +322,28 @@ extern "C" int dropout_mask(unsigned long long seed, unsigned int threshold,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y = keep(seed, bh, row, col) ? x / denom : 0 over contiguous (BH, Sq, Skv)
-// x and y of dtype 0 (float32) or 1 (bfloat16), denom = float32(1 - rate).
-// Returns 0 on success, -1 for another dtype, or the CUDA error code of a
-// refused launch. The caller launches only with BH, Sq and Skv positive,
-// BH <= 65535 and a bh's strips below 2^31.
-extern "C" int dropout_apply(int dtype, unsigned long long seed,
-                             unsigned int threshold, float denom, int BH, int Sq,
-                             int Skv, const void* x, void* y, void* stream) {
+template <typename E>
+int launch_apply(unsigned long long seed, uint32_t threshold, float d, float rcp,
+                 int BH, int Sq, int Skv, const void* x, void* y, cudaStream_t s) {
   const int strips = strips_of(Sq, Skv);
   const dim3 grid((strips + THREADS - 1) / THREADS, BH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dropout_apply_kernel<F32><<<grid, THREADS, 0, s>>>(
-        seed, threshold, denom, Sq, Skv, strips_per_row(Skv), strips,
-        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y));
-  } else if (dtype == 1) {
-    dropout_apply_kernel<BF16><<<grid, THREADS, 0, s>>>(
-        seed, threshold, denom, Sq, Skv, strips_per_row(Skv), strips,
-        static_cast<const uint16_t*>(x), static_cast<uint16_t*>(y));
-  } else {
-    return -1;
-  }
+  dropout_apply_kernel<E><<<grid, THREADS, 0, s>>>(
+      seed, threshold, d, rcp, Sq, Skv, strips_per_row(Skv), strips,
+      static_cast<const typename E::Bits*>(x), static_cast<typename E::Bits*>(y));
   return static_cast<int>(cudaGetLastError());
+}
+
+// y = keep(seed, bh, row, col) ? x / d : 0 over contiguous (BH, Sq, Skv) x
+// and y of dtype 0 (float32) or 1 (bfloat16), d = float32(1 - rate) and
+// rcp = RN(1 / d) in float32; the quotient is IEEE float32 division's,
+// rounded to x's dtype. Returns 0 on success, -1 for another dtype, or the
+// CUDA error code of a refused launch. The caller launches only with BH,
+// Sq and Skv positive, BH <= 65535 and a bh's strips below 2^31.
+extern "C" int dropout_apply(int dtype, unsigned long long seed,
+                             unsigned int threshold, float d, float rcp, int BH,
+                             int Sq, int Skv, const void* x, void* y, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_apply<F32>(seed, threshold, d, rcp, BH, Sq, Skv, x, y, s);
+  if (dtype == 1) return launch_apply<BF16>(seed, threshold, d, rcp, BH, Sq, Skv, x, y, s);
+  return -1;
 }

@@ -32,7 +32,10 @@ struct Words {
   uint32_t w[4];
 };
 
-// Philox4x32 with 10 rounds (Random123's philox4x32_10)
+// Philox4x32 with 10 rounds (Random123's philox4x32_10). WIDE writes each
+// product as PTX's mul.wide.u32; otherwise ptxas picks the form (IMAD.WIDE.U32,
+// or IMAD.HI.U32 + IMAD, which an H100 issues more slowly: probes/imad_hi_rate.cu)
+template <bool WIDE = false>
 __device__ __forceinline__ Words philox4x32_10(uint32_t c0, uint32_t c1,
                                                uint32_t c2, uint32_t c3,
                                                uint32_t k0, uint32_t k1) {
@@ -42,10 +45,21 @@ __device__ __forceinline__ Words philox4x32_10(uint32_t c0, uint32_t c1,
       k0 += 0x9E3779B9u;
       k1 += 0xBB67AE85u;
     }
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    uint32_t lo0, hi0, lo1, hi1;
+    if constexpr (WIDE) {  // one 32x32->64-bit product each (IMAD.WIDE.U32)
+      uint64_t p0, p1;
+      asm("mul.wide.u32 %0, %1, %2;" : "=l"(p0) : "r"(c0), "n"(0xD2511F53u));
+      asm("mul.wide.u32 %0, %1, %2;" : "=l"(p1) : "r"(c2), "n"(0xCD9E8D57u));
+      lo0 = static_cast<uint32_t>(p0);
+      hi0 = static_cast<uint32_t>(p0 >> 32);
+      lo1 = static_cast<uint32_t>(p1);
+      hi1 = static_cast<uint32_t>(p1 >> 32);
+    } else {
+      lo0 = 0xD2511F53u * c0;
+      hi0 = __umulhi(0xD2511F53u, c0);
+      lo1 = 0xCD9E8D57u * c2;
+      hi1 = __umulhi(0xCD9E8D57u, c2);
+    }
     const uint32_t n0 = hi1 ^ c1 ^ k0;
     const uint32_t n2 = hi0 ^ c3 ^ k1;
     c0 = n0;
@@ -57,10 +71,11 @@ __device__ __forceinline__ Words philox4x32_10(uint32_t c0, uint32_t c1,
 }
 
 // the four words of the 2x2 group that holds (row, col)
+template <bool WIDE = false>
 __device__ __forceinline__ Words group_words(unsigned long long seed,
                                              uint32_t bh, uint32_t row,
                                              uint32_t col) {
-  return philox4x32_10(row & ~8u, col & ~8u, bh, 0u,
+  return philox4x32_10<WIDE>(row & ~8u, col & ~8u, bh, 0u,
                        static_cast<uint32_t>(seed),
                        static_cast<uint32_t>(seed >> 32));
 }

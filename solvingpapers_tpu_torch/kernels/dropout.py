@@ -30,13 +30,17 @@ which counts its calls in ``.calls``. There is no fallback between the
 two. The division is IEEE float32 division by ``float32(1 - rate)`` on
 both: PyTorch on a CUDA tensor turns division by a Python scalar into
 multiplication by its reciprocal, one ulp off in places, so the plain
-version divides by a float32 tensor.
+version divides by a float32 tensor; the kernel forms the same correctly
+rounded quotient from ``float32(1 - rate)`` and its float32 reciprocal
+(`apply_args`) without a division on its fast path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from solvingpapers_tpu_torch.kernels import build
@@ -61,9 +65,10 @@ def _library():
         lib.dropout_mask.argtypes = [ctypes.c_uint64, ctypes.c_uint32] + [
             ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
         lib.dropout_mask.restype = ctypes.c_int
-        # (dtype, seed, threshold, 1 - rate, BH, Sq, Skv, x, y, stream)
+        # (dtype, seed, threshold, d, 1 / d, BH, Sq, Skv, x, y, stream)
         lib.dropout_apply.argtypes = [ctypes.c_int, ctypes.c_uint64,
-                                      ctypes.c_uint32, ctypes.c_float] + [
+                                      ctypes.c_uint32, ctypes.c_float,
+                                      ctypes.c_float] + [
             ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
         lib.dropout_apply.restype = ctypes.c_int
         _lib = lib
@@ -202,6 +207,15 @@ def dropout_apply_reference(x: torch.Tensor, rate: float,
 dropout_apply_reference.calls = 0
 
 
+@functools.lru_cache(maxsize=64)
+def apply_args(rate: float) -> tuple[int, float, float]:
+    """The apply kernel's constants of a rate: the keep threshold, d =
+    float32(1 - rate) and its float32 reciprocal RN(1 / d), from which the
+    kernel forms the correctly rounded quotient x / d."""
+    d = np.float32(1.0 - rate)
+    return keep_threshold(rate), float(d), float(np.float32(1.0) / d)
+
+
 def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """``keep ? x / (1 - rate) : 0`` over `x` (..., S, D), float32 or
     bfloat16 on a CUDA device, by the sm_90a `dropout_apply` kernel in one
@@ -211,24 +225,29 @@ def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the dropout_apply kernel takes CUDA tensors, got "
                          f"{x.device}")
-    if x.dtype not in DTYPE_CODES:
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise ValueError(f"the dropout_apply kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
-    thr = keep_threshold(rate)
-    x = x.contiguous()
+    thr, d, rcp = apply_args(rate)
+    if not x.is_contiguous():
+        x = x.contiguous()
     y = torch.empty_like(x)
-    lead, s, d = _region(x)
+    lead, s, dd = _region(x)
     if x.numel() == 0:
         return y
-    _check_region(lead, s, d)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.dropout_apply(DTYPE_CODES[x.dtype],
-                                int(seed) & 0xFFFFFFFFFFFFFFFF, thr, 1.0 - rate,
-                                lead, s, d, x.data_ptr(), y.data_ptr(),
-                                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_region(lead, s, dd)
+    launch = _library().dropout_apply
+    args = (code, int(seed) & 0xFFFFFFFFFFFFFFFF, thr, d, rcp, lead, s, dd,
+            x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(x.device):
+            err = launch(*args)
     if err != 0:
-        raise RuntimeError(f"dropout_apply kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dropout_apply kernel launch failed: error {err}")
     dropout_apply.launches += 1
     return y
 

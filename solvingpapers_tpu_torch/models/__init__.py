@@ -1,8 +1,9 @@
-"""Models (port of `solvingpapers_tpu/models`: the LLaMA-3 and
+"""Models (port of `solvingpapers_tpu/models`: the GPT, LLaMA-3 and
 DeepSeek-V3 families)."""
 
-from solvingpapers_tpu_torch.models import deepseekv3, llama3
+from solvingpapers_tpu_torch.models import deepseekv3, gpt, llama3
 from solvingpapers_tpu_torch.models.deepseekv3 import DeepSeekV3, DeepSeekV3Config
+from solvingpapers_tpu_torch.models.gpt import GPT, GPTBlock, GPTConfig
 from solvingpapers_tpu_torch.models.llama3 import (
     Llama,
     LlamaBlock,
@@ -19,8 +20,11 @@ def init_params_for(cfg):
         return deepseekv3.init_params
     if isinstance(cfg, LlamaConfig):
         return llama3.init_params
+    if isinstance(cfg, GPTConfig):
+        return gpt.init_params
     raise NotImplementedError(f"no init_params ported for {type(cfg).__name__}")
 
 
-__all__ = ["DeepSeekV3", "DeepSeekV3Config", "Llama", "LlamaBlock",
-           "LlamaConfig", "init_params", "init_params_for"]
+__all__ = ["DeepSeekV3", "DeepSeekV3Config", "GPT", "GPTBlock", "GPTConfig",
+           "Llama", "LlamaBlock", "LlamaConfig", "init_params",
+           "init_params_for"]

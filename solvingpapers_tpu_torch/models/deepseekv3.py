@@ -39,7 +39,7 @@ from torch import nn
 
 from solvingpapers_tpu_torch import ops
 from solvingpapers_tpu_torch.device import resolve_device
-from solvingpapers_tpu_torch.kernels.dropout import dropout, dropout_mask, mix_seed
+from solvingpapers_tpu_torch.kernels.dropout import dropout, mix_seed
 from solvingpapers_tpu_torch.models.layers import (
     GLUFFN,
     Dense,
@@ -174,10 +174,8 @@ class MLA(nn.Module):
             scores = scores.masked_fill(~(idx[:, None] >= idx[None, :]),
                                         ops.BIG_NEG)
             probs = torch.softmax(scores, dim=-1)
-            if drop:
-                keep = dropout_mask(attn_seed, cfg.attn_dropout, b * n, s, s,
-                                    x.device).view(b, n, s, s)
-                probs = probs * keep / (1.0 - cfg.attn_dropout)
+            if drop:  # the flash kernels' mask: element (b * N + h, q, kv)
+                probs = dropout(probs, cfg.attn_dropout, attn_seed)
             ctx = torch.einsum("bnst,btl->bsnl", probs.to(dt), c)
 
         if r:

@@ -1,5 +1,5 @@
 """Shared building blocks (port of `solvingpapers_tpu/models/layers.py`:
-the parts LLaMA-3 and DeepSeek-V3 use, without context parallelism).
+the parts GPT, LLaMA-3 and DeepSeek-V3 use, without context parallelism).
 
 Parameters are created empty — they come from a family's `init_params`
 (`models.llama3`, `models.deepseekv3`) or from `convert.py` — and are
@@ -19,7 +19,11 @@ storage layouts give those values:
   float32 values and autograd carries the cast's gradient back to them.
 
 Norm weights stay float32 in both, as the reference's are (`rms_norm`
-multiplies in float32).
+and `layer_norm` multiply in float32).
+
+Dropout (`Attention`, `MLP`) is a pure function of a seed passed to
+`forward` (`kernels.dropout`): None runs the module deterministic, an int
+draws its masks, so a remat recomputation redraws the same ones.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from solvingpapers_tpu_torch import ops
 from solvingpapers_tpu_torch.infer.cache import KVCache, update_kv_cache
 from solvingpapers_tpu_torch.kernels import flash_attention
+from solvingpapers_tpu_torch.kernels.dropout import dropout, mix_seed
 
 
 def default_positions(b: int, s: int, max_positions: int | None = None,
@@ -95,6 +100,17 @@ class RMSNorm(nn.Module):
         return ops.rms_norm(x, self.weight, self.eps)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops.layer_norm(x, self.weight, self.bias, self.eps)
+
+
 class Attention(nn.Module):
     """Multi-head attention with optional GQA/MQA, RoPE, causality and a
     KV cache — the three non-context-parallel modes of the reference:
@@ -116,14 +132,21 @@ class Attention(nn.Module):
     (``positions[0, 0]``); using the host-side integer keeps the write a
     slice. `rope` is the shared (cos, sin) table pair of the model, or
     None for no rotary embedding.
+
+    With `dropout` > 0 and a `dropout_seed`, the uncached path drops
+    attention probabilities (masks of ``mix_seed(seed, 0)``, inside the
+    flash kernels under `use_flash`) and the output projection's result
+    (``mix_seed(seed, 1)``), as the reference's module does.
     """
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: int | None = None,
                  head_dim: int | None = None, *, causal: bool = True,
                  rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-                 use_bias: bool = False, dtype=torch.float32,
-                 param_dtype=None, use_flash: bool = False, device=None):
+                 dropout: float = 0.0, use_bias: bool = False,
+                 dtype=torch.float32, param_dtype=None,
+                 use_flash: bool = False, device=None):
         super().__init__()
+        self.dropout = dropout
         self.n_heads = n_heads
         self.n_kv = n_kv_heads or n_heads
         self.head_dim = head_dim or dim // n_heads
@@ -139,8 +162,13 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
                 cache: KVCache | None = None,
-                attend_len: int | None = None):
+                attend_len: int | None = None,
+                dropout_seed: int | None = None):
         b, s, _ = x.shape
+        drop = self.dropout > 0.0 and dropout_seed is not None
+        if drop and cache is not None:
+            raise ValueError("dropout is a training-path option; cached "
+                             "attention runs deterministic")
         if positions is None:
             positions = default_positions(b, s, device=x.device)
         q = self.q(x).view(b, s, self.n_heads, self.head_dim)
@@ -166,12 +194,44 @@ class Attention(nn.Module):
             mask = kv_idx[None, None, None, :] <= positions[:, None, :, None]
             out = ops.dot_product_attention(q, cache.k, cache.v, mask=mask)
         elif self.use_flash:
-            out = flash_attention(q, k, v, causal=self.causal)
+            out = apply_flash_attention(
+                q, k, v, causal=self.causal, dropout_rate=self.dropout,
+                dropout_seed=mix_seed(dropout_seed, 0) if drop else 0,
+                deterministic=not drop)
         else:
-            out = ops.dot_product_attention(q, k, v, causal=self.causal)
+            out = ops.dot_product_attention(
+                q, k, v, causal=self.causal, dropout_rate=self.dropout,
+                dropout_seed=mix_seed(dropout_seed, 0) if drop else None,
+                deterministic=not drop)
 
-        out = out.reshape(b, s, self.n_heads * self.head_dim)
-        return self.out(out), cache
+        out = self.out(out.reshape(b, s, self.n_heads * self.head_dim))
+        if drop:
+            out = dropout(out, self.dropout, mix_seed(dropout_seed, 1))
+        return out, cache
+
+
+class MLP(nn.Module):
+    """Plain 2-layer MLP: proj(activation(fc(x))) with biases, then
+    dropout of `dropout_seed`'s mask when `dropout` > 0 and a seed is
+    given (the GPT block's feed-forward)."""
+
+    def __init__(self, dim: int, hidden_dim: int, activation=ops.gelu_tanh, *,
+                 dropout: float = 0.0, use_bias: bool = True,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        kw = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
+                  device=device)
+        self.activation = activation
+        self.dropout = dropout
+        self.fc = Dense(dim, hidden_dim, **kw)
+        self.proj = Dense(hidden_dim, dim, **kw)
+
+    def forward(self, x: torch.Tensor,
+                dropout_seed: int | None = None) -> torch.Tensor:
+        x = self.proj(self.activation(self.fc(x)))
+        if self.dropout > 0.0 and dropout_seed is not None:
+            x = dropout(x, self.dropout, dropout_seed)
+        return x
 
 
 class GLUFFN(nn.Module):

@@ -128,13 +128,15 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 positions: torch.Tensor | None = None,
                 caches: list[KVCache] | None = None,
-                attend_len: int | None = None):
+                attend_len: int | None = None,
+                dropout_seed: int | None = None):
         """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype,
         caches). Modes as in `layers.Attention`. A forward that records
         gradients in training mode refuses the reference's dropout, which
         is not ported for LLaMA (B4 ported the in-kernel attention dropout
-        with DeepSeek-V3), rather than train without it; under `remat`
-        each block is recomputed in the backward."""
+        with DeepSeek-V3), rather than train without it, so `dropout_seed`
+        (the LM objective passes every model its step's) draws nothing;
+        under `remat` each block is recomputed in the backward."""
         if self.training and torch.is_grad_enabled() and self.cfg.dropout > 0.0:
             raise NotImplementedError(
                 "LLaMA training with dropout > 0 is not ported (the block "

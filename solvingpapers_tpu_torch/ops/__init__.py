@@ -2,7 +2,7 @@
 serving and training slices run). `ops.moe` (DeepSeek-V3's routing and
 dispatch) is imported as a submodule."""
 
-from solvingpapers_tpu_torch.ops.activations import silu, swish
+from solvingpapers_tpu_torch.ops.activations import gelu_tanh, silu, swish
 from solvingpapers_tpu_torch.ops.attention import (
     BIG_NEG,
     causal_mask,
@@ -11,7 +11,7 @@ from solvingpapers_tpu_torch.ops.attention import (
 )
 from solvingpapers_tpu_torch.ops import moe
 from solvingpapers_tpu_torch.ops.losses import cross_entropy
-from solvingpapers_tpu_torch.ops.norms import rms_norm
+from solvingpapers_tpu_torch.ops.norms import layer_norm, rms_norm
 from solvingpapers_tpu_torch.ops.rope import (
     apply_rope,
     precompute_rope,
@@ -30,6 +30,8 @@ __all__ = [
     "causal_mask",
     "cross_entropy",
     "dot_product_attention",
+    "gelu_tanh",
+    "layer_norm",
     "min_p_mask",
     "moe",
     "precompute_rope",

@@ -49,9 +49,10 @@ def dot_product_attention(
     q: (B, Sq, N, H); k, v: (B, Skv, Nkv, H) with N % Nkv == 0 (GQA/MQA by
     repeating kv heads). `mask` is broadcastable to (B, N, Sq, Skv),
     True = attend. With ``dropout_rate > 0`` and not `deterministic`,
-    the float32 probabilities become ``probs * keep / (1 - rate)`` before
-    the cast, as in the reference; `keep` is the flash kernels' mask of
-    `dropout_seed` (`kernels.dropout`, element (b * N + h, q, kv)), where
+    the float32 probabilities become ``keep ? probs / (1 - rate) : 0``
+    before the cast, as in the reference, in one pass each way
+    (`kernels.dropout.dropout`; no mask is stored); `keep` is the flash
+    kernels' mask of `dropout_seed` (element (b * N + h, q, kv)), where
     the reference draws a `jax.random.bernoulli` mask.
     """
     n, n_kv = q.shape[-2], k.shape[-2]
@@ -73,11 +74,8 @@ def dot_product_attention(
     if dropout_rate > 0.0 and not deterministic:
         if dropout_seed is None:
             raise ValueError("dropout_seed is required when dropout is active")
-        from solvingpapers_tpu_torch.kernels.dropout import dropout_mask
+        from solvingpapers_tpu_torch.kernels.dropout import dropout
 
-        b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
-        keep = dropout_mask(dropout_seed, dropout_rate, b * n, sq, skv,
-                            q.device).view(b, n, sq, skv)
-        probs = probs * keep / (1.0 - dropout_rate)
+        probs = dropout(probs, dropout_rate, dropout_seed)
     probs = probs.to(v.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)

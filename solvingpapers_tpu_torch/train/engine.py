@@ -15,10 +15,19 @@ the state's generator seed and the step — the reference's
 ``fold_in(state.rng, state.step)`` — so a resumed run and a recomputed
 (remat) block draw the same masks.
 
+`scan_steps = K > 1` runs the reference's training windows: K ordinary
+steps back to back (the same batches, step seeds and optimizer state as
+stepping one at a time), the host logging, evaluating and checkpointing
+only at window ends, so every cadence must be a multiple of K; a resume
+off a window boundary and the ragged tail step singly. (The reference
+scans a window on the device to spare K - 1 dispatches. A CUDA graph
+would be the port's form, but the dropout seed is a kernel argument, so
+a replay would redraw one step's masks; the port runs the steps
+eagerly.)
+
 Not ported, and refused when set (they need a mesh, several cards or
 the reference's XLA observatories): `mesh`, `context_parallel`,
-`pipeline_parallel`, `scan_steps > 1`, `xla_obs`, `mesh_obs`,
-`trace_path`, `status_port`.
+`pipeline_parallel`, `xla_obs`, `mesh_obs`, `trace_path`, `status_port`.
 """
 
 from __future__ import annotations
@@ -74,7 +83,6 @@ class TrainConfig:
             "mesh": self.mesh is not None,
             "context_parallel": self.context_parallel,
             "pipeline_parallel": self.pipeline_parallel,
-            "scan_steps": self.scan_steps > 1,
             "xla_obs": self.xla_obs,
             "mesh_obs": self.mesh_obs,
             "trace_path": self.trace_path is not None,
@@ -84,9 +92,9 @@ class TrainConfig:
 
 
 def lm_loss_fn(model, batch, dropout_seed=None):
-    """Default LM objective: next-token CE of batch['x'] -> batch['y'].
-    (The LLaMA family draws no dropout, so the seed is unused.)"""
-    logits, _ = model(batch["x"])
+    """Default LM objective: next-token CE of batch['x'] -> batch['y'],
+    the model's dropout (GPT's) drawn from `dropout_seed`."""
+    logits, _ = model(batch["x"], dropout_seed=dropout_seed)
     loss = ops.cross_entropy(logits, batch["y"])  # auto-chunks at scale
     return loss, {"perplexity": torch.exp(loss)}, None
 
@@ -184,8 +192,19 @@ class Trainer:
         """Train to `config.steps`, logging every `log_every` steps (and
         the last), evaluating every `eval_every`, checkpointing every
         `ckpt_every` into `checkpoint_dir` and resuming from its newest
-        checkpoint at the start."""
+        checkpoint at the start; in windows of `scan_steps` steps (see
+        the module's docstring). The first step, or window, is fenced out
+        of the timing."""
         cfg = self.config
+        scan_k = max(cfg.scan_steps, 1)
+        if scan_k > 1:
+            for nm, ev in (("log_every", cfg.log_every),
+                           ("eval_every", cfg.eval_every),
+                           ("ckpt_every", cfg.ckpt_every)):
+                if ev > 0 and ev % scan_k:
+                    raise ValueError(
+                        f"{nm}={ev} must be a multiple of scan_steps="
+                        f"{scan_k}: the host only sees window boundaries")
         writer = writer or ConsoleWriter()
         if state is None:
             state = self.init_state()
@@ -202,11 +221,16 @@ class Trainer:
         last_log_step = start_step
         step = start_step
         while step < cfg.steps:
-            end = step + 1
-            metrics = self.train_step(state, next(batch_iter))
+            # whole windows on window-aligned steps; single steps to
+            # re-align after a resume and through the ragged tail, so
+            # window ends stay multiples of scan_k
+            kk = 1 if step % scan_k or step + scan_k > cfg.steps else scan_k
+            end = step + kk
+            for _ in range(kk):
+                metrics = self.train_step(state, next(batch_iter))
             if step == start_step:
-                # fence the first step (allocator warm-up, kernel
-                # builds) out of the timed window, which starts here
+                # fence the first step or window (allocator warm-up,
+                # kernel builds) out of the timed window, which starts here
                 float(metrics["train_loss"])
                 t_prev = time.perf_counter()
                 last_log_step = end

@@ -24,11 +24,13 @@ bias moves by exactly +-rate a step, so it is compared at 1e-7.
 
 At dropout > 0 nothing can be compared with JAX (its masks come from
 its own generator), so the port is held to itself: flash and dense MLA
-apply one mask at one seed, remat recomputes the same masks (equal
-grads) and the routing bias is updated once a step.
+apply one mask at one seed, the dense MLA's one-pass probability
+dropout equals its old two-pass form bit for bit, remat recomputes the
+same masks (equal grads) and the routing bias is updated once a step.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -370,6 +372,30 @@ def test_flash_and_dense_mla_apply_one_mask(weights):
     _close(lf, ld.numpy())
     for a, b in zip(gf, gd):
         _close(a, b.numpy())
+
+
+def test_dense_mla_dropout_equals_the_old_two_pass_form(weights, monkeypatch):
+    """The dense MLA's probability dropout, one pass of `dropout`, gives
+    the loss and grads of its old form (the keep mask drawn whole, then
+    ``probs * keep / (1 - rate)``) bit for bit."""
+    toks = _tokens(10, s=SEQ + 1)
+    new_loss, new_grads, _ = _loss_and_grads(
+        _dropout_model(weights, use_flash=False), toks, 5)
+    tdr = importlib.import_module("solvingpapers_tpu_torch.kernels.dropout")
+
+    def old_form(x, rate, seed):
+        if x.dim() != 4:  # the residual dropouts stay as they are
+            return tdr.dropout(x, rate, seed)
+        b, n, s, t = x.shape
+        keep = tdr.dropout_keep_reference(seed, rate, b * n, s, t).view(x.shape)
+        return x * keep / (1.0 - rate)
+
+    monkeypatch.setattr(tds, "dropout", old_form)
+    old_loss, old_grads, _ = _loss_and_grads(
+        _dropout_model(weights, use_flash=False), toks, 5)
+    assert torch.equal(new_loss, old_loss)
+    for a, b in zip(new_grads, old_grads):
+        assert torch.equal(a, b)
 
 
 def test_trainer_updates_the_bias_once_a_step_under_remat(weights):

@@ -8,11 +8,14 @@ Flax's `nn.Dropout` formula ``jnp.where(keep, x / (1 - rate), 0)`` in
 float32, evaluated op by op as JAX does eagerly (an IEEE division; under
 `jit` XLA multiplies by the reciprocal instead, one ulp off in places).
 The kernel is held against this plain version on the card
-(`test_torch_kernels_cuda.py`, `chip_smoke.py`). No tolerance anywhere:
-every comparison is exact.
+(`test_torch_kernels_cuda.py`, `chip_smoke.py`). The dense attention's
+probability dropout, now one pass of `dropout`, equals its old two-pass
+form, and GPT's dropout sites draw distinct masks that a remat
+recomputation redraws. No tolerance anywhere: every comparison is exact.
 """
 
 import importlib
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from solvingpapers_tpu_torch import kernels
+from solvingpapers_tpu_torch import ops as tops
 from solvingpapers_tpu_torch.kernels import build
 
 tdr = importlib.import_module("solvingpapers_tpu_torch.kernels.dropout")
@@ -123,3 +127,97 @@ def test_region_limits_raise():
     with pytest.raises(ValueError, match="range"):
         tdr._check_region(1, 2**20, 2**17)
     tdr._check_region(65535, 16384, 512)
+
+
+# ------------------------------------------ the dense attention, and GPT
+
+
+def _old_dense_attention(q, k, v, rate, seed):
+    """`ops.dot_product_attention`'s causal path as it was before its
+    dropout became one pass: the keep mask drawn whole, then ``probs *
+    keep / (1 - rate)`` before the cast."""
+    b, s, n, _ = q.shape
+    scores = torch.einsum("bqnh,bknh->bnqk", q, k).float() * q.shape[-1] ** -0.5
+    scores = scores.masked_fill(~tops.causal_mask(s, s), tops.BIG_NEG)
+    probs = torch.softmax(scores, dim=-1)
+    keep = tdr.dropout_keep_reference(seed, rate, b * n, s, s).view(b, n, s, s)
+    probs = (probs * keep / (1.0 - rate)).to(v.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_attention_dropout_equals_the_old_two_pass_form(dtype):
+    """The one-pass probability dropout gives the old form's output and
+    q, k, v gradients bit for bit (on the CPU both run the plain keep
+    function)."""
+    q, k, v, g = (_x(10 + i, (2, 24, 2, 16), dtype) for i in range(4))
+    grads = []
+    for fn in (lambda *t: tops.dot_product_attention(
+                   *t, causal=True, dropout_rate=0.2, dropout_seed=SEED,
+                   deterministic=False),
+               lambda *t: _old_dense_attention(*t, 0.2, SEED)):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        grads.append([out] + list(torch.autograd.grad(out, ts, g)))
+    for new, old in zip(*grads):
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(new.detach().view(bits), old.detach().view(bits))
+
+
+def test_gpt_dropout_sites_draw_distinct_masks_and_remat_redraws_them(monkeypatch):
+    """In training, GPT draws dropout at the embedding and, per block, at
+    the attention probabilities, the attention output and the MLP: each
+    from its own seed, so their masks differ. Under remat the backward's
+    recomputation draws the forward's seeds again, and the loss and every
+    gradient equal the run without remat bit for bit."""
+    from solvingpapers_tpu_torch.models.gpt import GPT, GPTConfig
+    from solvingpapers_tpu_torch.ops import cross_entropy
+
+    calls = []
+    apply = tdr._apply
+
+    def recording(x, rate, seed):
+        calls.append((tuple(x.shape), seed, None))
+        return apply(x, rate, seed)
+
+    monkeypatch.setattr(tdr, "_apply", recording)
+    cfg = GPTConfig(vocab_size=32, block_size=16, dim=32, n_layers=2, n_heads=2,
+                    dropout=0.1)
+    gen = torch.Generator().manual_seed(0)
+    weights = {k: torch.randn(v.shape, generator=gen) * 0.1
+               for k, v in GPT(cfg, device="cpu").state_dict().items()}
+    tokens = torch.randint(0, 32, (2, 16), generator=gen)
+    results, seeds = [], []
+    for remat in (False, True):
+        model = GPT(GPTConfig(**{**cfg.__dict__, "remat": remat}), device="cpu",
+                    param_dtype=torch.float32)
+        model.load_state_dict(weights)
+        calls.clear()
+        loss = cross_entropy(model(tokens, dropout_seed=123)[0], tokens)
+        forward = list(calls)
+        loss.backward()
+        results.append([loss.detach()] + [p.grad for p in model.parameters()])
+        seeds.append((forward, calls[len(forward):]))
+    (fwd, bwd), (rfwd, rbwd) = seeds
+    # embedding + 3 sites a block, each its own seed
+    assert len(fwd) == 1 + 3 * cfg.n_layers
+    assert len({s for _, s, _ in fwd}) == len(fwd)
+    masks = [tdr.dropout_keep_reference(s, 0.1, *(shape[0] * (shape[1] if len(shape) == 4
+                                                             else 1),) + shape[-2:])
+             for shape, s, _ in fwd]
+    for i in range(len(masks)):
+        for j in range(i):
+            if masks[i].shape == masks[j].shape:
+                assert not torch.equal(masks[i], masks[j])
+    assert sorted(s for _, s, _ in rfwd) == sorted(s for _, s, _ in fwd)
+    # the backward applies each site's map again at its seed; under remat
+    # it also recomputes each block (up to the last saved tensor it needs,
+    # so a block's last dropout may be left out), with the forward's seeds
+    assert Counter(s for _, s, _ in bwd) == Counter(s for _, s, _ in fwd)
+    recomputed = Counter(s for _, s, _ in rbwd) - Counter(s for _, s, _ in bwd)
+    sites = [s for _, s, _ in fwd[1:]]
+    assert set(recomputed) <= set(sites) and all(n == 1 for n in recomputed.values())
+    for layer in range(cfg.n_layers):
+        assert set(sites[3 * layer:3 * layer + 3]) & set(recomputed), layer
+    for a, b in zip(*results):
+        assert torch.equal(a, b)

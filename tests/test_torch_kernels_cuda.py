@@ -13,8 +13,11 @@ largest gradient, bf16 within 1e-2 and float32 within 2e-5 — with and
 without in-kernel dropout (the plain versions draw the same mask). The
 dropout mask kernel's bits equal the plain keep function's exactly, and
 the dropout apply kernel's outputs (forward and backward) the plain
-dropout's. float32 head dims 16 and 32 and the bf16 forward at scales
-<= 0 (through `positive_scale`) are held to the same limits.
+dropout's, bit for bit, at its timed shapes, ragged sizes and unaligned
+bases, and at every bf16 input and every float32 sign and significand
+(at a sweep of divisors) against IEEE division. float32 head dims 16
+and 32 and the bf16 forward at scales <= 0 (through `positive_scale`)
+are held to the same limits.
 """
 
 import importlib
@@ -536,10 +539,17 @@ def test_dropout_mask_kernel_at_ragged_edges(cuda_device, bh, sq, skv):
     assert int((got != want).sum()) == 0
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 16384, 512), (2, 33, 15), (3, 31, 17),
-                                   (1, 7, 1), (2, 2, 17, 100)])
+@pytest.mark.parametrize("shape", [
+    (1, 16384, 512), (128, 256, 256), (8, 2048, 1000),  # the timed shapes
+    (2, 33, 15), (3, 31, 17), (1, 7, 1), (2, 2, 17, 100),
+    (2, 9, 1), (3, 1, 15), (2, 9, 17), (2, 1, 1000), (1, 9, 1000),  # ragged
+])
 def test_dropout_apply_kernel_equals_plain_dropout(cuda_device, dtype, shape):
     """The apply kernel, forward and backward through `dropout`, equals the
     plain version bit for bit, and launches once each way."""
@@ -552,16 +562,65 @@ def test_dropout_apply_kernel_equals_plain_dropout(cuda_device, dtype, shape):
     (dx,) = torch.autograd.grad(y, xg, dy)
     torch.cuda.synchronize()
     assert tdr.dropout_apply.launches == before + 2
-    assert torch.equal(y, tdr.dropout_apply_reference(x, 0.1, 1234))
-    assert torch.equal(dx, tdr.dropout_apply_reference(dy, 0.1, 1234))
+    assert torch.equal(_bits(y), _bits(tdr.dropout_apply_reference(x, 0.1, 1234)))
+    assert torch.equal(_bits(dx), _bits(tdr.dropout_apply_reference(dy, 0.1, 1234)))
 
 
 @pytest.mark.cuda
-def test_dropout_apply_kernel_reads_an_offset_view(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset,shape", [(1, (3, 40, 24)), (1, (2, 33, 1000)),
+                                          (3, (2, 33, 1000))])
+def test_dropout_apply_kernel_reads_an_offset_view(cuda_device, dtype, offset,
+                                                   shape):
     """A contiguous view that starts off 16 bytes goes to the kernel as is
     (no copy), so its element-wise path runs, and comes out right."""
-    flat = torch.randn(1 + 3 * 40 * 24, device=cuda_device)
-    x = flat[1:].view(3, 40, 24)
+    n = shape[0] * shape[1] * shape[2]
+    flat = torch.randn(offset + n, device=cuda_device).to(dtype)
+    x = flat[offset:].view(shape)
     assert x.data_ptr() % 16
-    assert torch.equal(tdr.dropout_apply(x, 0.5, 3),
-                       tdr.dropout_apply_reference(x, 0.5, 3))
+    assert torch.equal(_bits(tdr.dropout_apply(x, 0.5, 3)),
+                       _bits(tdr.dropout_apply_reference(x, 0.5, 3)))
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5, 0.3])
+def test_dropout_apply_kernel_divides_every_bf16_input_exactly(cuda_device, rate):
+    """Every bf16 bit pattern, nearly all kept (threshold 0xFFFFFFFF through
+    the C entry), against IEEE division by float32(1 - rate) on the card;
+    NaNs compared as NaN (`chip_smoke.py` also runs every float32 input)."""
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32, device=cuda_device).to(
+        torch.int16).view(torch.bfloat16).view(1, 256, 256)
+    differ, kept = _chip_smoke().every_input_differing(
+        x, tdr.apply_args(rate)[1], cuda_device)
+    assert differ == 0 and kept > 65536 - 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [f"rate {r}" for r in (0.05, 0.2, 0.45, 0.7, 0.95)]
+                         + ["bits 0x3f7fffff", "bits 0x35ffffff"])
+def test_dropout_apply_kernel_divides_every_float32_significand_exactly(
+        cuda_device, divisor):
+    """Every float32 sign and significand at the exponent of 1 and at those
+    where the quotient crosses the fast path's edges, against IEEE
+    division by the divisor on the card: float32(1 - rate), or one with an
+    all-ones significand. Within the fast path the quotient scales exactly
+    with x's exponent, so this covers every float32 input of the divisor
+    (`chip_smoke.py` sweeps more divisors)."""
+    smoke = _chip_smoke()
+    kind, value = divisor.split()
+    d = (np.float32(1.0 - float(value)) if kind == "rate"
+         else np.array([int(value, 16)], dtype=np.uint32).view(np.float32)[0])
+    for e in smoke.sweep_bands(d):
+        differ, _ = smoke.every_input_differing(
+            smoke.significand_band(e, cuda_device), d, cuda_device)
+        assert differ == 0, (float(d), e)

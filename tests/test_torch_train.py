@@ -372,7 +372,7 @@ def _take(it, n):
 
 @pytest.mark.parametrize("option", [
     dict(mesh={"data": -1, "context": 4}), dict(context_parallel=True),
-    dict(pipeline_parallel=True), dict(scan_steps=2), dict(xla_obs=True),
+    dict(pipeline_parallel=True), dict(xla_obs=True),
     dict(mesh_obs=True), dict(trace_path="t.json"), dict(status_port=0)])
 def test_trainer_refuses_unported_options(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):

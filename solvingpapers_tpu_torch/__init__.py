@@ -19,7 +19,10 @@ training: MLA + MoE (`models/deepseekv3.py`, `ops/moe.py`), its
 objective (`train/objectives.py`), remat and dropout. The flash-attention
 kernels (`kernels/csrc/flash_fwd.cu`, `flash_bwd.cu`, CUDA C++ for
 sm_90a, with in-kernel dropout) and the dropout mask kernel
-(`dropout_mask.cu`) carry them.
+(`dropout_mask.cu`) carry them. Then GPT on the char and Markov corpora,
+DeepSeek-V3's latent cache and cached serving, gradient accumulation,
+and the command line (`cli.py`: ``python -m solvingpapers_tpu_torch.cli
+{list,train,sample,eval,export}``).
 
 Entry points (`Llama`, `DeepSeekV3`, `generate`, `ServeEngine`,
 `Trainer`) run on

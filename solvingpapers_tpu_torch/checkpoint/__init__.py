@@ -4,6 +4,8 @@ from solvingpapers_tpu_torch.checkpoint.manager import (
     CheckpointManager,
     export_params,
     load_params,
+    restore_for_inference,
 )
 
-__all__ = ["CheckpointManager", "export_params", "load_params"]
+__all__ = ["CheckpointManager", "export_params", "load_params",
+           "restore_for_inference"]

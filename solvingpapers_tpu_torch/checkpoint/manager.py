@@ -73,6 +73,25 @@ class CheckpointManager:
                           weights_only=True), step
 
 
+def restore_for_inference(model: torch.nn.Module, directory: str) -> int | None:
+    """Load the newest checkpoint's model state in `directory` — the
+    parameters and the buffers (DeepSeek-V3's routing biases) — onto
+    `model`, built for sampling or evaluation; a model that stores its
+    weights in the compute dtype gets each float32 master weight rounded
+    once, as a forward would round it. Returns the checkpoint's step, or
+    None when there is none (a missing directory included). The
+    reference's `cli._restore_for_inference`."""
+    if not os.path.isdir(directory):
+        return None
+    restored = CheckpointManager(directory, save_every=0).restore_latest(
+        map_location=next(model.parameters()).device)
+    if restored is None:
+        return None
+    state, step = restored
+    model.load_state_dict(state["model"])
+    return step
+
+
 def export_params(path: str, params: dict[str, torch.Tensor]) -> None:
     """Params-only export: a model's state dict, written atomically."""
     parent = os.path.dirname(os.path.abspath(path))

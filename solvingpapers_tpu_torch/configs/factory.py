@@ -81,10 +81,13 @@ class IdTokenizer:
         return " ".join(str(int(i)) for i in ids)
 
 
-def build_char_lm_run(cfg: RunConfig, device=None):
+def build_char_lm_run(cfg: RunConfig, device=None,
+                      param_dtype: torch.dtype | None = torch.float32):
     """Returns (cfg with the corpus's vocab, model, tokenizer, train_iter,
-    eval_iter_fn) for an LM run; the model is built for training (float32
-    master weights) on `device`."""
+    eval_iter_fn) for an LM run; the model is built on `device` with
+    `param_dtype` weights: float32 master weights for training (the
+    default), None for sampling (weights stored in the compute dtype; see
+    `models.layers`)."""
     data = cfg.data
     if data.get("kind") == "bpe":
         raise NotImplementedError(
@@ -116,7 +119,7 @@ def build_char_lm_run(cfg: RunConfig, device=None):
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model,
                                        vocab_size=max(tok.vocab_size, 2)))
-    model = build_model(cfg, device=device, param_dtype=torch.float32)
+    model = build_model(cfg, device=device, param_dtype=param_dtype)
     bsz = cfg.train.batch_size
     train_iter = lm_batch_iterator(train_toks, bsz, block, seed=cfg.train.seed)
     if isinstance(train_toks, np.memmap):

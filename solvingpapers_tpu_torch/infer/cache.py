@@ -1,14 +1,15 @@
-"""Preallocated KV caches (port of `solvingpapers_tpu/infer/cache.py`,
-the `KVCache` half).
+"""Preallocated caches (port of `solvingpapers_tpu/infer/cache.py`: the
+`KVCache` of the GQA families and the `LatentCache` of MLA; the
+context-parallel caches need a mesh, ROADMAP A7).
 
 Masking contract, as in the reference: slots at or past the current
 length hold stale data; attention masks with ``kv_index <=
 query_position`` and never relies on zeroed slots.
 
-Unlike the reference's functional updates, `update_kv_cache` writes into
-the cache tensors IN PLACE (and returns the same cache): a serving pool
-is one preallocated buffer per layer, and copying it per token would
-double its traffic.
+Unlike the reference's functional updates, `update_kv_cache` and
+`update_latent_cache` write into the cache tensors IN PLACE (and return
+the same cache): a serving pool is one preallocated buffer per layer,
+and copying it per token would double its traffic.
 """
 
 from __future__ import annotations
@@ -44,12 +45,36 @@ class KVCache:
         return self.k.shape[1]
 
 
-def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                    index) -> KVCache:
-    """Write `k_new`/`v_new` (B, S, n_kv, H) into the cache at sequence
-    offset `index` — a python int shared by every row, or a (B,) integer
-    tensor with one offset per row (the serving decode step, where every
-    slot sits at its own position).
+@dataclasses.dataclass
+class LatentCache:
+    """MLA's compressed cache: one (batch, max_len, latent_dim) tensor per
+    layer, shared by every head — the latents, not decompressed k/v
+    (with decoupled RoPE a row is ``cat(latent, k_rope)``)."""
+
+    c: torch.Tensor
+
+    @classmethod
+    def init(
+        cls,
+        batch: int,
+        max_len: int,
+        latent_dim: int,
+        dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device | None = None,
+    ) -> "LatentCache":
+        return cls(c=torch.zeros((batch, max_len, latent_dim), dtype=dtype,
+                                 device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.c.shape[1]
+
+
+def _write_rows(tensors, news, index, max_len: int) -> None:
+    """Write each of `news` (B, S, ...) into its tensor of `tensors` (B,
+    max_len, ...) at sequence offset `index` — a python int shared by
+    every row, or a (B,) integer tensor with one offset per row (the
+    serving decode step, where every slot sits at its own position).
 
     The start is CLAMPED to ``[0, max_len - S]``, exactly as
     `jax.lax.dynamic_update_slice` clamps it (after counting a negative
@@ -59,7 +84,7 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     writes such a step at the clamped start; on CUDA an unclamped index
     would be a device-side assert that kills the process.
     """
-    s, max_len = k_new.shape[1], cache.max_len
+    s = news[0].shape[1]
     if s > max_len:
         raise ValueError(f"write of {s} positions exceeds cache max_len {max_len}")
     hi = max_len - s
@@ -67,13 +92,31 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         if index < 0:
             index += max_len
         start = min(max(index, 0), hi)
-        cache.k[:, start:start + s] = k_new.to(cache.k.dtype)
-        cache.v[:, start:start + s] = v_new.to(cache.v.dtype)
-        return cache
+        for t, new in zip(tensors, news):
+            t[:, start:start + s] = new.to(t.dtype)
+        return
     start = index.to(torch.long)
     start = torch.where(start < 0, start + max_len, start).clamp(0, hi)  # (B,)
-    rows = torch.arange(k_new.shape[0], device=start.device)[:, None]
+    rows = torch.arange(news[0].shape[0], device=start.device)[:, None]
     cols = start[:, None] + torch.arange(s, device=start.device)[None, :]
-    cache.k[rows, cols] = k_new.to(cache.k.dtype)
-    cache.v[rows, cols] = v_new.to(cache.v.dtype)
+    for t, new in zip(tensors, news):
+        t[rows, cols] = new.to(t.dtype)
+
+
+def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    index) -> KVCache:
+    """Write `k_new`/`v_new` (B, S, n_kv, H) into the cache at sequence
+    offset `index` (see `_write_rows`: a shared int or per-row offsets,
+    clamped like `dynamic_update_slice`)."""
+    _write_rows((cache.k, cache.v), (k_new, v_new), index, cache.max_len)
+    return cache
+
+
+def update_latent_cache(cache: LatentCache, c_new: torch.Tensor,
+                        index) -> LatentCache:
+    """Write latents (B, S, L) into the cache at sequence offset `index`
+    (see `_write_rows`). The reference writes every row at
+    ``positions[0, 0]``; the port's serving decode passes one offset per
+    row, because the engine's slots sit at different positions."""
+    _write_rows((cache.c,), (c_new,), index, cache.max_len)
     return cache

@@ -1,6 +1,6 @@
 """DeepSeek-V3-style decoder: MLA + MoE (port of
-`solvingpapers_tpu/models/deepseekv3.py`, its uncached training and
-evaluation paths).
+`solvingpapers_tpu/models/deepseekv3.py`: training, evaluation and
+cached generation from a latent cache).
 
 * Multi-head latent attention with absorbed queries: scores are
   ``(x W_q W_k^T) . latent`` and the context is ``probs @ latent``,
@@ -25,9 +25,24 @@ bias (``bias + rate * sign(mean(c) - c)``) in its stats, and the trainer
 installs it after the optimizer step — the reference's functional
 `moe_state` update.
 
-Not ported (raise, naming their ROADMAP items): the latent cache and
-cached MLA serving, multi-token prediction and `noisy_topk` (A6), context
-parallelism and expert parallelism (A7).
+Cached generation (`init_caches`, one `LatentCache` per layer): a
+prefill chunk (`caches` and `attend_len`) writes its ``cat(latent,
+k_rope)`` rows at ``[attend_len - S, attend_len)`` and attends
+END-aligned causal over the first `attend_len` rows — through the flash
+forward under `use_flash`, as MQA with k = v = a slice of the cache read
+in place, else the dense op; a decode step (`caches` only) writes each
+row at its own position and attends densely over the whole cache with
+``kv_index <= position``. Cached forwards run deterministic.
+
+MoE routing of a pooled decode (`row_routing`): the reference's engine
+decodes each slot as a batch-1 forward under `vmap`, so a slot's tokens
+meet an expert capacity of their own. The port's engine runs one
+forward over the pool and passes ``row_routing=True``: capacity comes
+from one row's length and slots are ranked within each row, so no
+request's routing depends on its neighbours (`ops.moe`, `rows`).
+
+Not ported (raise, naming their ROADMAP items): multi-token prediction
+and `noisy_topk` (A6), context parallelism and expert parallelism (A7).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ from torch import nn
 
 from solvingpapers_tpu_torch import ops
 from solvingpapers_tpu_torch.device import resolve_device
+from solvingpapers_tpu_torch.infer.cache import LatentCache, update_latent_cache
 from solvingpapers_tpu_torch.kernels.dropout import dropout, mix_seed
 from solvingpapers_tpu_torch.models.layers import (
     GLUFFN,
@@ -138,7 +154,10 @@ class MLA(nn.Module):
         self.rope = rope
         self.out = Dense(n * hd, cfg.dim, **kw)
 
-    def forward(self, x, positions, seed, deterministic):
+    def forward(self, x, positions, seed, deterministic, cache=None,
+                attend_len=None):
+        """(out, cache): modes as in `layers.Attention` (uncached, cached
+        prefill with `attend_len`, cached decode), over the latent stream."""
         cfg = self.cfg
         b, s, _ = x.shape
         n, hd, lat, r = cfg.n_heads, cfg.head_dim, cfg.latent_dim, cfg.rope_dim
@@ -161,22 +180,36 @@ class MLA(nn.Module):
         drop = cfg.attn_dropout > 0.0 and not deterministic
         attn_seed = mix_seed(seed, 0) if drop else 0
 
-        if cfg.use_flash:
+        if cache is not None and attend_len is not None:
+            # prefill: the chunk fills rows [attend_len - S, attend_len)
+            # after every earlier row, so it attends end-aligned causal
+            # over a slice of the cache — MQA with k = v = the latents
+            cache = update_latent_cache(cache, latent, attend_len - s)
+            c_kv = cache.c[:, :attend_len, None, :]  # (B, attend_len, 1, L[+R])
+            if cfg.use_flash:
+                ctx = apply_flash_attention(q_lat, c_kv, c_kv, causal=True,
+                                            scale=scale).to(dt)
+            else:
+                ctx = ops.dot_product_attention(q_lat, c_kv, c_kv, causal=True,
+                                                scale=scale).to(dt)
+        elif cache is not None:
+            # decode: each row writes at its own position and sees the
+            # cache rows at or before it
+            cache = update_latent_cache(cache, latent, positions[:, 0])
+            kv_idx = torch.arange(cache.max_len, device=x.device)
+            mask = kv_idx[None, None, None, :] <= positions[:, None, :, None]
+            ctx = _dense_mla(q_lat, cache.c.to(dt), mask, scale, dt)
+        elif cfg.use_flash:
             c_kv = latent.to(dt)[:, :, None, :]  # (B, S, 1, L[+R])
             ctx = apply_flash_attention(
                 q_lat, c_kv, c_kv, causal=True, scale=scale,
                 dropout_rate=cfg.attn_dropout, dropout_seed=attn_seed,
                 deterministic=deterministic).to(dt)
         else:
-            c = latent.to(dt)
-            scores = torch.einsum("bsnl,btl->bnst", q_lat, c).float() * scale
             idx = torch.arange(s, device=x.device)
-            scores = scores.masked_fill(~(idx[:, None] >= idx[None, :]),
-                                        ops.BIG_NEG)
-            probs = torch.softmax(scores, dim=-1)
-            if drop:  # the flash kernels' mask: element (b * N + h, q, kv)
-                probs = dropout(probs, cfg.attn_dropout, attn_seed)
-            ctx = torch.einsum("bnst,btl->bsnl", probs.to(dt), c)
+            ctx = _dense_mla(q_lat, latent.to(dt), idx[:, None] >= idx[None, :],
+                             scale, dt,
+                             (cfg.attn_dropout, attn_seed) if drop else None)
 
         if r:
             ctx = ctx[..., :lat]  # values decompress from the latent part
@@ -184,7 +217,20 @@ class MLA(nn.Module):
         out = self.out(out.reshape(b, s, n * hd))
         if drop:
             out = dropout(out, cfg.attn_dropout, mix_seed(seed, 1))
-        return out
+        return out, cache
+
+
+def _dense_mla(q_lat, c, mask, scale, dt, drop=None):
+    """Absorbed-query attention over the latent stream `c` (B, T, L[+R])
+    with the dense op's einsums: float32 scores masked where `mask` (True
+    = attend, broadcastable to (B, N, S, T)) is False, softmax, the
+    probabilities dropped by `drop` = (rate, seed) when given (the flash
+    kernels' mask: element (b * N + h, q, kv)), then ``probs @ c``."""
+    scores = torch.einsum("bsnl,btl->bnst", q_lat, c).float() * scale
+    probs = torch.softmax(scores.masked_fill(~mask, ops.BIG_NEG), dim=-1)
+    if drop is not None:
+        probs = dropout(probs, *drop)
+    return torch.einsum("bnst,btl->bsnl", probs.to(dt), c)
 
 
 class MoELayer(nn.Module):
@@ -213,8 +259,11 @@ class MoELayer(nn.Module):
             GLUFFN(d, h, ops.swish, dtype=dt, param_dtype=param_dtype,
                    device=device) if cfg.use_shared_expert else None)
 
-    def forward(self, x, deterministic):
-        """(B, S, D) -> ((B, S, D) in x's dtype, stats). stats is None
+    def forward(self, x, deterministic, row_routing=False):
+        """(B, S, D) -> ((B, S, D) in x's dtype, stats). With `row_routing`
+        each row is dispatched as its own batch-1 forward would be
+        (capacity from S, slots ranked within the row; see the module's
+        docstring). stats is None
         when `deterministic`; in training it holds the layer's routing
         stats (`MOE_METRICS`, `ci`), `new_bias` (with aux-free balancing)
         and `balance_loss` (differentiable; when its weight is set)."""
@@ -240,9 +289,11 @@ class MoELayer(nn.Module):
                 a, g = torch.bmm(xe, w1), torch.bmm(xe, w2)
                 return torch.bmm(ops.swish(a) * g, w3)
 
-            cap = ops.moe.expert_capacity(b * s, cfg.n_experts,
+            rows = b if row_routing else 1
+            cap = ops.moe.expert_capacity(b * s // rows, cfg.n_experts,
                                           cfg.top_experts, cfg.capacity_factor)
-            out = ops.moe.moe_dispatch_combine(xt, probs, expert_fn, cap)
+            out = ops.moe.moe_dispatch_combine(xt, probs, expert_fn, cap,
+                                               rows=rows)
         if self.shared_expert is not None:
             out = out + self.shared_expert(xt)
         out = out.reshape(b, s, d).to(x.dtype)
@@ -254,7 +305,7 @@ class MoELayer(nn.Module):
         stats["ci"] = ci
         stats["drop_fraction"] = (
             torch.zeros((), device=x.device) if cap is None
-            else ops.moe.dispatch_drop_fraction(probs, cap))
+            else ops.moe.dispatch_drop_fraction(probs, cap, rows=rows))
         if cfg.use_aux_free:
             new_bias = ops.moe.aux_free_bias_update(
                 probs, bias, cfg.aux_free_bias_update_rate, ci=ci)
@@ -281,19 +332,25 @@ class DSV3DecoderLayer(nn.Module):
         self.norm2 = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
         self.moe = MoELayer(cfg, device=device, param_dtype=param_dtype)
 
-    def forward(self, x, positions, seed):
+    def forward(self, x, positions, seed, cache=None, attend_len=None,
+                row_routing=False):
         """`seed` None runs the layer deterministic (eval); an int seeds
-        its dropout masks. Returns (x, MoE stats or None)."""
+        its dropout masks. Returns (x, MoE stats or None, cache)."""
         deterministic = seed is None
-        x = x + self.mla(self.norm1(x), positions, seed, deterministic)
-        h, stats = self.moe(self.norm2(x), deterministic)
-        return x + h, stats
+        h, cache = self.mla(self.norm1(x), positions, seed, deterministic,
+                            cache, attend_len)
+        x = x + h
+        h, stats = self.moe(self.norm2(x), deterministic, row_routing)
+        return x + h, stats, cache
 
 
 class DeepSeekV3(nn.Module):
     """``DeepSeekV3(cfg, device=None, param_dtype=None)`` on `device`
     (default ``cuda``; raises when there is none), `param_dtype` as in
     `models.llama3.Llama` (float32 master weights for training)."""
+
+    # its MoE layers route tokens: a pooled decode passes `row_routing`
+    routes_tokens = True
 
     def __init__(self, cfg: DeepSeekV3Config,
                  device: str | torch.device | None = None,
@@ -331,22 +388,31 @@ class DeepSeekV3(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *,
                 positions: torch.Tensor | None = None,
-                caches=None, attend_len: int | None = None,
+                caches: list[LatentCache] | None = None,
+                attend_len: int | None = None,
                 dropout_seed: int | None = None,
-                return_stats: bool = False):
+                return_stats: bool = False,
+                row_routing: bool = False):
         """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype,
         caches), or (logits, caches, stats) with `return_stats`: stats is
         the per-layer list of MoE stats dicts (None in eval mode).
+        `caches` (from `init_caches`) and `attend_len` select the cached
+        modes (see the module's docstring); a cached forward refuses
+        training mode with dropout. `row_routing` routes each row's
+        tokens as a batch-1 forward of that row would (the engine's
+        pooled decode).
 
         In training mode (`self.training`) dropout is active and
         `dropout_seed` must be given when a rate is > 0: layer i draws its
         masks from ``mix_seed(dropout_seed, i)``, the final dropout from
         ``mix_seed(dropout_seed, n_layers)``. Eval mode is deterministic."""
         cfg = self.cfg
-        if caches is not None or attend_len is not None:
-            raise NotImplementedError(
-                "the latent cache and cached MLA serving are not ported "
-                "(ROADMAP A6)")
+        if attend_len is not None and caches is None:
+            raise ValueError("attend_len is a cached prefill's: pass caches")
+        if (caches is not None and self.training
+                and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0)):
+            raise ValueError("cached forwards run deterministic: put the "
+                             "model in eval mode (model.eval()) to generate")
         deterministic = not self.training
         if deterministic:
             dropout_seed = None
@@ -362,19 +428,35 @@ class DeepSeekV3(nn.Module):
         dt = cfg.compute_dtype
         x = self.tok_emb(tokens) + self.pe[positions].to(dt) * cfg.pe_scale
         stats = []
+        new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
-            run = maybe_remat(layer, cfg.remat)
+            run = maybe_remat(layer, cfg.remat and caches is None)
             seed = None if deterministic else mix_seed(dropout_seed, i)
-            x, st = run(x, positions, seed)
+            x, st, c = run(x, positions, seed,
+                           None if caches is None else caches[i], attend_len,
+                           row_routing)
             stats.append(st)
+            if new_caches is not None:
+                new_caches.append(c)
         if cfg.dropout > 0.0 and not deterministic:
             x = dropout(x, cfg.dropout, mix_seed(dropout_seed, cfg.n_layers))
         x = x * (2.0 * cfg.n_layers**-0.5)  # deepseek depth scaling
         x = self.norm_f(x)
         logits = nn.functional.linear(x.to(dt), self.tok_emb.weight.to(dt))
         if return_stats:
-            return logits, None, (None if deterministic else stats)
-        return logits, None
+            return logits, new_caches, (None if deterministic else stats)
+        return logits, new_caches
+
+    def init_caches(self, batch: int, max_len: int,
+                    dtype=None) -> list[LatentCache]:
+        """One zeroed `LatentCache` per layer, rows of ``latent_dim +
+        rope_dim`` (``cat(latent, k_rope)``), in `dtype` (default: the
+        compute dtype) on the model's device."""
+        cfg = self.cfg
+        dtype = dtype or cfg.compute_dtype
+        return [LatentCache.init(batch, max_len, cfg.latent_dim + cfg.rope_dim,
+                                 dtype, device=self.device)
+                for _ in range(cfg.n_layers)]
 
 
 def init_params(cfg: DeepSeekV3Config, generator: torch.Generator) -> dict:

@@ -1,5 +1,5 @@
 """Plain PyTorch ops (port of `solvingpapers_tpu/ops`, the subset the
-serving and training slices run). `ops.moe` (DeepSeek-V3's routing and
+serving, training and CLI slices run). `ops.moe` (DeepSeek-V3's routing and
 dispatch) is imported as a submodule."""
 
 from solvingpapers_tpu_torch.ops.activations import gelu_tanh, silu, swish
@@ -20,6 +20,7 @@ from solvingpapers_tpu_torch.ops.rope import (
 from solvingpapers_tpu_torch.ops.sampling import (
     min_p_mask,
     sample_greedy,
+    sample_top_k,
     top_k_mask,
     top_p_mask,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "repeat_kv",
     "rms_norm",
     "sample_greedy",
+    "sample_top_k",
     "silu",
     "sinusoidal_position_encoding",
     "swish",

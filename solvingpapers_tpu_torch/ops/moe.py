@@ -10,6 +10,13 @@ gather into the slots and an `index_add` back to the tokens instead:
 each slot holds at most one token, so they equal the one-hot products
 exactly. No step reads a count back to the host.
 
+`rows > 1` ranks the (token, expert) pairs within each of `rows` equal
+groups of tokens against a capacity per group: what each group would
+meet as its own forward (the serving engine's pooled decode, one group
+a slot). The kept pairs then fill one shared set of slots per expert,
+``rows * min(capacity, T / rows)`` wide, which holds every pair a
+group can keep.
+
 The sliced and all-to-all expert-parallel forms need a mesh (ROADMAP
 A7) and are not ported.
 """
@@ -52,30 +59,50 @@ def expert_capacity(n_tokens: int, n_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)
 
 
-def _dispatch_slots(probs: torch.Tensor, capacity: int):
+def _column_rank(sel: torch.Tensor) -> torch.Tensor:
+    """(..., T, E) bool -> the running count of True down each expert's
+    column, minus 1, scanned along a contiguous axis: a scan down the
+    token axis of a (T, E) tensor has only E independent columns to
+    spread over the card."""
+    return sel.transpose(-1, -2).to(torch.int32).contiguous().cumsum(
+        dim=-1).transpose(-1, -2) - 1
+
+
+def _slots_per_expert(t: int, capacity: int, rows: int) -> int:
+    """Width of each expert's slot queue: `capacity`, or with `rows`
+    groups every pair the groups can keep."""
+    return capacity if rows == 1 else rows * min(capacity, t // rows)
+
+
+def _dispatch_slots(probs: torch.Tensor, capacity: int, rows: int = 1):
     """Slot assignment shared by dispatch and the drop metric: sel = routed
     (token, expert) pairs, pos = slot index within the expert's queue
-    (ordered by token id), keep = pairs inside capacity."""
+    (ordered by token id), keep = pairs inside capacity (per group of
+    tokens with `rows` > 1)."""
     sel = probs > 0.0
-    # the running count down each expert's column, scanned along a
-    # contiguous axis: a scan down dim 0 of a (T, E) tensor has only E
-    # independent columns to spread over the card
-    pos = sel.t().to(torch.int32).contiguous().cumsum(dim=1).t() - 1  # (T, E)
-    keep = sel & (pos < capacity)
-    return sel, pos, keep
+    if rows == 1:
+        pos = _column_rank(sel)  # (T, E)
+        return sel, pos, sel & (pos < capacity)
+    t, e = sel.shape
+    if t % rows:
+        raise ValueError(f"{t} tokens do not split into {rows} equal rows")
+    keep = sel & (_column_rank(sel.view(rows, t // rows, e)).reshape(t, e)
+                  < capacity)
+    return sel, _column_rank(keep), keep
 
 
-def _slot_sources(probs: torch.Tensor, capacity: int):
-    """(src, filled) over the E * capacity slots, expert-major: filled[s]
-    says whether a kept pair occupies slot s, src[s] is its token. An
-    empty slot gets a row of its own (s mod T), read and weighted 0: a
-    row shared by every empty slot would take all their gradient adds in
-    the backward, one after another."""
+def _slot_sources(probs: torch.Tensor, capacity: int, rows: int = 1):
+    """(src, filled) over the E * width slots (`_slots_per_expert`),
+    expert-major: filled[s] says whether a kept pair occupies slot s,
+    src[s] is its token. An empty slot gets a row of its own (s mod T),
+    read and weighted 0: a row shared by every empty slot would take all
+    their gradient adds in the backward, one after another."""
     t, e = probs.shape
-    n = e * capacity
-    _, pos, keep = _dispatch_slots(probs, capacity)
+    width = _slots_per_expert(t, capacity, rows)
+    n = e * width
+    _, pos, keep = _dispatch_slots(probs, capacity, rows)
     experts = torch.arange(e, device=probs.device)[None, :]
-    slot = torch.where(keep, experts * capacity + pos, n)  # n: dropped
+    slot = torch.where(keep, experts * width + pos, n)  # n: dropped
     tokens = torch.arange(t, device=probs.device)[:, None].expand(t, e)
     slot_token = torch.full((n + 1,), t, dtype=torch.long, device=probs.device)
     slot_token.scatter_(0, slot.reshape(-1), tokens.reshape(-1))
@@ -85,28 +112,32 @@ def _slot_sources(probs: torch.Tensor, capacity: int):
 
 
 def moe_dispatch_combine(x: torch.Tensor, probs: torch.Tensor, expert_fn,
-                         capacity: int) -> torch.Tensor:
+                         capacity: int, rows: int = 1) -> torch.Tensor:
     """Capacity-slot MoE: route (T, D) tokens to (E, C, D) slots, run
     `expert_fn((E, C, D)) -> (E, C, D)`, combine back weighted by probs
     cast to x's dtype (the reference's rounding), summed in float32.
-    Pairs past an expert's capacity are dropped for that expert; empty
-    slots hold zero rows, as the reference's one-hot product gives."""
+    Pairs past an expert's capacity (per group of T / `rows` tokens) are
+    dropped for that expert; empty slots hold zero rows, as the
+    reference's one-hot product gives."""
     t, e = probs.shape
-    n = e * capacity
-    src, filled = _slot_sources(probs, capacity)
+    width = _slots_per_expert(t, capacity, rows)
+    n = e * width
+    src, filled = _slot_sources(probs, capacity, rows)
     mask = filled.to(x.dtype)
     xe = x.index_select(0, src) * mask[:, None]
-    ye = expert_fn(xe.view(e, capacity, x.shape[1])).reshape(n, -1)
-    expert = torch.arange(n, device=x.device) // capacity
+    ye = expert_fn(xe.view(e, width, x.shape[1])).reshape(n, -1)
+    expert = torch.arange(n, device=x.device) // width
     w = probs.to(x.dtype).reshape(-1).index_select(0, src * e + expert) * mask
     out = torch.zeros(t, ye.shape[1], dtype=torch.float32, device=x.device)
     return out.index_add(0, src, ye.float() * w.float()[:, None]).to(x.dtype)
 
 
-def dispatch_drop_fraction(probs: torch.Tensor, capacity: int) -> torch.Tensor:
+def dispatch_drop_fraction(probs: torch.Tensor, capacity: int,
+                           rows: int = 1) -> torch.Tensor:
     """Fraction of routed (token, expert) pairs that `moe_dispatch_combine`
-    drops at this capacity (the same slot assignment), detached."""
-    sel, _, keep = _dispatch_slots(probs.detach(), capacity)
+    drops at this capacity and `rows` (the same slot assignment),
+    detached."""
+    sel, _, keep = _dispatch_slots(probs.detach(), capacity, rows)
     kept = keep.float().sum()
     routed = sel.float().sum()
     return (routed - kept) / torch.clamp(routed, min=1.0)

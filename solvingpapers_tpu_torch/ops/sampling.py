@@ -1,5 +1,6 @@
 """Token samplers (port of `solvingpapers_tpu/ops/sampling.py`: the
-truncation masks the serving sampler shares, and greedy argmax).
+truncation masks the serving sampler shares, greedy argmax and
+temperature + top-k sampling).
 
 The `*_mask` helpers accept per-row cutoffs (`k`/`p`/`min_p` may be
 tensors broadcastable against ``logits[..., :1]``), so every slot of a
@@ -60,3 +61,19 @@ def sample_greedy(logits: torch.Tensor, generator=None) -> torch.Tensor:
     `jnp.argmax`. `generator` is accepted (ignored) for API uniformity."""
     del generator
     return torch.argmax(logits, dim=-1)
+
+
+def sample_top_k(logits: torch.Tensor, generator: torch.Generator | None = None,
+                 *, k: int = 50, temperature: float = 1.0) -> torch.Tensor:
+    """Temperature + top-k sampling: float32 logits over `temperature`,
+    every logit below the k-th largest of its row masked to -inf (ties at
+    the k-th value kept, as the reference's threshold keeps them), one
+    categorical draw per row from `generator`. The reference draws with
+    `jax.random.categorical`; the same distribution, other bits."""
+    logits = logits.float() / temperature
+    kth = torch.topk(logits, min(k, logits.shape[-1]), dim=-1).values[..., -1:]
+    masked = torch.where(logits >= kth, logits, -torch.inf)
+    probs = torch.softmax(masked, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1])

@@ -21,6 +21,16 @@ a slot that hits EOS or its budget mid-block keeps stepping and the host
 discards its overshoot (its writes stay inside its own lane, which the
 next prefill overwrites). Idle slots run masked dummy steps at position 0.
 
+A model whose layers route tokens (DeepSeek-V3's MoE, `routes_tokens`)
+decodes the pool with ``row_routing=True``: under `vmap` each slot's
+batch-1 forward met an expert capacity of its own, while one batch-S
+dispatch would rank every slot's token, idle slots' dummies included,
+against one capacity — and a request's routing would depend on its
+neighbours. Per-row routing gives each slot its batch-1 routing back.
+Prefill is per lane at batch 1 and keeps the reference's capacity over
+the padded chunk. The model's routing biases are its buffers, so they
+need no extra variables.
+
 Prompts pad right to a multiple of `bucket` (the pad is causally
 invisible to real tokens, and its cache slots are overwritten by the
 decode stream before they are ever attended), and prefill runs in
@@ -127,6 +137,12 @@ def _prefill_program(model, padded, chunk, cap, caches, prompt, slot, length,
     return caches, first[0]
 
 
+def pooled_decode_kwargs(model) -> dict:
+    """Keyword arguments of a forward over the whole pool: per-row
+    routing for a model that routes tokens (see the module's docstring)."""
+    return {"row_routing": True} if getattr(model, "routes_tokens", False) else {}
+
+
 def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
                     generators):
     """Advance every slot `block` tokens; inactive slots run masked.
@@ -138,9 +154,10 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
     (block, S) emitted tokens.
     """
     out = []
+    kw = pooled_decode_kwargs(model)
     for t in range(block):
         logits, caches = model(toks[:, None], positions=pos[:, None],
-                               caches=caches)
+                               caches=caches, **kw)
         nxt = fused_sample(logits[:, 0], packed, generators(t), cap=cap)
         hit_eos = (eos >= 0) & (toks == eos)
         nxt = torch.where(hit_eos, eos, nxt)

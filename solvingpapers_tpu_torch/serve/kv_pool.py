@@ -4,8 +4,11 @@
 later slices).
 
 Layout: the pool is the model's own per-layer cache list with batch =
-n_slots — slot s is batch row s of every layer's (n_slots, max_len,
-n_kv, head_dim) k/v tensors, one contiguous `max_len` lane per slot.
+n_slots — slot s is batch row s of every tensor of every layer's cache
+(the (n_slots, max_len, n_kv, head_dim) k/v of a `KVCache`, the
+(n_slots, max_len, latent) rows of MLA's `LatentCache`), one contiguous
+`max_len` lane per slot. Lanes are carved field by field from any cache
+dataclass, as the reference carves its pytrees.
 
 Stale data is harmless by construction, as in the reference: a freed
 lane is not cleared; the next prefill overwrites positions
@@ -17,23 +20,33 @@ their own lane's position 0, which the next prefill overwrites.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from solvingpapers_tpu_torch.infer.cache import KVCache
+
+def _tensors(cache) -> dict:
+    """{field name: tensor} of one layer's cache dataclass."""
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)}
 
 
-def extract_lane(caches: list[KVCache], slot: int) -> list[KVCache]:
-    """Slot `slot`'s batch-1 lane as VIEWS of the pooled caches: a cached
-    forward on the lane writes straight into the pool."""
-    return [KVCache(k=c.k[slot:slot + 1], v=c.v[slot:slot + 1]) for c in caches]
+def extract_lane(caches: list, slot: int) -> list:
+    """Slot `slot`'s batch-1 lane as VIEWS of the pooled caches (any
+    cache dataclass: `KVCache`, `LatentCache`): a cached forward on the
+    lane writes straight into the pool."""
+    return [dataclasses.replace(c, **{name: t[slot:slot + 1]
+                                      for name, t in _tensors(c).items()})
+            for c in caches]
 
 
-def store_lane(caches: list[KVCache], lane: list[KVCache], slot: int) -> list[KVCache]:
+def store_lane(caches: list, lane: list, slot: int) -> list:
     """Write a batch-1 lane back into the pool at `slot`. A lane from
     `extract_lane` already IS the pool's storage and is not copied; any
     other lane is copied in. Dtypes must match exactly (no silent cast)."""
     for c, l in zip(caches, lane):
-        for pool_t, lane_t in ((c.k, l.k), (c.v, l.v)):
+        lane_ts = _tensors(l)
+        for name, pool_t in _tensors(c).items():
+            lane_t = lane_ts[name]
             if lane_t.dtype != pool_t.dtype:
                 raise TypeError(
                     f"store_lane: lane dtype {lane_t.dtype} != pool dtype "

@@ -25,6 +25,20 @@ would be the port's form, but the dropout seed is a kernel argument, so
 a replay would redraw one step's masks; the port runs the steps
 eagerly.)
 
+Gradient accumulation (``optimizer.accum_steps = k``) lives in the
+optimizer, as the reference's ``optax.MultiSteps`` does: a step is one
+micro-step — one batch, one forward and backward, one step seed, one
+log-able row, and DeepSeek-V3's routing biases installed — and every
+k-th step emits the update. `steps`, the cadences and the logged lr
+(the schedule at the step count, as the reference logs it) count
+micro-steps. The two compose without a rule between them: a
+`scan_steps` window is K micro-steps, and an update falls wherever a
+k-th micro-step does, inside a window or at its end.
+
+`fit(..., callbacks=[(every, fn)])` calls ``fn(state, step)`` at every
+multiple of `every` (after eval, outside the timed window), as the
+reference's hooks for sampling during training.
+
 Not ported, and refused when set (they need a mesh, several cards or
 the reference's XLA observatories): `mesh`, `context_parallel`,
 `pipeline_parallel`, `xla_obs`, `mesh_obs`, `trace_path`, `status_port`.
@@ -188,19 +202,26 @@ class Trainer:
     def fit(self, batch_iter: Iterator[dict],
             eval_iter_fn: Callable[[], Iterator[dict]] | None = None,
             writer: MetricsWriter | None = None,
-            state: TrainState | None = None) -> TrainState:
+            state: TrainState | None = None,
+            callbacks: list[tuple[int, Callable]] | None = None) -> TrainState:
         """Train to `config.steps`, logging every `log_every` steps (and
-        the last), evaluating every `eval_every`, checkpointing every
-        `ckpt_every` into `checkpoint_dir` and resuming from its newest
-        checkpoint at the start; in windows of `scan_steps` steps (see
-        the module's docstring). The first step, or window, is fenced out
-        of the timing."""
+        the last), evaluating every `eval_every`, calling each of
+        `callbacks` ``[(every, fn(state, step))]`` every `every` steps,
+        checkpointing every `ckpt_every` into `checkpoint_dir` and
+        resuming from its newest checkpoint at the start; in windows of
+        `scan_steps` steps (see the module's docstring). The first step,
+        or window, is fenced out of the timing, and so are eval and the
+        callbacks; their exceptions propagate."""
         cfg = self.config
+        callbacks = list(callbacks or [])
         scan_k = max(cfg.scan_steps, 1)
         if scan_k > 1:
-            for nm, ev in (("log_every", cfg.log_every),
-                           ("eval_every", cfg.eval_every),
-                           ("ckpt_every", cfg.ckpt_every)):
+            cadences = [("log_every", cfg.log_every),
+                        ("eval_every", cfg.eval_every),
+                        ("ckpt_every", cfg.ckpt_every)]
+            cadences += [(f"callbacks[{i}].every", every)
+                         for i, (every, _) in enumerate(callbacks)]
+            for nm, ev in cadences:
                 if ev > 0 and ev % scan_k:
                     raise ValueError(
                         f"{nm}={ev} must be a multiple of scan_steps="
@@ -240,6 +261,14 @@ class Trainer:
                 t_eval = time.perf_counter()
                 writer.write(end, self.evaluate(state, eval_iter_fn()))
                 t_prev += time.perf_counter() - t_eval
+
+            due = [fn for every, fn in callbacks if every > 0 and end % every == 0]
+            if due:
+                float(metrics["train_loss"])  # train time is not callback time
+                t_cb = time.perf_counter()
+                for fn in due:
+                    fn(state, end)
+                t_prev += time.perf_counter() - t_cb
 
             if end % max(cfg.log_every, 1) == 0 or end == cfg.steps:
                 row = {k: float(v) for k, v in metrics.items()}  # waits

@@ -13,8 +13,14 @@ optax's semantics where torch's own helpers differ:
   BEFORE it (step 0's warmup lr is exactly 0);
 * the schedules are optax's formulas (`warmup_cosine`).
 
-Gradient accumulation (the reference's ``optax.MultiSteps``) is not
-ported: ``accum_steps > 1`` raises.
+Gradient accumulation (``accum_steps = k > 1``) is the reference's
+``optax.MultiSteps`` around that chain: every call folds its gradients
+into a running mean (Welford's ``acc + (g - acc) / (n + 1)``), and only
+every k-th call runs the chain — clip, then the optimizer — on the
+mean; the other calls leave the parameters as they are. The schedule
+and AdamW's count advance once per emitted update, not per call. A
+partial window's mean waits in the state (and its checkpoints) for the
+calls that complete it.
 """
 
 from __future__ import annotations
@@ -79,13 +85,23 @@ def warmup_cosine(max_lr: float, warmup_steps: int, total_steps: int,
 class Optimizer:
     """The reference's optax chain over a model's parameters: read each
     parameter's ``.grad``, clip by global norm, then update with the lr
-    the schedule gives at the count before the update."""
+    the schedule gives at the count before the update; with
+    ``accum_steps > 1`` under ``optax.MultiSteps`` (see the module's
+    docstring)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: OptimizerConfig, schedule: Schedule):
         self.params = list(params)
         self.grad_clip = cfg.grad_clip
         self.schedule = schedule
+        if cfg.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
+        self.accum_steps = cfg.accum_steps
+        # MultiSteps' state: calls folded into the running mean, updates
+        # emitted (the schedule's count), the mean itself
+        self.mini_step = 0
+        self.updates = 0
+        self.acc = None
         if cfg.name == "adamw":
             self.torch_opt = torch.optim.AdamW(
                 self.params, lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
@@ -102,36 +118,88 @@ class Optimizer:
         self.torch_opt.zero_grad(set_to_none=True)
 
     def step(self, count: int) -> tuple[torch.Tensor, float]:
-        """One update at step `count`; returns (the global norm of the
-        UNCLIPPED gradients as a float32 tensor, the lr used). Nothing
-        here waits for the device."""
+        """One call at step `count`; returns (the global norm of this
+        call's UNCLIPPED gradients as a float32 tensor, the lr the
+        reference logs: the schedule at `count`). Without accumulation
+        that lr is the update's; with it the update, when this call
+        emits one, takes the schedule at the count of updates emitted
+        before it. Nothing here waits for the device."""
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.nn.utils.get_total_norm(grads)
+        logged = float(self.schedule(count))
+        if self.accum_steps > 1:
+            if not self._accumulate():
+                return norm, logged
+            lr = float(self.schedule(self.updates))
+            grads = [p.grad for p in self.params]
+            self._clip(grads, torch.nn.utils.get_total_norm(grads))
+        else:
+            lr = logged
+            self._clip(grads, norm)
+        for group in self.torch_opt.param_groups:
+            group["lr"] = lr
+        self.torch_opt.step()
+        if self.accum_steps > 1:
+            self.updates += 1
+            for a in self.acc:
+                a.zero_()
+        return norm, logged
+
+    def _clip(self, grads, norm) -> None:
         if self.grad_clip > 0:
             # optax: where(norm < max, g, g / norm * max)
             scale = torch.where(norm < self.grad_clip, 1.0,
                                 self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
-        lr = float(self.schedule(count))
-        for group in self.torch_opt.param_groups:
-            group["lr"] = lr
-        self.torch_opt.step()
-        return norm, lr
+
+    def _accumulate(self) -> bool:
+        """Fold this call's gradients (a missing one counts as zeros, as
+        JAX's are) into the running mean; on the k-th call put the mean
+        in every ``.grad`` and return True."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+        # a float32 tensor divisor: a Python one is multiplied in as its
+        # reciprocal on CUDA, where optax divides
+        n = torch.tensor(self.mini_step + 1, dtype=torch.float32,
+                         device=self.acc[0].device)
+        for p, a in zip(self.params, self.acc):
+            g = p.grad if p.grad is not None else torch.zeros_like(a)
+            a.add_((g - a) / n)
+        self.mini_step = (self.mini_step + 1) % self.accum_steps
+        if self.mini_step:
+            return False
+        for p, a in zip(self.params, self.acc):
+            if p.grad is None:
+                p.grad = a.clone()
+            else:
+                p.grad.copy_(a)
+        return True
 
     def state_dict(self) -> dict:
-        return self.torch_opt.state_dict()
+        state = self.torch_opt.state_dict()
+        if self.accum_steps > 1:
+            state["accum"] = {"mini_step": self.mini_step,
+                              "updates": self.updates, "acc": self.acc}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        accum = state.pop("accum", None)
+        if (accum is None) != (self.accum_steps == 1):
+            raise ValueError("the checkpoint's optimizer state was saved with "
+                             "another accum_steps setting")
         self.torch_opt.load_state_dict(state)
+        if accum is not None:
+            self.mini_step = int(accum["mini_step"])
+            self.updates = int(accum["updates"])
+            self.acc = (None if accum["acc"] is None else
+                        [a.to(p.device) for p, a in zip(self.params,
+                                                        accum["acc"])])
 
 
 def make_optimizer(cfg: OptimizerConfig, params: Iterable[torch.nn.Parameter]
                    ) -> tuple[Optimizer, Schedule]:
     """(optimizer over `params`, its schedule) for `cfg`."""
-    if cfg.accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_steps > 1) is not ported yet "
-            "(ROADMAP A2, the training queue)")
     schedule = warmup_cosine(cfg.max_lr, cfg.warmup_steps, cfg.total_steps,
                              cfg.min_lr_ratio)
     return Optimizer(params, cfg, schedule), schedule

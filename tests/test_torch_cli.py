@@ -1,0 +1,204 @@
+"""The port's command line (`solvingpapers_tpu_torch.cli`) on the CPU,
+and the registry it reads.
+
+* `get_config(name, **overrides)` equals the JAX package's field for
+  field (an overridden `steps` moves the schedule's horizon with it);
+  `dsv3_tinystories` is registered as the reference registers it;
+* `list` prints the port's registry;
+* the chain `train -> eval -> sample -> export` with ``--device cpu``
+  at `gpt_tiny` and at a small DeepSeek-V3 config this file registers
+  (dropout on, so sampling during training runs the model in eval
+  mode), 2 steps: `train` writes its JSONL rows, a checkpoint and a
+  text sample; `eval` prints the reference's JSON keys; `sample
+  --greedy` prints what `generate` gives on the restored weights;
+  `export` writes the checkpoint's model state, read back by
+  `load_params`;
+* refused commands and configs exit 2 and name their ROADMAP items;
+  the default device raises without a card.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from solvingpapers_tpu import cli as jcli
+from solvingpapers_tpu.configs import registry as jreg
+from solvingpapers_tpu_torch import cli
+from solvingpapers_tpu_torch.checkpoint import CheckpointManager, load_params
+from solvingpapers_tpu_torch.configs import factory, get_config, list_configs
+from solvingpapers_tpu_torch.configs import registry
+from solvingpapers_tpu_torch.infer import generate
+from solvingpapers_tpu_torch.models import DeepSeekV3Config
+from solvingpapers_tpu_torch.train import OptimizerConfig, TrainConfig
+
+DSV3_CLI = "dsv3_cli_tiny"
+
+
+@pytest.fixture(autouse=True)
+def _small_dsv3(monkeypatch):
+    """A DeepSeek-V3 run small enough for the CPU: dim 64, 2 layers,
+    latent 8, RoPE 8, 4 experts top-2, dropout 0.1, on the char corpus."""
+
+    def run():
+        return registry.RunConfig(
+            name=DSV3_CLI, model_family="deepseekv3",
+            model=DeepSeekV3Config(block_size=64, dim=64, n_layers=2,
+                                   n_heads=4, latent_dim=8, rope_dim=8,
+                                   n_experts=4, top_experts=2, pe_scale=0.02,
+                                   balance_loss_weight=1e-2),
+            train=TrainConfig(steps=10, batch_size=4, log_every=1,
+                              eval_every=5, eval_batches=2,
+                              optimizer=OptimizerConfig(max_lr=1e-3,
+                                                        warmup_steps=2,
+                                                        total_steps=10),
+                              tokens_per_step=4 * 64),
+            data={"kind": "char", "path": None, "block_size": 64})
+
+    monkeypatch.setitem(registry._REGISTRY, DSV3_CLI, run)
+
+
+# ---------------------------------------------------------------- registry
+
+
+def _common_train(port, ref) -> dict:
+    """The train fields both packages' TrainConfig have, side by side."""
+    names = ({f.name for f in dataclasses.fields(port)}
+             & {f.name for f in dataclasses.fields(ref)}) - {"optimizer", "mesh"}
+    return {n: (getattr(port, n), getattr(ref, n)) for n in sorted(names)}
+
+
+@pytest.mark.parametrize("name", ["gpt_tiny", "gpt_shakespeare",
+                                  "dsv3_tinystories", "dsv3_long"])
+@pytest.mark.parametrize("overrides", [
+    {}, {"steps": 7}, {"steps": 30, "checkpoint_dir": "ck", "ckpt_every": 5},
+    {"batch_size": 3, "notes": "x"}], ids=["none", "steps", "ckpt", "rest"])
+def test_get_config_overrides_match_the_reference(name, overrides):
+    got, want = get_config(name, **overrides), jreg.get_config(name, **overrides)
+    for field, (a, b) in _common_train(got.train, want.train).items():
+        assert a == b, field
+    assert dataclasses.asdict(got.train.optimizer) == dataclasses.asdict(
+        want.train.optimizer)
+    assert (got.name, got.model_family, got.data, got.notes) == (
+        want.name, want.model_family, want.data, want.notes)
+    if "steps" in overrides:
+        assert got.train.optimizer.total_steps == overrides["steps"]
+
+
+def test_dsv3_tinystories_matches_the_reference_registry():
+    got, want = get_config("dsv3_tinystories"), jreg.get_config("dsv3_tinystories")
+    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
+    assert (got.model.capacity_factor, got.model.balance_loss_weight,
+            got.model.pe_scale) == (4.0, 1e-2, 0.02)
+    assert got.train.batch_size * got.data["block_size"] == 16 * 256
+    assert factory.loss_fn_for(got).__name__ == "dsv3_loss_fn"
+
+
+# ---------------------------------------------------------------- commands
+
+
+def _run(capsys, *argv) -> tuple[int, str, str]:
+    rc = cli.main(list(argv))
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+def test_list_prints_the_registry(capsys):
+    rc, out, _ = _run(capsys, "list")
+    assert rc == 0
+    assert out.split() == list_configs()
+    assert {"gpt_tiny", "gpt_shakespeare", "dsv3_tinystories"} <= set(out.split())
+
+
+@pytest.mark.parametrize("config", ["gpt_tiny", DSV3_CLI])
+def test_train_eval_sample_export_chain(capsys, tmp_path, config):
+    ck, jsonl, art = tmp_path / "ck", tmp_path / "m.jsonl", tmp_path / "art"
+    common = ["--config", config, "--device", "cpu"]
+    rc, out, _ = _run(capsys, "train", *common, "--steps", "2",
+                      "--checkpoint-dir", str(ck), "--jsonl", str(jsonl),
+                      "--artifacts-dir", str(art))
+    assert rc == 0
+    rows = [json.loads(line) for line in open(jsonl)]
+    assert [r["step"] for r in rows if "train_loss" in r][-1] == 2
+    assert all(np.isfinite(r["train_loss"]) for r in rows if "train_loss" in r)
+    assert CheckpointManager(str(ck)).all_steps() == [2]
+    assert os.listdir(art) == ["generated_2.txt"]
+    assert f"[sample] wrote {art}/generated_2.txt" in out
+    assert len(open(art / "generated_2.txt").read()) > 1
+
+    rc, out, _ = _run(capsys, "eval", *common, "--checkpoint-dir", str(ck))
+    assert rc == 0
+    metrics = json.loads(out.strip().splitlines()[-1])
+    assert set(metrics) == {"val_loss", "val_perplexity"}
+    assert np.isclose(metrics["val_perplexity"], np.exp(metrics["val_loss"]),
+                      rtol=0.2)
+
+    rc, out, _ = _run(capsys, "sample", *common, "--checkpoint-dir", str(ck),
+                      "--greedy", "--max-new-tokens", "12", "--prompt", "The ")
+    assert rc == 0
+    cfg, model, tok, _, _ = factory.build_char_lm_run(
+        get_config(config), device="cpu", param_dtype=None)
+    state = torch.load(ck / "step_2.pt", weights_only=True)
+    model.load_state_dict(state["model"])
+    want = generate(model.eval(), torch.from_numpy(tok.encode("The "))[None].long(),
+                    max_new_tokens=12, device="cpu")
+    assert out.rstrip("\n") == tok.decode(want[0].tolist())
+
+    weights = tmp_path / "w.pt"
+    rc, out, _ = _run(capsys, "export", *common, "--checkpoint-dir", str(ck),
+                      "--out", str(weights))
+    assert rc == 0 and f"exported params to {weights}" in out
+    exported = load_params(str(weights))
+    assert set(exported) == set(state["model"])
+    for name, t in state["model"].items():
+        assert torch.equal(exported[name], t), name
+    if config == DSV3_CLI:
+        assert "layers.0.moe.routing_bias" in exported
+
+
+def test_eval_prints_the_reference_keys(capsys):
+    rc = jcli.main(["eval", "--config", "gpt_tiny"])
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    rc, out, _ = _run(capsys, "eval", "--config", "gpt_tiny", "--device", "cpu")
+    assert rc == 0 and set(json.loads(out.strip())) == set(ref)
+
+
+def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
+    nowhere = str(tmp_path / "none")
+    for cmd in ("eval", "sample", "export"):
+        extra = {"eval": [], "sample": ["--max-new-tokens", "8"],
+                 "export": ["--out", str(tmp_path / "w.pt")]}[cmd]
+        rc, _, err = _run(capsys, cmd, "--config", "gpt_tiny", "--device", "cpu",
+                          "--checkpoint-dir", nowhere, *extra)
+        assert rc == 1 and "no checkpoint found" in err
+    assert not os.path.exists(nowhere)
+    rc, _, err = _run(capsys, "export", "--config", "gpt_tiny", "--device",
+                      "cpu", "--out", str(tmp_path / "w.pt"))
+    assert rc == 2 and "requires --checkpoint-dir" in err
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["serve", "--config", "gpt_tiny", "--port", "8000"], "A3.4"),
+    (["replay", "--journal", "j.jsonl"], "A4"),
+    (["trace-summary", "t.json"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny"], "A5"),
+    (["kernel-bench"], "A5"),
+    (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
+      "--greedy"], "A5"),
+    (["train", "--config", "vit_mnist", "--device", "cpu"], "A6"),
+    (["train", "--config", "llama3_long", "--device", "cpu"], "A3"),
+])
+def test_refused_commands_exit_2_naming_their_roadmap_item(capsys, argv, item):
+    rc, out, err = _run(capsys, *argv)
+    assert rc == 2 and not out
+    assert f"ROADMAP {item}" in err
+
+
+def test_the_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--config", "gpt_tiny", "--steps", "1"])

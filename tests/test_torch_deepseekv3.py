@@ -152,7 +152,8 @@ def test_mla_matches_reference(use_flash, rope_dim):
                         rope_dim=rope_dim)
     mla = model.layers[0].mla
     xt = torch.from_numpy(x).requires_grad_()
-    out = mla(xt, torch.from_numpy(pos.copy()), None, True)
+    out, cache = mla(xt, torch.from_numpy(pos.copy()), None, True)
+    assert cache is None  # (out, cache), as the reference's MLA returns
     _close(out, jout)
     names = [n for n, _ in mla.named_parameters()]
     grads = torch.autograd.grad(out, [xt, *mla.parameters()],
@@ -495,6 +496,15 @@ def test_unported_options_raise(kw, match):
 
 
 def test_caches_raise(weights):
+    """The latent cache is ported (`tests/test_torch_dsv3_serve.py`); what
+    still raises: `attend_len` without caches, and a cached forward in
+    training mode with dropout on."""
     model = _port_model(*weights).eval()
-    with pytest.raises(NotImplementedError, match="latent cache"):
-        model(torch.zeros(1, 4, dtype=torch.long), caches=[None, None])
+    with pytest.raises(ValueError, match="pass caches"):
+        model(torch.zeros(1, 4, dtype=torch.long), attend_len=4)
+    dropping = DeepSeekV3(DeepSeekV3Config(**{**TINY, "attn_dropout": 0.1}),
+                          device="cpu")
+    dropping.load_state_dict(model.state_dict())
+    with pytest.raises(ValueError, match="eval mode"):
+        dropping.train()(torch.zeros(1, 4, dtype=torch.long),
+                         caches=dropping.init_caches(1, 8), attend_len=4)

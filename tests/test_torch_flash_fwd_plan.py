@@ -63,6 +63,28 @@ def test_mla_latent_stream_with_one_kv_head_passes_as_it_is():
     assert qs == _contiguous_strides(1, 2048, 8, 128)
 
 
+@pytest.mark.parametrize("batch,max_len,attend_len", [
+    (1, 8448, 8192),  # dsv3_long's last prefill chunk of an 8192-token prompt
+    (1, 8448, 7000),  # attend_len no multiple of the tile
+    (2, 8448, 2901),  # two lanes: the batch stride is the cache's
+    (4, 8448, 129),
+])
+def test_a_latent_cache_slice_passes_as_it_is(batch, max_len, attend_len):
+    """MLA's cached prefill passes ``c[:, :attend_len, None, :]`` of a
+    `LatentCache` as both k and v: read in place, one kv head of D 128,
+    the batch stride the cache's (a single row's is the slice's size)."""
+    from solvingpapers_tpu_torch.infer import LatentCache
+
+    cache = LatentCache.init(batch, max_len, 128, BF16)
+    c_kv = cache.c[:, :attend_len, None, :]
+    q = torch.zeros(batch, 2048, 8, 128, dtype=BF16)
+    (_, qs), (k2, ks), (v2, vs) = tfa.fwd_tma_inputs(q, c_kv, c_kv)
+    assert k2 is c_kv and v2 is c_kv  # no copy
+    batch_stride = max_len if batch > 1 else attend_len
+    assert ks == vs == (batch_stride * 128, 128, 128)
+    assert qs == _contiguous_strides(batch, 2048, 8, 128)
+
+
 def test_a_head_major_q_passes_as_it_is():
     """A (B, N, S, D) tensor viewed as (B, S, N, D): strides out of the
     usual order are still multiples of 16 bytes, so TMA reads it in

@@ -120,6 +120,36 @@ def test_flash_bf16_kernel_reads_a_cache_slice_in_place(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,sq,skv", [(torch.bfloat16, 1, 2048, 7000),
+                                           (torch.bfloat16, 2, 777, 2901),
+                                           (torch.float32, 1, 904, 5000)])
+def test_flash_kernel_reads_a_latent_cache_slice_in_place(cuda_device, dtype, b,
+                                                          sq, skv):
+    """MLA's cached prefill: k = v = ``c[:, :skv, None, :]`` of a (B,
+    8448, 128) latent cache, 8 q heads, attend_len ragged: no copy of the
+    slice, within the plain version's limits, two calls bit-identical."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    c = torch.randn(b, 8448, 128, generator=g, device=cuda_device).to(dtype)
+    kv = c[:, :skv, None, :]
+    q = torch.randn(b, sq, 8, 128, generator=g, device=cuda_device).to(dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    allocated = torch.cuda.memory_allocated(cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    outputs = o.numel() * o.element_size() + lse.numel() * 4
+    assert (torch.cuda.max_memory_allocated(cuda_device) - allocated - outputs
+            < kv.numel() * kv.element_size())
+    ro, rlse = tfa.flash_attention_reference(q.float(), kv.float(), kv.float(),
+                                             causal=True)
+    tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    assert (o.float() - ro).abs().max().item() <= tol[0]
+    assert (lse - rlse).abs().max().item() <= tol[1]
+    o2, lse2 = tfa.flash_attention_fwd(q, kv, kv, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,skv,rate", [(1, 1000, 1000, 0.0), (2, 777, 901, 0.0),
                                           (1, 1000, 1000, 0.1)])
 def test_flash_bf16_kernel_with_k_is_v_at_d128(cuda_device, b, s, skv, rate):

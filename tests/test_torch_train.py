@@ -132,9 +132,11 @@ def test_optimizer_updates_match_optax(name, clip):
 
 
 def test_accumulation_and_unknown_optimizers_raise():
+    """Accumulation is ported (`tests/test_torch_accum.py`); an
+    accum_steps below 1 and an unknown optimizer raise."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        make_optimizer(OptimizerConfig(accum_steps=2), p)
+    with pytest.raises(ValueError, match="accum_steps"):
+        make_optimizer(OptimizerConfig(accum_steps=0), p)
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer(OptimizerConfig(name="lion"), p)
 

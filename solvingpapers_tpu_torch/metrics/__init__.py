@@ -1,6 +1,8 @@
-"""Training metrics (port of `solvingpapers_tpu/metrics`: the writer sinks
-and MFU accounting the training loop uses, and the text sample artifact)."""
+"""Metrics (port of `solvingpapers_tpu/metrics`: the writer sinks and MFU
+accounting the training loop uses, the text sample artifact, and the
+log-bucketed latency histogram the serving metrics record into)."""
 
+from solvingpapers_tpu_torch.metrics.hist import LogHistogram
 from solvingpapers_tpu_torch.metrics.mfu import (
     active_param_count,
     chip_peak_flops,
@@ -18,6 +20,7 @@ from solvingpapers_tpu_torch.metrics.writer import (
 __all__ = [
     "ConsoleWriter",
     "JSONLWriter",
+    "LogHistogram",
     "MetricsWriter",
     "MultiWriter",
     "active_param_count",

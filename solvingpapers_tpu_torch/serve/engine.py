@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine over a lane pool (port of the lane
-path of `solvingpapers_tpu/serve/engine.py`).
+"""Continuous-batching serving engine over a lane pool or a paged pool,
+with an optional radix prefix cache (port of
+`solvingpapers_tpu/serve/engine.py`).
 
 `infer.generate` is one static batch to completion. `ServeEngine`
 instead advances a pool of S independent slots one iteration at a time
@@ -41,10 +42,26 @@ Per-request sampling (`serve/sampling.py`): greedy slots (temperature 0)
 take argmax and are token-exact with greedy `generate`; a seeded
 stochastic slot replays its stream run to run.
 
+Paged pool (`ServeConfig.paged`, `serve/kv_pool.py` `PagedKVPool`):
+memory is booked per page, not per `max_len` lane. Each program gathers
+its lanes' logical view from the page tables once, runs the same
+forwards as the lane programs on it, and scatters back only the pages
+it wrote. Admission follows a page budget (the scheduler's `can_admit`
+gate), and a stream that runs out of pages sheds prefix-tree leaves
+first, then preempts the youngest other stream, which returns to the
+queue head and later re-prefills prompt + emitted tokens (greedy and
+seeded streams are unchanged by that).
+
+Prefix cache (`ServeConfig.prefix_cache`, `serve/prefix_cache.py`): an
+admitted request reuses its longest cached page-aligned prompt prefix —
+spliced into the lane (a device copy) on the lane pool, appended to the
+page table (no copy) on the paged pool — and prefills only the
+uncovered suffix from that position, end-aligned as before. Greedy
+streams are token-exact with the cache on or off.
+
 Not in this slice (kept by the reference, listed in ROADMAP.md): the
-paged pool, prefix cache, speculative decoding, grammar, stop strings,
-logprobs, deadlines, the fault boundary, journal, tracing and the HTTP
-front door.
+quantized pools, speculative decoding, grammar, stop strings, logprobs,
+deadlines, the fault boundary, journal, tracing and the HTTP front door.
 """
 
 from __future__ import annotations
@@ -58,10 +75,16 @@ from solvingpapers_tpu_torch.device import resolve_device
 from solvingpapers_tpu_torch.serve import metrics as smetrics
 from solvingpapers_tpu_torch.serve.kv_pool import (
     KVSlotPool,
+    PagedKVPool,
     extract_lane,
+    gather_lane,
+    gather_lanes,
+    scatter_lane_pages,
+    scatter_written_pages,
     store_lane,
 )
 from solvingpapers_tpu_torch.serve.metrics import ServeMetrics
+from solvingpapers_tpu_torch.serve.prefix_cache import PrefixCache
 from solvingpapers_tpu_torch.serve.sampling import (
     GREEDY_ROW,
     PackedSampling,
@@ -81,7 +104,8 @@ from solvingpapers_tpu_torch.serve.scheduler import (
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Engine shape/policy knobs (the lane-pool subset of the reference's).
+    """Engine shape/policy knobs (the reference's, without its quantized,
+    speculative, fault, tracing and SLO knobs).
 
     `decode_block` amortizes host work: each decode call advances all
     slots `block` tokens before the host looks at the streams again.
@@ -90,6 +114,20 @@ class ServeConfig:
     `max_waiting`, `decode_priority`, `max_prefills_per_step` and
     `max_wait_steps` configure the scheduler; `eos_id` is the default
     per-request EOS (None = run to budget); `seed` keys sampling.
+
+    Paged pool: `paged` serves from one physical pool of `page_budget`
+    pages of `page_size` tokens plus per-slot page tables. `page_size`
+    defaults to `prefix_page` (both must be equal when the prefix cache
+    is on too: shared page ids need tree edges on page boundaries) and
+    must divide `max_len`; `page_budget` None is the lane-pool
+    equivalent, n_slots * max_len / page_size. Shrink it (or raise
+    n_slots) to trade worst-case room for concurrency.
+
+    Prefix cache: `prefix_cache` reuses cached page-aligned prompt
+    prefixes of `prefix_page` tokens; `prefix_cache_bytes` caps what the
+    tree may hold (LRU leaf eviction; pinned nodes never go);
+    `prefix_sched` admits waiting requests shortest uncovered suffix
+    first (the wait budget still overrides).
     """
 
     n_slots: int = 8
@@ -104,6 +142,13 @@ class ServeConfig:
     max_wait_steps: int = 64
     eos_id: int | None = None
     seed: int = 0
+    paged: bool = False
+    page_size: int | None = None
+    page_budget: int | None = None
+    prefix_cache: bool = False
+    prefix_page: int = 16
+    prefix_cache_bytes: int = 64 << 20
+    prefix_sched: bool = False
 
 
 _UNSET = object()
@@ -126,15 +171,38 @@ def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
     return lane, last
 
 
-def _prefill_program(model, padded, chunk, cap, caches, prompt, slot, length,
-                     packed, generator):
+def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
+                     length, packed, generator):
     """Prefill one request into lane `slot` and sample its first token
-    (sample index 0 of its chain)."""
+    (sample index 0 of its chain).
+
+    `start` is the prefix-cache match length: `prompt` is the UNCOVERED
+    SUFFIX ((padded,) ids), lane positions [0, start) already hold the
+    spliced prefix, and positions and `attend_len` shift by `start` (0
+    is a full prefill)."""
     lane = extract_lane(caches, slot)
-    lane, last = _prefill_lane(model, padded, chunk, 0, lane, prompt, length)
+    lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
+                               length)
     first = fused_sample(last[None], packed, [generator], cap=cap)
     caches = store_lane(caches, lane, slot)
     return caches, first[0]
+
+
+def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
+                           row, length, packed, generator):
+    """Paged-pool prefill: `_prefill_program`'s contract over a lane
+    GATHERED from the slot's page-table `row`, with only the pages the
+    prefill may have written going back. On a prefix hit pages [0,
+    start // page) hold shared prefix KV the gather reads; the scatter
+    starts at ``start // page``, so shared pages are read, never
+    written."""
+    lane = gather_lane(phys, row)
+    lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
+                               length)
+    first = fused_sample(last[None], packed, [generator], cap=cap)
+    page = phys[0].max_len
+    phys = scatter_lane_pages(phys, lane, row, start // page)
+    return phys, first[0]
 
 
 def pooled_decode_kwargs(model) -> dict:
@@ -168,6 +236,29 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
     return caches, torch.stack(out)
 
 
+def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
+                          eos, packed, generators):
+    """Paged-pool decode block: `_decode_program` over the lanes gathered
+    once from the (S, pages_per_lane) page `table`, then only each slot's
+    write window goes back. The block writes positions [pos, pos +
+    block), at most ``(block - 1) // page + 2`` pages a slot; pages
+    outside a slot's window are read-only within the block (shared
+    prefix pages precede the write frontier) and pages inside it are
+    its own. Idle slots' tables rest at the trash page, so their masked
+    dummy writes land there, as does an active slot's discarded
+    overshoot past its allocation. A window clamped at the lane's end
+    rewrites the last page with its own content."""
+    lanes = gather_lanes(phys, table)
+    lanes, out = _decode_program(model, block, cap, lanes, toks, pos, active,
+                                 eos, packed, generators)
+    page = phys[0].max_len
+    limit = table.shape[1] * page - 1
+    for w in range((block - 1) // page + 2):
+        pos_w = torch.clamp(pos + w * page, 0, limit)
+        phys = scatter_written_pages(phys, lanes, table, pos_w)
+    return phys, out
+
+
 class ServeEngine:
     """Long-lived continuous-batching engine over one decoder model.
 
@@ -198,15 +289,50 @@ class ServeEngine:
                 raise ValueError(f"{knob} must be >= 1, got {getattr(cfg, knob)}")
         if cfg.prefill_chunk is not None and cfg.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {cfg.prefill_chunk}")
+        if cfg.prefix_sched and not cfg.prefix_cache:
+            raise ValueError(
+                "prefix_sched orders admission by cached-prefix match "
+                "length, which needs prefix_cache=True: without the radix "
+                "tree the knob would silently degrade to plain FIFO"
+            )
         self.model = model
         self.config = cfg
         self.metrics = ServeMetrics()
-        self.pool = KVSlotPool(model, cfg.n_slots, cfg.max_len)
+        self._paged = cfg.paged
+        if cfg.paged:
+            page = cfg.page_size or cfg.prefix_page
+            if cfg.prefix_cache and page != cfg.prefix_page:
+                raise ValueError(
+                    f"page_size {page} != prefix_page {cfg.prefix_page}: "
+                    "zero-copy prefix sharing appends PHYSICAL page ids to "
+                    "page tables, which needs tree edges and pool pages on "
+                    "one granularity (set them equal, or leave page_size "
+                    "None to inherit prefix_page)"
+                )
+            self.pool = PagedKVPool(model, cfg.n_slots, cfg.max_len, page,
+                                    page_budget=cfg.page_budget)
+            self.metrics.add_gauge_provider(self._page_gauges)
+        else:
+            if cfg.page_size is not None or cfg.page_budget is not None:
+                raise ValueError(
+                    "page_size/page_budget configure the paged pool and need "
+                    "paged=True: on the lane pool they would silently do "
+                    "nothing"
+                )
+            self.pool = KVSlotPool(model, cfg.n_slots, cfg.max_len)
+        self.prefix_cache = (
+            PrefixCache(page=cfg.prefix_page, max_bytes=cfg.prefix_cache_bytes,
+                        pool=self.pool if cfg.paged else None)
+            if cfg.prefix_cache else None
+        )
         self.scheduler = FIFOScheduler(
             max_waiting=cfg.max_waiting,
             decode_priority=cfg.decode_priority,
             max_prefills_per_step=cfg.max_prefills_per_step,
             max_wait_steps=cfg.max_wait_steps,
+            prefer_cached=cfg.prefix_sched,
+            prefix_lookup=self._match_len if self.prefix_cache else None,
+            can_admit=self._can_admit if cfg.paged else None,
         )
         self._slot_req: list[Request | None] = [None] * cfg.n_slots
         # host-side numpy mirrors of per-slot decode state, shipped to the
@@ -306,6 +432,8 @@ class ServeEngine:
 
     def _step_inner(self) -> list[Request]:
         finished: list[Request] = []
+        if self._paged:
+            self._unblock_head()
         picked = self.scheduler.pick(self.pool.n_free, self.pool.n_active)
         at = -1
         try:
@@ -342,11 +470,13 @@ class ServeEngine:
         cap = min(self.config.max_len, limit or self.config.max_len) - start
         return max(length, min(padded, cap))
 
-    def _prefill_shape(self, length: int) -> tuple[int, int | None]:
-        """(padded length, chunk) of one prompt's prefill: bucketed, then
-        cut into `prefill_chunk` pieces (2048 automatically above 4096
-        tokens, as `infer.generate` does); chunk None is one piece."""
-        padded = self._bucketed(length)
+    def _prefill_shape(self, length: int,
+                       start: int = 0) -> tuple[int, int | None]:
+        """(padded length, chunk) of one prefill of `length` tokens from
+        position `start`: bucketed, then cut into `prefill_chunk` pieces
+        (2048 automatically above 4096 tokens, as `infer.generate` does);
+        chunk None is one piece."""
+        padded = self._bucketed(length, start)
         chunk = self.config.prefill_chunk
         if chunk is None and padded > 4096:
             chunk = 2048
@@ -361,20 +491,71 @@ class ServeEngine:
                               top_k=torch.as_tensor(self._top_k[cols], device=dev))
 
     def _admit(self, req: Request) -> bool:
-        """Prefill `req` into a free lane; True if it finished already."""
+        """Prefill `req` into a free lane; True if it finished already.
+
+        With the prefix cache on, the longest cached page-aligned prefix
+        of the prompt is reused (spliced into the lane, or its page ids
+        appended to the slot's table on the paged pool), only the
+        uncovered suffix is prefilled from position `matched`, and the
+        prompt's page-aligned prefix then goes back to the tree (a copy,
+        or page references).
+
+        A request with tokens already emitted is a PREEMPTED one being
+        resumed (paged pool): the prefill recomputes the KV of prompt +
+        emitted tokens but the newest (whose KV is written when it is fed
+        back), its sampled token is discarded (the stream holds it), and
+        decode continues where it stopped.
+        """
         slot = self.pool.acquire()
         if slot is None:
             raise RuntimeError("scheduler admitted beyond free slots")
         now = smetrics.now()
+        resumed = bool(req.tokens)
         req.state = ACTIVE
         req.slot = slot
         req.admit_time = now
         self._slot_req[slot] = req
-        length = int(req.prompt.size)
-        padded, chunk = self._prefill_shape(length)
-        self.metrics.record_admit(now)
-        prompt_padded = np.zeros(padded, np.int64)
-        prompt_padded[:length] = req.prompt
+        if resumed:
+            seq = np.concatenate([req.prompt,
+                                  np.asarray(req.tokens[:-1], np.int64)])
+        else:
+            seq = req.prompt
+        length = int(seq.size)
+        matched = 0
+        pc = self.prefix_cache
+        if pc is not None and length > 1:
+            match = pc.match(seq[:length - 1])
+            matched = match.length
+            if matched:
+                pc.pin(match)
+                offset = 0
+                for node in match.nodes:
+                    if self._paged:  # zero-copy: page ids into the table
+                        self.pool.append_shared(slot, node.pages)
+                    else:
+                        self.pool.splice_prefix(slot, node.segment, offset)
+                        offset += node.length
+                pc.unpin(match)
+        suffix = length - matched
+        padded, chunk = self._prefill_shape(suffix, matched)
+        if self._paged and not self._ensure_pages(slot, matched + padded):
+            # even with the tree and every other stream shed, the pool
+            # cannot cover this prefill: hand the slot back, retry later
+            self._slot_req[slot] = None
+            self.pool.release(slot)
+            req.slot = None
+            self.scheduler.requeue_front(req)
+            return False
+        if not resumed:
+            self.metrics.record_admit(req, now)
+        if pc is not None and length > 1:
+            self.metrics.record_prefix_lookup(matched)
+        # one transfer carries the suffix ids and, paged, the table row
+        ids = np.zeros(padded, np.int64)
+        ids[:suffix] = seq[matched:]
+        if self._paged:
+            ids = np.concatenate([ids, self.pool.table[slot]])
+        ids = torch.as_tensor(ids, device=self.device)
         samp_row, top_k, seed = encode_params(req.params)
         self._samp_f[:, slot] = samp_row
         self._top_k[slot] = top_k
@@ -382,16 +563,40 @@ class ServeEngine:
         generator = (None if req.params.greedy else request_generator(
             self.config.seed, self._rng_step, slot, seed, 0, self.device))
         self._rng_step += 1
-        self.pool.caches, first = _prefill_program(
-            self.model, padded, chunk, self.config.sample_cap,
-            self.pool.caches, torch.as_tensor(prompt_padded, device=self.device),
-            slot, length, self._packed([slot]), generator,
-        )
+        args = (self.model, padded, chunk, matched, self.config.sample_cap)
+        if self._paged:
+            self.pool.phys, first = _paged_prefill_program(
+                *args, self.pool.phys, ids[:padded], ids[padded:], suffix,
+                self._packed([slot]), generator)
+        else:
+            self.pool.caches, first = _prefill_program(
+                *args, self.pool.caches, ids, slot, suffix,
+                self._packed([slot]), generator)
         first = int(first)  # waits for the device: `now` below is device-true
+        if pc is not None:
+            # hand the prefilled span to the tree while [0, length) is
+            # pristine: the slot's decode writes land at positions >=
+            # length
+            page = pc.page
+            aligned = (length - 1) // page * page
+            if aligned > matched:  # on a full hit there is nothing new
+                extract = (self.pool.share_range if self._paged
+                           else self.pool.extract_prefix)
+                pc.insert(seq[:aligned], lambda off, n: extract(slot, off, n))
+            self.metrics.record_prefix_state(pc.bytes_held, pc.evictions)
         now = smetrics.now()
+        if resumed:
+            # recompute complete: the sampled token is discarded and
+            # decode resumes at the preempted position
+            self.metrics.record_recompute_tokens(suffix)
+            self._last_emit[slot] = now
+            self.pool.positions[slot] = length
+            self._toks[slot] = req.tokens[-1]
+            self._pos[slot] = length
+            return False
         req.first_token_time = now
         req.tokens.append(first)
-        self.metrics.record_first_token(req, now)
+        self.metrics.record_first_token(req, now, prefilled=suffix)
         self._last_emit[slot] = now
         self.pool.positions[slot] = length
         self._toks[slot] = first
@@ -412,19 +617,30 @@ class ServeEngine:
     def _decode_block(self) -> list[Request]:
         cfg = self.config
         block, n = cfg.decode_block, cfg.n_slots
-        active = np.zeros(n, bool)
-        eos = np.full(n, -1, np.int64)
+        if self._paged:
+            self._cover_decode(block)
+            if self.pool.n_active == 0:
+                return []  # page exhaustion preempted every stream
+        # the block's int control values go to the device in ONE transfer:
+        # rows toks, pos, active, eos, then (paged) the page tables
+        n_rows = 4 + (self.pool.pages_per_lane if self._paged else 0)
+        state = np.zeros((n_rows, n), np.int64)
+        state[0] = self._toks
+        state[1] = self._pos
+        state[3] = -1
         samp_idx = np.zeros(n, np.int64)
         stochastic = np.zeros(n, bool)
         for slot, r in enumerate(self._slot_req):
             if r is not None:
-                active[slot] = True
+                state[2, slot] = 1
                 if r.eos_id is not None:
-                    eos[slot] = r.eos_id
+                    state[3, slot] = r.eos_id
                 # sample index of this block's first draw (index 0 was
                 # the prefill's)
                 samp_idx[slot] = len(r.tokens)
                 stochastic[slot] = not r.params.greedy
+        if self._paged:
+            state[4:] = self.pool.table.T
         step_tag = self._rng_step
         self._rng_step += 1
         dev = self.device
@@ -435,14 +651,16 @@ class ServeEngine:
                     if stochastic[s] else None for s in range(n)]
 
         t0 = smetrics.now()
-        self.pool.caches, out = _decode_program(
-            self.model, block, cfg.sample_cap, self.pool.caches,
-            torch.as_tensor(self._toks, device=dev),
-            torch.as_tensor(self._pos, device=dev),
-            torch.as_tensor(active, device=dev),
-            torch.as_tensor(eos, device=dev),
-            self._packed(slice(None)), generators,
-        )
+        state = torch.as_tensor(state, device=dev)
+        ctl = (state[0], state[1], state[2].bool(), state[3],
+               self._packed(slice(None)), generators)
+        if self._paged:
+            self.pool.phys, out = _paged_decode_program(
+                self.model, block, cfg.sample_cap, self.pool.phys,
+                state[4:].T, *ctl)
+        else:
+            self.pool.caches, out = _decode_program(
+                self.model, block, cfg.sample_cap, self.pool.caches, *ctl)
         out = out.cpu().numpy()  # (block, n_slots); overshoot truncated below
         now = smetrics.now()
         self.metrics.record_decode_block(now - t0)
@@ -481,19 +699,149 @@ class ServeEngine:
         req.state = FINISHED
         req.finish_reason = reason
         req.finish_time = now
+        if self._paged:
+            # streams only grow, so the count at finish is the peak
+            req.pages_held = max(req.pages_held,
+                                 int(self.pool.n_alloc[req.slot]))
         self.metrics.record_finish(req, now)
-        slot = req.slot
+        self._vacate(req.slot)
+
+    def _vacate(self, slot: int) -> None:
+        """Free `slot` and park it at position 0 with greedy sampling rows:
+        its masked dummy writes land in lane position 0 (overwritten by
+        the next prefill) or the trash page, and an all-greedy resting
+        state keeps idle batches on the argmax-only path."""
         self._slot_req[slot] = None
-        # park the idle lane at position 0 with greedy sampling rows: its
-        # masked dummy writes land in slot 0 (overwritten by the next
-        # prefill) and an all-greedy resting state keeps idle batches on
-        # the argmax-only path
         self._toks[slot] = 0
         self._pos[slot] = 0
         self._samp_f[:, slot] = GREEDY_ROW
         self._top_k[slot] = 0
         self._seed[slot] = -1
         self.pool.release(slot)
+
+    # -------------------------------------------------- prefix, pages
+
+    def _match_len(self, prompt: np.ndarray) -> int:
+        """Cached page-aligned prefix length of `prompt` (read-only: the
+        scheduler's admission lookup). Capped at len - 1: the suffix
+        prefill must produce at least one logits row to sample from."""
+        if self.prefix_cache is None or prompt.size < 2:
+            return 0
+        return self.prefix_cache.peek(prompt[:prompt.size - 1])
+
+    def _page_gauges(self) -> dict[str, float]:
+        pool = self.pool
+        return {
+            "serve/pages_free": float(pool.pages_free),
+            "serve/pages_active": float(pool.pages_active),
+            "serve/page_fragmentation": float(pool.fragmentation),
+        }
+
+    def _page_need(self, req: Request) -> int:
+        """Pages a waiting request needs to start: prefill coverage of its
+        (resume-aware) sequence net of the cached prefix, plus one decode
+        block's reservation. An ESTIMATE (the cached prefix can change
+        between gate and admit, and one iteration's picks share one free
+        count); `_ensure_pages`' reclaim absorbs over-admission."""
+        pool = self.pool
+        seq = (np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int64)])
+               if req.tokens else req.prompt)
+        matched = 0
+        if self.prefix_cache is not None and seq.size > 1:
+            matched = self.prefix_cache.peek(seq[:seq.size - 1])
+        padded = self._bucketed(int(seq.size) - matched, start=matched)
+        need = min(matched + padded + self.config.decode_block,
+                   self.config.max_len)
+        return pool.pages_for(need) - matched // pool.page_size
+
+    def _can_admit(self, req: Request) -> bool:
+        """The scheduler's gate beyond free slots: free pages must cover
+        the request's prompt + a decode reservation."""
+        return self.pool.pages_free >= self._page_need(req)
+
+    def _unblock_head(self) -> None:
+        """Shed prefix-tree references for a page-starved queue head
+        before the scheduler picks, with the pool IDLE. Without this the
+        engine can livelock: the tree's references persist after every
+        stream drains, and reclaim otherwise only runs inside `_admit`
+        and `_cover_decode`, which a closed gate keeps from running.
+        While streams are active their own release unblocks the head."""
+        pc = self.prefix_cache
+        if not self.scheduler.queue or self.pool.n_active > 0 or pc is None:
+            return
+        head = self.scheduler.queue[0]
+        shed = False
+        while not self._can_admit(head) and pc.evict_one():
+            shed = True
+        if shed:
+            self.metrics.record_prefix_state(pc.bytes_held, pc.evictions)
+
+    def _ensure_pages(self, slot: int, n_tokens: int) -> bool:
+        """Grow `slot`'s page table to cover `n_tokens`, reclaiming under
+        pressure (tree leaves first, then the youngest other stream).
+        False only when nothing else is left to reclaim."""
+        while not self.pool.ensure(slot, n_tokens):
+            if not self._reclaim_one(protect={slot}):
+                return False
+        return True
+
+    def _reclaim_one(self, protect: set) -> bool:
+        """Free page capacity by one unit: evict one prefix-tree leaf
+        (dropping cache never hurts correctness) or, with the tree spent,
+        preempt the YOUNGEST active request not in `protect` (it has the
+        least sunk prefill work). False when nothing is left. A tree
+        eviction may free no page (a slot still shares it): callers loop,
+        and each call removes a node or a stream, so the loop ends."""
+        pc = self.prefix_cache
+        if pc is not None and pc.evict_one():
+            self.metrics.record_prefix_state(pc.bytes_held, pc.evictions)
+            return True
+        victim = None
+        for r in self._slot_req:
+            if r is None or r.slot in protect:
+                continue
+            if victim is None or r.admit_time > victim.admit_time:
+                victim = r
+        if victim is None:
+            return False
+        self._preempt(victim)
+        return True
+
+    def _preempt(self, req: Request) -> None:
+        """Evict an ACTIVE stream on page exhaustion, at a block boundary:
+        its pages free at once (shared ones survive under the tree's
+        references, often making its resume a prefix hit) and it returns
+        to the HEAD of the queue, to be recomputed by `_admit`'s resume
+        path when pages free up."""
+        slot = req.slot
+        self.metrics.record_preemption()
+        req.pages_held = max(req.pages_held, int(self.pool.n_alloc[slot]))
+        self._vacate(slot)
+        req.slot = None
+        self.scheduler.requeue_front(req)
+
+    def _cover_decode(self, block: int) -> None:
+        """Before a decode block every surviving slot must own pages for
+        its next `block` writes (overshoot past a finished stream's
+        coverage lands in the trash page and is discarded, but real
+        tokens' writes must be owned). Oldest streams are covered first
+        and reclaim preempts youngest first, so under exhaustion the pool
+        serves fewer, older streams and corrupts none."""
+        active = sorted((r for r in self._slot_req if r is not None),
+                        key=lambda r: r.admit_time)
+        covered: set[int] = set()
+        for req in active:
+            if req.slot is None:
+                continue  # preempted by an earlier slot's reclaim
+            slot = req.slot
+            covered.add(slot)
+            target = min(int(self._pos[slot]) + block, self.config.max_len)
+            ok = self.pool.ensure(slot, target)
+            while not ok and self._reclaim_one(protect=covered):
+                ok = self.pool.ensure(slot, target)
+            if not ok:  # nothing reclaimable is left: this stream yields
+                self._preempt(req)
+                covered.discard(slot)
 
 
 __all__ = ["ServeConfig", "ServeEngine"]

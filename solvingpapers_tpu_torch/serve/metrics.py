@@ -1,21 +1,48 @@
 """Serving observability (port of `solvingpapers_tpu/serve/metrics.py`:
-the counters and latencies the lane-pool engine records).
+the counters, latencies and gauges the engine records).
 
     serve/ttft_s_*          submit -> first token (includes queue wait)
     serve/itl_s_*           gap between consecutive token emissions (a
                             decode block emits in bursts: the amortized gap)
+    serve/queue_wait_s_*    submit -> slot admission
     serve/prefill_s_*       admission -> first token on the host clock
                             (the first token's read waits for the device)
     serve/decode_block_s_*  one decode block, dispatch to its tokens on
                             the host (the token read waits for the device)
     serve/tokens_out        generated tokens
-    serve/tokens_prefilled  prompt tokens prefilled
+    serve/tokens_prefilled  prompt tokens the engine actually prefilled
+                            (a prefix hit's cached tokens excluded, a
+                            resume's recomputed ones included)
     serve/tokens_per_sec    generated tokens / elapsed wall time
     serve/slot_occupancy    mean fraction of slots decoding, per iteration
     serve/finish_<reason>   finished requests by outcome
 
-Latencies are kept as plain lists (exact percentiles; the reference's
-mergeable log histograms come with the fleet layer in a later slice).
+TTFT, ITL and queue wait go into mergeable log histograms
+(`metrics.hist.LogHistogram`: means exact, percentiles bucket-resolution
+estimates), as the reference records them; the prefill and decode-block
+times stay exact lists of every observation.
+
+Paged-pool gauges (present iff `ServeConfig.paged`; the engine registers
+a gauge provider):
+
+    serve/pages_free           allocatable pages currently free
+    serve/pages_active         pages referenced by slots or the tree
+    serve/page_fragmentation   1 - live KV / allocated page capacity
+    serve/preemptions          requests evicted mid-stream on page
+                               exhaustion (recomputed on re-admission);
+                               present iff any occurred, with
+    serve/recompute_tokens     the tokens re-prefilled by those resumes
+
+Prefix-cache counters (present once the engine's prefix cache looked a
+prompt up):
+
+    serve/prefix_lookups           admission-time radix-tree matches
+    serve/prefix_hits              lookups that matched >= 1 page
+    serve/prefix_hit_rate          hits / lookups
+    serve/prefix_cached_tokens     prompt tokens served from the cache
+    serve/tokens_prefilled_saved   the same: prefill compute avoided
+    serve/prefix_evictions         LRU leaf evictions so far
+    serve/prefix_hbm_bytes         device bytes the radix tree holds now
 """
 
 from __future__ import annotations
@@ -24,9 +51,22 @@ import time
 
 import numpy as np
 
+from solvingpapers_tpu_torch.metrics.hist import LogHistogram
+
+# one latency bucket layout for every serve histogram (merges need
+# identical layouts)
+_LATENCY_LAYOUT = dict(lo=1e-4, hi=1e4, buckets_per_decade=16)
+# the percentiles the snapshot reports
+_PERCENTILES = (50, 90, 99)
+
+
+def latency_histogram() -> LogHistogram:
+    """A serve-layout latency histogram."""
+    return LogHistogram(**_LATENCY_LAYOUT)
+
 
 class LatencyLog:
-    """Every observation of one latency, in seconds."""
+    """Every observation of one latency, in seconds (exact)."""
 
     def __init__(self):
         self.values: list[float] = []
@@ -40,17 +80,22 @@ class LatencyLog:
     def mean(self) -> float:
         return float(np.mean(self.values))
 
-    def percentiles(self) -> dict[str, float]:
-        p50, p90, p99 = np.percentile(self.values, [50, 90, 99])
-        return {"p50": float(p50), "p90": float(p90), "p99": float(p99)}
+    @property
+    def sum(self) -> float:
+        return float(np.sum(self.values))
+
+    def percentiles(self, qs=_PERCENTILES) -> dict[str, float]:
+        return {f"p{q}": float(v)
+                for q, v in zip(qs, np.percentile(self.values, qs))}
 
 
 class ServeMetrics:
     """Engine-side collector; one instance per `ServeEngine`."""
 
     def __init__(self):
-        self.ttft = LatencyLog()
-        self.itl = LatencyLog()
+        self.ttft = latency_histogram()
+        self.itl = latency_histogram()
+        self.queue_wait = latency_histogram()
         self.prefill = LatencyLog()
         self.decode_block = LatencyLog()
         self.occupancy: list[float] = []
@@ -60,8 +105,24 @@ class ServeMetrics:
         self.requests_rejected = 0
         self.finish_reasons: dict[str, int] = {}
         self.steps = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_cached_tokens = 0
+        self.prefix_evictions = 0
+        self.prefix_bytes_held = 0
+        self.preemptions = 0
+        self.recompute_tokens = 0
         self._t_first: float | None = None
         self._t_last: float | None = None
+        # zero-argument {metric: float} providers merged into every
+        # snapshot (the paged pool's gauges), registered only when the
+        # feature is on, so their keys are present iff it is
+        self._gauge_providers: list = []
+
+    def add_gauge_provider(self, provider) -> None:
+        """Attach a zero-arg callable returning {metric_name: float}; its
+        keys ride every `snapshot()`."""
+        self._gauge_providers.append(provider)
 
     def _touch(self, now: float) -> None:
         if self._t_first is None:
@@ -77,15 +138,19 @@ class ServeMetrics:
     def record_reject(self) -> None:
         self.requests_rejected += 1
 
-    def record_admit(self, now: float) -> None:
+    def record_admit(self, req, now: float) -> None:
         self._touch(now)
+        self.queue_wait.add(now - req.submit_time)
 
-    def record_first_token(self, req, now: float) -> None:
+    def record_first_token(self, req, now: float,
+                           prefilled: int | None = None) -> None:
+        """`prefilled` is the prompt tokens the engine ran prefill over
+        (the uncovered suffix after a prefix hit); default the prompt."""
         self._touch(now)
         self.ttft.add(now - req.submit_time)
         self.prefill.add(now - req.admit_time)
         self.tokens_out += 1
-        self.prefill_tokens += len(req.prompt)
+        self.prefill_tokens += len(req.prompt) if prefilled is None else prefilled
 
     def record_tokens(self, n: int, span_s: float, now: float) -> None:
         """`n` tokens of one request emitted over `span_s` seconds."""
@@ -107,8 +172,33 @@ class ServeMetrics:
         self.steps += 1
         self.occupancy.append(occupancy)
 
+    def record_prefix_lookup(self, matched_tokens: int) -> None:
+        """One admission-time radix match; `matched_tokens` prompt tokens
+        came from the cache instead of prefill (0 = miss)."""
+        self.prefix_lookups += 1
+        if matched_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_cached_tokens += matched_tokens
+
+    def record_prefix_state(self, bytes_held: int, evictions: int) -> None:
+        """Latest radix-tree gauges (bytes held, cumulative evictions)."""
+        self.prefix_bytes_held = bytes_held
+        self.prefix_evictions = evictions
+
+    def record_preemption(self) -> None:
+        """A paged-pool request lost its slot to page exhaustion (it
+        recomputes on re-admission)."""
+        self.preemptions += 1
+
+    def record_recompute_tokens(self, n: int) -> None:
+        """Prompt + stream tokens re-prefilled by a preempted request's
+        resume: the compute cost of preemption by recompute."""
+        self.recompute_tokens += n
+        self.prefill_tokens += n
+
     def _latencies(self):
         return (("ttft_s", self.ttft), ("itl_s", self.itl),
+                ("queue_wait_s", self.queue_wait),
                 ("prefill_s", self.prefill),
                 ("decode_block_s", self.decode_block))
 
@@ -123,6 +213,17 @@ class ServeMetrics:
         }
         for reason in sorted(self.finish_reasons):
             out[f"serve/finish_{reason}"] = float(self.finish_reasons[reason])
+        if self.prefix_lookups:
+            out["serve/prefix_lookups"] = float(self.prefix_lookups)
+            out["serve/prefix_hits"] = float(self.prefix_hits)
+            out["serve/prefix_hit_rate"] = self.prefix_hits / self.prefix_lookups
+            out["serve/prefix_cached_tokens"] = float(self.prefix_cached_tokens)
+            out["serve/tokens_prefilled_saved"] = float(self.prefix_cached_tokens)
+            out["serve/prefix_evictions"] = float(self.prefix_evictions)
+            out["serve/prefix_hbm_bytes"] = float(self.prefix_bytes_held)
+        if self.preemptions:
+            out["serve/preemptions"] = float(self.preemptions)
+            out["serve/recompute_tokens"] = float(self.recompute_tokens)
         if self.elapsed_s > 0:
             out["serve/tokens_per_sec"] = self.tokens_out / self.elapsed_s
         if self.occupancy:
@@ -130,10 +231,12 @@ class ServeMetrics:
         for name, log in self._latencies():
             if len(log):
                 out[f"serve/{name}_mean"] = log.mean()
-                out[f"serve/{name}_sum"] = float(np.sum(log.values))
+                out[f"serve/{name}_sum"] = float(log.sum)
                 out[f"serve/{name}_count"] = float(len(log))
-                for k, v in log.percentiles().items():
+                for k, v in log.percentiles(_PERCENTILES).items():
                     out[f"serve/{name}_{k}"] = v
+        for provider in self._gauge_providers:
+            out.update(provider())
         return out
 
 

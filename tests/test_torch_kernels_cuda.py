@@ -16,8 +16,9 @@ the dropout apply kernel's outputs (forward and backward) the plain
 dropout's, bit for bit, at its timed shapes, ragged sizes and unaligned
 bases, and at every bf16 input and every float32 sign and significand
 (at a sweep of divisors) against IEEE division. float32 head dims 16
-and 32 and the bf16 forward at scales <= 0 (through `positive_scale`)
-are held to the same limits.
+and 32, the bf16 forward at scales <= 0 (through `positive_scale`) and
+the forward over a lane gathered from a page pool (the paged engine's
+prefill) are held to the same limits.
 """
 
 import importlib
@@ -115,6 +116,46 @@ def test_flash_bf16_kernel_reads_a_cache_slice_in_place(cuda_device):
                                              causal=True)
     assert (o.float() - ro).abs().max().item() <= 2e-2
     assert (lse - rlse).abs().max().item() <= 1e-3
+    o2, lse2 = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,page,sq,skv", [(torch.bfloat16, 128, 512, 1536),
+                                              (torch.bfloat16, 64, 128, 1088),
+                                              (torch.float32, 64, 128, 704)])
+def test_flash_kernel_reads_a_gathered_lane_in_place(cuda_device, dtype, page,
+                                                    sq, skv):
+    """The paged engine's prefill: k and v are sequence slices of a lane
+    that `gather_lane` gathers from a physical page pool through a
+    shuffled page table (a suffix after a prefix hit: Sq < Skv, Skv no
+    multiple of 128 at pages of 64). The kernel reads the slice without a
+    copy, within the plain version's limits, two calls bit-identical."""
+    from solvingpapers_tpu_torch.infer import KVCache
+    from solvingpapers_tpu_torch.serve import gather_lane
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    ppl = 4096 // page
+    phys = [KVCache(*(torch.randn(ppl + 1, page, 8, 64, generator=g,
+                                  device=cuda_device).to(dtype)
+                      for _ in range(2)))]
+    row = torch.randperm(ppl, generator=g, device=cuda_device) + 1
+    lane = gather_lane(phys, row)[0]
+    k, v = lane.k[:, :skv], lane.v[:, :skv]
+    q = torch.randn(1, sq, 16, 64, generator=g, device=cuda_device).to(dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    allocated = torch.cuda.memory_allocated(cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    outputs = o.numel() * o.element_size() + lse.numel() * 4
+    assert (torch.cuda.max_memory_allocated(cuda_device) - allocated - outputs
+            < k.numel() * k.element_size())
+    ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=True)
+    tol = (2e-2, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    assert (o.float() - ro).abs().max().item() <= tol[0]
+    assert (lse - rlse).abs().max().item() <= tol[1]
     o2, lse2 = tfa.flash_attention_fwd(q, k, v, causal=True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 

@@ -1,4 +1,4 @@
-"""The port's lane-pool serving engine vs one-shot generation.
+"""The port's serving engine (lane and paged pools) vs one-shot generation.
 
 The contract, as for the JAX package's engine: iteration-level
 scheduling over a slot pool is invisible in the tokens. Every greedy
@@ -66,10 +66,16 @@ def _port_stream(tm, prompt, max_new, eos_id=None):
     return gen
 
 
+_JAX_STREAMS = {}
+
+
 def _jax_stream(jm, params, prompt, max_new):
-    out = jgenerate(jm, params, jnp.asarray(prompt, jnp.int32)[None],
-                    jax.random.key(0), max_new_tokens=max_new)
-    return np.asarray(out[0, len(prompt):]).tolist()
+    key = (prompt.tobytes(), max_new)  # one model per module: memoized
+    if key not in _JAX_STREAMS:
+        out = jgenerate(jm, params, jnp.asarray(prompt, jnp.int32)[None],
+                        jax.random.key(0), max_new_tokens=max_new)
+        _JAX_STREAMS[key] = np.asarray(out[0, len(prompt):]).tolist()
+    return _JAX_STREAMS[key]
 
 
 def _engine(tm, **kw):
@@ -79,13 +85,15 @@ def _engine(tm, **kw):
     return ServeEngine(tm, ServeConfig(**cfg), device="cpu")
 
 
-def test_staggered_requests_match_jax_and_port_generate(pair):
+@pytest.mark.parametrize("paged", [False, True], ids=["lane", "paged"])
+def test_staggered_requests_match_jax_and_port_generate(pair, paged):
     """3 slots, 6 requests in two staggered waves, bucketed to 8 and
     prefilled in chunks of 8 (so the last real token's logits often sit
     in a non-final chunk): every greedy stream is token-exact vs the JAX
-    package's `generate` on the same weights and vs the port's."""
+    package's `generate` on the same weights and vs the port's, on the
+    lane pool and on the paged pool (pages of 8)."""
     jm, params, tm = pair
-    eng = _engine(tm)
+    eng = _engine(tm, **(dict(paged=True, page_size=8) if paged else {}))
     prompts = _prompts(6, seed=1)
     handles = [eng.submit(p, max_new_tokens=NEW) for p in prompts[:3]]
     for _ in range(2):  # the first wave is mid-flight when the second comes
@@ -104,8 +112,10 @@ def test_staggered_requests_match_jax_and_port_generate(pair):
     assert snap["serve/tokens_prefilled"] == sum(len(p) for p in prompts)
     assert 0 < snap["serve/slot_occupancy"] <= 1
     assert snap["serve/finish_length"] == 6
-    assert eng.metrics.ttft.values and eng.metrics.itl.values
+    assert len(eng.metrics.ttft) == 6 and len(eng.metrics.itl) == 6 * (NEW - 1)
     assert eng.pool.n_active == 0 and eng.pool.n_free == 3
+    if paged:
+        assert snap["serve/pages_free"] == eng.pool.page_budget
 
 
 def test_port_generate_chunking_is_invisible(pair):

@@ -11,6 +11,10 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--greedy] [--seed 0]
     cli eval   --config gpt_shakespeare [--checkpoint-dir ckpts]
     cli export --config gpt_shakespeare --checkpoint-dir ckpts --out w.pt
+    cli serve  --config dsv3_long [--port 8000] [--host 127.0.0.1]
+               [--checkpoint-dir ckpts] [--slots 8] [--max-len N]
+               [--decode-block 8] [--bucket 32] [--sample-cap 64]
+               [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
 
 Every command runs on ``--device cuda`` (the default; it raises when
 there is no card) or ``--device cpu``; the reference's `--platform` and
@@ -26,10 +30,19 @@ checkpoint's model state: the parameters and the buffers a model needs
 to reproduce its outputs (DeepSeek-V3's routing biases), where the
 reference exports the parameters alone.
 
-Not ported, refused with their ROADMAP items: `serve` (A3.4), `replay`
-and `trace-summary` (A4), `serve-bench`, `kernel-bench` and `sample
---speculative` (A5); image, KD and Gemma configs (A6) and pipeline ones
-(A7) are not registered.
+`serve` answers the OpenAI-compatible HTTP surface (`serve/api.py`)
+from one `ServeEngine`; the model comes from `_serve_model`: the run's
+tokenizer (a BPE config trains its byte BPE through the native library
+at startup), weights from `--checkpoint-dir` or random from `--seed`,
+and a token table over the full vocab. SIGINT / SIGTERM shut it down in
+order: drain streams, close the engine, stop the HTTP threads.
+
+Not ported, refused with their ROADMAP items: `replay` and
+`trace-summary` (A4), `serve-bench`, `kernel-bench` and `sample
+--speculative` (A5), and the `serve` flags of the journal, fleet,
+tracing, SLO and fault ladders (A4) and of the quantized pool and
+speculative decoding (A5); image, KD and Gemma configs (A6) and pipeline
+ones (A7) are not registered.
 """
 
 from __future__ import annotations
@@ -46,7 +59,6 @@ import torch
 # the reference's commands the port refuses, with the ROADMAP item that
 # brings each
 UNPORTED = {
-    "serve": "A3.4 (the HTTP front door)",
     "replay": "A4 (serve/replay.py)",
     "trace-summary": "A4 (metrics/trace.py)",
     "serve-bench": "A5 (serve/bench.py)",
@@ -200,6 +212,150 @@ def _prompt_ids(args, tok, limit) -> np.ndarray | None:
     return ids
 
 
+def _serve_model(args, device):
+    """Build the serving model as `cli serve` does: the run of `--config`
+    as its dense twin with its tokenizer (a BPE config trains its byte
+    BPE at startup, through the native library), weights from
+    `--checkpoint-dir` or random from `--seed`, in eval mode, and a token
+    table over the FULL model vocab (the tokenizer's ids decode as
+    themselves, spare ids become missing JSON structural characters, so
+    json_object mode is expressible). Returns (cfg, model, tok, table,
+    encode, decode, info) — info holds the tokenizer's facts — or an int
+    exit code."""
+    import time
+
+    from solvingpapers_tpu_torch.checkpoint import restore_for_inference
+    from solvingpapers_tpu_torch.configs.factory import build_char_lm_run
+    from solvingpapers_tpu_torch.data import ByteBPETokenizer
+    from solvingpapers_tpu_torch.models import init_params_for
+    from solvingpapers_tpu_torch.serve.openai import extend_token_table
+
+    t0 = time.perf_counter()
+    cfg, model, tok, _, _ = build_char_lm_run(_config(args), device=device,
+                                              param_dtype=None)
+    info = {"tokenizer": type(tok).__name__, "vocab": int(tok.vocab_size),
+            "data_s": time.perf_counter() - t0}
+    if isinstance(tok, ByteBPETokenizer):
+        info.update(trained_native=tok.trained_native,
+                    encodes_native=tok.encodes_native,
+                    train_s=tok.train_seconds)
+    model.eval()
+    if args.checkpoint_dir:
+        if restore_for_inference(model, args.checkpoint_dir) is None:
+            print(f"no checkpoint found in {args.checkpoint_dir}",
+                  file=sys.stderr)
+            return 1
+    else:
+        print("[serve] no --checkpoint-dir: serving RANDOM-INIT params from "
+              f"--seed {args.seed} (an endpoint and latency demo, not a "
+              "language model)", file=sys.stderr)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model.load_state_dict(init_params_for(cfg.model)(cfg.model, gen))
+    vocab = cfg.model.vocab_size
+    table = []
+    for i in range(vocab):
+        try:
+            table.append(tok.decode([i]))
+        except (KeyError, IndexError):
+            table.append(None)
+    table = extend_token_table(table, vocab)
+    if isinstance(tok, ByteBPETokenizer):
+        def encode(s: str):
+            return [int(i) for i in tok.encode(s)]
+    else:
+        stoi = {}
+        for i, t in enumerate(table):
+            if t is not None and len(t) == 1 and t not in stoi:
+                stoi[t] = i
+
+        def encode(s: str):
+            return [stoi[c] for c in s]
+
+    def decode(ids):
+        return "".join(table[int(i)] or "" for i in ids)
+
+    return cfg, model, tok, table, encode, decode, info
+
+
+def _serve_config(args, model):
+    """The `ServeConfig` of `cli serve`'s flags for `model` (max_len
+    defaults to min(512, the model's max positions))."""
+    from solvingpapers_tpu_torch.serve import ServeConfig
+
+    limit = getattr(model, "max_positions", None) or 512
+    max_len = args.max_len or min(512, limit)
+    return ServeConfig(
+        n_slots=args.slots, max_len=max_len, decode_block=args.decode_block,
+        bucket=min(args.bucket, max_len), sample_cap=args.sample_cap,
+        paged=args.paged, api_port=args.port, api_host=args.host,
+        api_max_connections=args.max_connections,
+        json_mode=not args.no_json_mode,
+        drain_timeout_s=args.drain_timeout, max_waiting=args.max_waiting)
+
+
+# `serve` flags of the reference that the port refuses, with their items
+SERVE_UNPORTED = {
+    "--kv-quant": "A5 (the quantized KV pool)",
+    "--kv-quant-block": "A5 (the quantized KV pool)",
+    "--kv-exact-lanes": "A5 (the quantized KV pool)",
+    "--speculative": "A5 (speculative decoding)",
+    "--spec-k": "A5 (speculative decoding)",
+    "--spec-rounds": "A5 (speculative decoding)",
+    "--slo": "A4 (SLO accounting)",
+    "--degrade": "A4 (the degradation ladder)",
+    "--step-deadline": "A4 (the step watchdog)",
+    "--journal": "A4 (the request journal)",
+    "--journal-strict": "A4 (the request journal)",
+    "--replicas": "A4 (fleet routing)",
+    "--trace": "A4 (request tracing)",
+    "--trace-out": "A4 (request tracing)",
+    "--timeseries-interval": "A4 (the time-series store)",
+    "--timeseries-capacity": "A4 (the time-series store)",
+}
+
+
+def cmd_serve(args) -> int:
+    """Serve a model over the OpenAI-compatible HTTP front door
+    (`serve/api.py`): POST /v1/completions and /v1/chat/completions (SSE
+    streaming, json_object mode) and GET /v1/models /healthz /metrics
+    /statusz on one port, printed to stderr. SIGINT / SIGTERM shut down
+    in order: drain active streams, close the engine, stop the HTTP
+    threads."""
+    import signal
+    import threading
+
+    from solvingpapers_tpu_torch.serve import ApiServer, ServeEngine
+
+    device = _device(args)
+    built = _serve_model(args, device)
+    if isinstance(built, int):
+        return built
+    cfg, model, _, table, encode, decode, info = built
+    print("[serve] tokenizer " + json.dumps(info), file=sys.stderr, flush=True)
+    engine = ServeEngine(model, _serve_config(args, model), device=device,
+                         detokenize=decode)
+    server = ApiServer(engine, encode=encode, decode=decode, token_table=table,
+                       model_name=args.config)
+    print(f"[serve] {args.config} on http://{server.host}:{server.port} — "
+          "POST /v1/completions /v1/chat/completions, GET /v1/models "
+          "/healthz /metrics /statusz", file=sys.stderr, flush=True)
+    stop = threading.Event()
+
+    def _sig(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, _sig)
+    signal.signal(signal.SIGTERM, _sig)
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        print("[serve] shutting down: draining streams, closing engine",
+              file=sys.stderr, flush=True)
+        server.close()
+    return 0
+
+
 def cmd_sample(args) -> int:
     from solvingpapers_tpu_torch.checkpoint import restore_for_inference
     from solvingpapers_tpu_torch.configs.factory import build_char_lm_run
@@ -279,14 +435,9 @@ def cmd_export(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    prog = "solvingpapers_tpu_torch"
-    if argv and argv[0] in UNPORTED:  # whatever flags follow
-        print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
-              f"{UNPORTED[argv[0]]})", file=sys.stderr)
-        return 2
-    parser = argparse.ArgumentParser(prog=prog)
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser (every command and its flags)."""
+    parser = argparse.ArgumentParser(prog="solvingpapers_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("list")
@@ -322,12 +473,59 @@ def main(argv=None) -> int:
     _add_common(p_export)
     p_export.add_argument("--out", required=True)
 
+    p_srv = sub.add_parser("serve")
+    _add_common(p_srv)
+    p_srv.add_argument("--port", type=int, default=8000,
+                       help="API port (0 = ephemeral, printed to stderr)")
+    p_srv.add_argument("--host", default="127.0.0.1",
+                       help="bind address (loopback by default — front "
+                            "with a real proxy to expose it)")
+    p_srv.add_argument("--slots", type=int, default=8)
+    p_srv.add_argument("--max-len", type=int, default=None,
+                       help="engine sequence capacity (default: min(512, "
+                            "model max positions))")
+    p_srv.add_argument("--decode-block", type=int, default=8)
+    p_srv.add_argument("--bucket", type=int, default=32)
+    p_srv.add_argument("--sample-cap", type=int, default=64)
+    p_srv.add_argument("--max-waiting", type=int, default=256)
+    p_srv.add_argument("--paged", action="store_true",
+                       help="serve over the paged KV pool")
+    p_srv.add_argument("--no-json-mode", action="store_true",
+                       help="reject response_format json_object instead of "
+                            "grammar-constraining the decode")
+    p_srv.add_argument("--max-connections", type=int, default=64,
+                       help="concurrent streams before a new one gets 503")
+    p_srv.add_argument("--drain-timeout", type=float, default=10.0,
+                       help="seconds shutdown waits for active streams "
+                            "before it cancels them")
+    p_srv.add_argument("--seed", type=int, default=0,
+                       help="random weights from this seed when no "
+                            "--checkpoint-dir is given")
+
     for name in UNPORTED:
         sub.add_parser(name, help=f"not ported (ROADMAP {UNPORTED[name]})")
 
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    prog = "solvingpapers_tpu_torch"
+    if argv and argv[0] in UNPORTED:  # whatever flags follow
+        print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
+              f"{UNPORTED[argv[0]]})", file=sys.stderr)
+        return 2
+    if argv and argv[0] == "serve":
+        for arg in argv[1:]:
+            flag = arg.split("=", 1)[0]
+            if flag in SERVE_UNPORTED:
+                print(f"{prog} serve {flag}: not ported yet (ROADMAP "
+                      f"{SERVE_UNPORTED[flag]})", file=sys.stderr)
+                return 2
+    parser = build_parser()
     args = parser.parse_args(argv)
     run = {"list": cmd_list, "train": cmd_train, "sample": cmd_sample,
-           "eval": cmd_eval, "export": cmd_export}[args.cmd]
+           "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve}[args.cmd]
     try:
         return run(args)
     except (Refused, NotImplementedError) as e:

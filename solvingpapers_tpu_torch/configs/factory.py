@@ -3,10 +3,11 @@ GPT, LLaMA-3 and DeepSeek-V3 language-model part of
 `solvingpapers_tpu/configs/factory.py`).
 
 Corpora: a pre-tokenized token file (`data.kind == "tokens"`, with a
-`.meta` sidecar), the Markov corpus (`source: "markov"`) and the char
-corpus (`kind: "char"`: a local text file, else synthetic prose), the last
-two with a char vocab the model is resized to. BPE corpora need the BPE
-tokenizer (ROADMAP A3) and raise.
+`.meta` sidecar), a byte-level BPE corpus (`kind: "bpe"`: a local text
+file, else synthetic prose, with a BPE trained on it through the native
+library or loaded from GPT-2-format tables), the Markov corpus (`source:
+"markov"`) and the char corpus (`kind: "char"`); all but the token file
+resize the model's vocab to their tokenizer's.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import torch
 
 from solvingpapers_tpu_torch.configs.registry import RunConfig
 from solvingpapers_tpu_torch.data import (
+    ByteBPETokenizer,
     CharTokenizer,
     lm_batch_iterator,
     load_char_corpus,
+    load_text,
     load_token_file,
     markov_text,
     prefetch_batches,
@@ -90,11 +93,19 @@ def build_char_lm_run(cfg: RunConfig, device=None,
     `models.layers`)."""
     data = cfg.data
     if data.get("kind") == "bpe":
-        raise NotImplementedError(
-            "data kind 'bpe' is not ported yet: the BPE tokenizer comes with "
-            "ROADMAP A3; the port trains from token files (kind 'tokens') and "
-            "the char and Markov corpora")
-    if data.get("kind") == "tokens":
+        # a byte-level BPE trained on the corpus (the offline stand-in for
+        # the reference's tiktoken / HF GPT-2 tables), or GPT-2-format
+        # tables from data["vocab_path"] / data["merges_path"]; the
+        # synthetic corpus is sized so a long block still fits after BPE
+        text = load_text(data.get("path"),
+                         synthetic_chars=data.get("synthetic_chars", 200_000))
+        if data.get("vocab_path") and data.get("merges_path"):
+            tok = ByteBPETokenizer.from_files(data["vocab_path"],
+                                              data["merges_path"])
+        else:
+            tok = ByteBPETokenizer.train(text, data.get("bpe_vocab_size", 1024))
+        train_toks, val_toks = split_train_val(tok.encode(text))
+    elif data.get("kind") == "tokens":
         path = data["path"]
         toks = load_token_file(path)
         max_id = token_file_max_id(path, toks)
@@ -115,7 +126,7 @@ def build_char_lm_run(cfg: RunConfig, device=None,
     else:
         raise ValueError(f"unknown data kind {data.get('kind')!r}")
     block = data.get("block_size", 256)
-    # the char vocab comes from the corpus; resize the model to match
+    # the vocab comes from the corpus's tokenizer; resize the model to match
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model,
                                        vocab_size=max(tok.vocab_size, 2)))

@@ -1,7 +1,7 @@
 """Data pipelines (port of `solvingpapers_tpu/data`: the LM batch
-streams, the token files, the char tokenizer and corpus, and the
-synthetic text corpora). The BPE tokenizer and the image sources come
-with later slices."""
+streams, the token files, the char and byte-level BPE tokenizers, the
+corpora, and the synthetic text corpora). The image sources come with a
+later slice."""
 
 from solvingpapers_tpu_torch.data.batches import (
     lm_batch_iterator,
@@ -9,6 +9,7 @@ from solvingpapers_tpu_torch.data.batches import (
     random_crop_batch,
     sliding_window_split,
 )
+from solvingpapers_tpu_torch.data.bpe import ByteBPETokenizer, gpt2_tokenizer
 from solvingpapers_tpu_torch.data.char import (
     CharTokenizer,
     load_char_corpus,
@@ -28,8 +29,10 @@ from solvingpapers_tpu_torch.data.tokens import (
 )
 
 __all__ = [
+    "ByteBPETokenizer",
     "CharTokenizer",
     "MarkovSource",
+    "gpt2_tokenizer",
     "lm_batch_iterator",
     "load_char_corpus",
     "load_text",

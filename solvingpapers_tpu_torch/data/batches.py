@@ -5,7 +5,7 @@ Two strategies, one implementation each:
   * random-crop batches — memory-mapped token files crop host-side from
     ``numpy.random.default_rng(seed)`` exactly as the reference does (the
     same starts, the same int32 windows: a run reads the same batches in
-    both packages); in-memory corpora crop with index arithmetic from a
+    both packages), through the native gather; in-memory corpora crop with index arithmetic from a
     `torch.Generator` (a different stream than JAX's key, the same
     distribution);
   * sliding-window split (deepseekv3's `CausalDataset`).
@@ -28,14 +28,19 @@ def random_crop_batch(tokens: torch.Tensor, starts: torch.Tensor,
 
 
 def lm_batch_iterator(tokens, batch_size: int, block_size: int, seed: int = 0,
-                      *, generator: torch.Generator | None = None):
+                      *, generator: torch.Generator | None = None,
+                      native: bool | None = None):
     """Infinite iterator of {'x', 'y'} int32 LM batches of (batch_size,
     block_size), as CPU tensors (the trainer moves them to its device).
 
-    A `np.memmap` corpus crops host-side, bit-exact with the reference's
-    numpy path. Any other corpus is cropped by index arithmetic with
-    starts drawn from `generator` (default: a CPU one seeded with
-    `seed`).
+    A `np.memmap` corpus crops host-side at the reference's starts, bit-
+    exact with its numpy path: through the native library's parallel
+    gather (`native.gather_windows_native`, which releases the GIL, so it
+    overlaps the device step under `prefetch_batches`) unless `native`
+    is False or ``SOLVINGPAPERS_TPU_TORCH_NO_NATIVE`` is set, then the
+    numpy crop (the plain version). Any other corpus is cropped by index
+    arithmetic with starts drawn from `generator` (default: a CPU one
+    seeded with `seed`).
     """
     if len(tokens) < block_size + 2:
         raise ValueError(
@@ -44,13 +49,20 @@ def lm_batch_iterator(tokens, batch_size: int, block_size: int, seed: int = 0,
         )
     max_start = len(tokens) - block_size - 1
     if isinstance(tokens, np.memmap):
+        from solvingpapers_tpu_torch import native as native_lib
+
+        fast = native_lib.use_native(native)
         rng = np.random.default_rng(seed)
         while True:
             starts = rng.integers(0, max_start, size=batch_size)
-            x = np.stack([tokens[s:s + block_size] for s in starts]
-                         ).astype(np.int32)
-            y = np.stack([tokens[s + 1:s + block_size + 1] for s in starts]
-                         ).astype(np.int32)
+            if fast:
+                x, y = native_lib.gather_windows_native(tokens, starts,
+                                                        block_size)
+            else:
+                x = np.stack([tokens[s:s + block_size] for s in starts]
+                             ).astype(np.int32)
+                y = np.stack([tokens[s + 1:s + block_size + 1]
+                              for s in starts]).astype(np.int32)
             yield {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
 
     toks = torch.as_tensor(np.asarray(tokens, np.int32))

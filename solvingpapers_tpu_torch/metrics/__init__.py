@@ -1,6 +1,7 @@
 """Metrics (port of `solvingpapers_tpu/metrics`: the writer sinks and MFU
 accounting the training loop uses, the text sample artifact, and the
-log-bucketed latency histogram the serving metrics record into)."""
+log-bucketed latency histogram the serving metrics record into, the
+Prometheus exposition, and the live /healthz /metrics /statusz server)."""
 
 from solvingpapers_tpu_torch.metrics.hist import LogHistogram
 from solvingpapers_tpu_torch.metrics.mfu import (
@@ -15,6 +16,7 @@ from solvingpapers_tpu_torch.metrics.writer import (
     JSONLWriter,
     MetricsWriter,
     MultiWriter,
+    PrometheusTextWriter,
 )
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
     "LogHistogram",
     "MetricsWriter",
     "MultiWriter",
+    "PrometheusTextWriter",
     "active_param_count",
     "chip_peak_flops",
     "mfu",

@@ -18,6 +18,7 @@ from solvingpapers_tpu_torch.ops.rope import (
     sinusoidal_position_encoding,
 )
 from solvingpapers_tpu_torch.ops.sampling import (
+    allowed_logits,
     min_p_mask,
     sample_greedy,
     sample_top_k,
@@ -27,6 +28,7 @@ from solvingpapers_tpu_torch.ops.sampling import (
 
 __all__ = [
     "BIG_NEG",
+    "allowed_logits",
     "apply_rope",
     "causal_mask",
     "cross_entropy",

@@ -56,6 +56,22 @@ def min_p_mask(logits: torch.Tensor, min_p) -> torch.Tensor:
                        torch.full_like(logits, -torch.inf))
 
 
+def allowed_logits(logits: torch.Tensor, allow: torch.Tensor):
+    """Gather `logits` at the `allow` token ids; -1 pads gather index 0
+    but land at -inf, so padded entries are never chosen.
+
+    `allow` is (..., A) integer token ids with -1 padding — the serving
+    engine's grammar-constrained allow-list (`serve/grammar.py`).
+    Returns ``(vals, idx)``: the gathered (-inf-padded) logit row over
+    the allowed support and the (clamped) gather ids — the (values,
+    indices) shape `torch.topk` gives, so `serve.sampling.fused_sample`
+    swaps one for the other per row and every truncation mask applies
+    unchanged."""
+    idx = allow.clamp(0, logits.shape[-1] - 1).long()
+    vals = torch.gather(logits, -1, idx)
+    return torch.where(allow >= 0, vals, torch.full_like(vals, -torch.inf)), idx
+
+
 def sample_greedy(logits: torch.Tensor, generator=None) -> torch.Tensor:
     """Argmax over the last axis; the FIRST maximal index wins, as with
     `jnp.argmax`. `generator` is accepted (ignored) for API uniformity."""

@@ -1,7 +1,11 @@
 """Continuous-batching serving over a lane pool or a paged pool, with a
-radix prefix cache (port of `solvingpapers_tpu/serve`)."""
+radix prefix cache, per-request sampling, grammar-constrained JSON
+decoding (JsonStepper) and an OpenAI-compatible HTTP front door
+(ApiServer) (port of `solvingpapers_tpu/serve`)."""
 
+from solvingpapers_tpu_torch.serve.api import ApiServer, EngineLoop
 from solvingpapers_tpu_torch.serve.engine import ServeConfig, ServeEngine
+from solvingpapers_tpu_torch.serve.grammar import JsonStepper
 from solvingpapers_tpu_torch.serve.kv_pool import (
     TRASH_PAGE,
     KVSlotPool,
@@ -25,7 +29,10 @@ from solvingpapers_tpu_torch.serve.scheduler import FIFOScheduler, Request
 
 __all__ = [
     "TRASH_PAGE",
+    "ApiServer",
+    "EngineLoop",
     "FIFOScheduler",
+    "JsonStepper",
     "KVSlotPool",
     "PackedSampling",
     "PagedKVPool",

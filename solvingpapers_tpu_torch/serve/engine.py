@@ -59,9 +59,23 @@ page table (no copy) on the paged pool — and prefills only the
 uncovered suffix from that position, end-aligned as before. Greedy
 streams are token-exact with the cache on or off.
 
+Per-request contracts (the HTTP front door, `serve/api.py`, maps onto
+them): a grammar (`serve/grammar.py`, JSON mode) restricts each draw to
+the stepper's allowed ids through the sampler's allow-list, which rides
+the call's one control transfer; a constrained slot accepts only the
+first token of a decode block (the list is stale after one advance; the
+tail is discarded like post-EOS overshoot), while unconstrained slots in
+the same block are unchanged. Stop token ids and stop strings are
+matched on the host, across block boundaries; the matching token is
+kept and the finish reason is "stop". `logprobs` requests get the chosen
+token's log-softmax under the raw logits per token. Deadlines expire in
+the queue and at block boundaries ("timeout"). `stream_cb(req, n_new,
+finished)` fires on the engine's thread after every append and at
+finish.
+
 Not in this slice (kept by the reference, listed in ROADMAP.md): the
-quantized pools, speculative decoding, grammar, stop strings, logprobs,
-deadlines, the fault boundary, journal, tracing and the HTTP front door.
+quantized pools, speculative decoding, the fault boundary, journal,
+replay, fleet, SLO accounting and tracing.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ import torch
 
 from solvingpapers_tpu_torch.device import resolve_device
 from solvingpapers_tpu_torch.serve import metrics as smetrics
+from solvingpapers_tpu_torch.serve.grammar import encode_allow
 from solvingpapers_tpu_torch.serve.kv_pool import (
     KVSlotPool,
     PagedKVPool,
@@ -128,6 +143,17 @@ class ServeConfig:
     tree may hold (LRU leaf eviction; pinned nodes never go);
     `prefix_sched` admits waiting requests shortest uncovered suffix
     first (the wait budget still overrides).
+
+    HTTP front door (`serve/api.py`, started by `cli serve` or
+    `ApiServer`, never by the engine; `cli serve` sets each of these by
+    a flag): `api_port` (0 = ephemeral, published as `ApiServer.port`)
+    and `api_host` (loopback by default) bind its listener;
+    `api_max_connections` concurrent streams before it answers 503
+    (ahead of the bounded waiting queue, which 503s the overflow after
+    it); `json_mode` accepts `response_format {"type": "json_object"}`
+    (grammar-constrained slots advance one token per decode block);
+    `drain_timeout_s` bounds `ApiServer.close`'s wait for active streams
+    before it cancels them.
     """
 
     n_slots: int = 8
@@ -149,6 +175,11 @@ class ServeConfig:
     prefix_page: int = 16
     prefix_cache_bytes: int = 64 << 20
     prefix_sched: bool = False
+    api_port: int | None = None
+    api_host: str = "127.0.0.1"
+    api_max_connections: int = 64
+    json_mode: bool = True
+    drain_timeout_s: float = 10.0
 
 
 _UNSET = object()
@@ -172,24 +203,28 @@ def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
 
 
 def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
-                     length, packed, generator):
+                     length, packed, generator, allow=None, need_lp=False):
     """Prefill one request into lane `slot` and sample its first token
-    (sample index 0 of its chain).
+    (sample index 0 of its chain); returns the caches, the token and its
+    logprob (None without `need_lp`).
 
     `start` is the prefix-cache match length: `prompt` is the UNCOVERED
     SUFFIX ((padded,) ids), lane positions [0, start) already hold the
     spliced prefix, and positions and `attend_len` shift by `start` (0
-    is a full prefill)."""
+    is a full prefill). `allow` is the request's (1, cap) grammar
+    allow-list for the first token, or None."""
     lane = extract_lane(caches, slot)
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
-    first = fused_sample(last[None], packed, [generator], cap=cap)
+    first, lp = fused_sample(last[None], packed, [generator], cap=cap,
+                             allow=allow, need_lp=need_lp)
     caches = store_lane(caches, lane, slot)
-    return caches, first[0]
+    return caches, first[0], None if lp is None else lp[0]
 
 
 def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
-                           row, length, packed, generator):
+                           row, length, packed, generator, allow=None,
+                           need_lp=False):
     """Paged-pool prefill: `_prefill_program`'s contract over a lane
     GATHERED from the slot's page-table `row`, with only the pages the
     prefill may have written going back. On a prefix hit pages [0,
@@ -199,10 +234,11 @@ def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
     lane = gather_lane(phys, row)
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
-    first = fused_sample(last[None], packed, [generator], cap=cap)
+    first, lp = fused_sample(last[None], packed, [generator], cap=cap,
+                             allow=allow, need_lp=need_lp)
     page = phys[0].max_len
     phys = scatter_lane_pages(phys, lane, row, start // page)
-    return phys, first[0]
+    return phys, first[0], None if lp is None else lp[0]
 
 
 def pooled_decode_kwargs(model) -> dict:
@@ -212,32 +248,37 @@ def pooled_decode_kwargs(model) -> dict:
 
 
 def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
-                    generators):
+                    generators, allow=None, need_lp=False):
     """Advance every slot `block` tokens; inactive slots run masked.
 
     toks/pos/eos are (S,) int64 and active (S,) bool device tensors;
     `generators(t)` gives step t's per-slot generators (None for greedy
-    slots). EOS padding is sticky: a slot whose previous token was its
-    EOS emits EOS again, as `generate` pads. Returns the caches and the
-    (block, S) emitted tokens.
+    slots); `allow` is the (S, cap) grammar allow-lists (all -1 =
+    unconstrained; None = no constrained slot), the same at every step
+    (a constrained slot keeps only the block's first token). EOS padding
+    is sticky: a slot whose previous token was its EOS emits EOS again,
+    as `generate` pads. Returns the caches, the (block, S) emitted tokens
+    and, with `need_lp`, their (block, S) logprobs (else None).
     """
-    out = []
+    out, lps = [], []
     kw = pooled_decode_kwargs(model)
     for t in range(block):
         logits, caches = model(toks[:, None], positions=pos[:, None],
                                caches=caches, **kw)
-        nxt = fused_sample(logits[:, 0], packed, generators(t), cap=cap)
+        nxt, lp = fused_sample(logits[:, 0], packed, generators(t), cap=cap,
+                               allow=allow, need_lp=need_lp)
         hit_eos = (eos >= 0) & (toks == eos)
         nxt = torch.where(hit_eos, eos, nxt)
         nxt = torch.where(active, nxt, toks)
         pos = torch.where(active, pos + 1, pos)
         out.append(nxt)
+        lps.append(lp)
         toks = nxt
-    return caches, torch.stack(out)
+    return caches, torch.stack(out), torch.stack(lps) if need_lp else None
 
 
 def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
-                          eos, packed, generators):
+                          eos, packed, generators, allow=None, need_lp=False):
     """Paged-pool decode block: `_decode_program` over the lanes gathered
     once from the (S, pages_per_lane) page `table`, then only each slot's
     write window goes back. The block writes positions [pos, pos +
@@ -249,14 +290,15 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
     overshoot past its allocation. A window clamped at the lane's end
     rewrites the last page with its own content."""
     lanes = gather_lanes(phys, table)
-    lanes, out = _decode_program(model, block, cap, lanes, toks, pos, active,
-                                 eos, packed, generators)
+    lanes, out, lps = _decode_program(model, block, cap, lanes, toks, pos,
+                                      active, eos, packed, generators, allow,
+                                      need_lp)
     page = phys[0].max_len
     limit = table.shape[1] * page - 1
     for w in range((block - 1) // page + 2):
         pos_w = torch.clamp(pos + w * page, 0, limit)
         phys = scatter_written_pages(phys, lanes, table, pos_w)
-    return phys, out
+    return phys, out, lps
 
 
 class ServeEngine:
@@ -269,11 +311,16 @@ class ServeEngine:
 
     The model carries its own parameters (the reference passes `params`
     beside a stateless module) and must live on `device` (default
-    ``cuda``; raises when there is none).
+    ``cuda``; raises when there is none). `detokenize` (token ids ->
+    text) is needed only by requests with stop STRINGS.
+
+    The engine is single-threaded: one thread calls `step()` (the HTTP
+    front door's `EngineLoop`), and other threads reach `submit` and
+    `cancel` through that loop's lock.
     """
 
     def __init__(self, model, config: ServeConfig | None = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, detokenize=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, the engine was "
@@ -297,6 +344,7 @@ class ServeEngine:
             )
         self.model = model
         self.config = cfg
+        self.detokenize = detokenize
         self.metrics = ServeMetrics()
         self._paged = cfg.paged
         if cfg.paged:
@@ -346,20 +394,46 @@ class ServeEngine:
         )
         self._top_k = np.zeros(cfg.n_slots, np.int64)
         self._seed = np.full(cfg.n_slots, -1, np.int64)
+        # grammar allow-lists, slot-major (-1 = unconstrained), refreshed
+        # from each constrained request's stepper before every call
+        self._allow = np.full((cfg.n_slots, cfg.sample_cap), -1, np.int64)
+        self._need_lp = np.zeros(cfg.n_slots, bool)
         self._rng_step = 0  # engine call counter: the unseeded chain's step word
+        self._step_idx = 0  # step() calls (the /metrics staleness rider)
         self._last_emit = np.zeros(cfg.n_slots)
+        # deadline-bearing requests in the waiting queue: step() scans the
+        # queue for expiries only while this is nonzero
+        self._waiting_deadlines = 0
 
     # ------------------------------------------------------------- submit
 
     def submit(self, prompt, max_new_tokens: int = 64, eos_id=_UNSET,
-               params: SamplingParams | None = None) -> Request:
+               params: SamplingParams | None = None,
+               deadline_s: float | None = None, grammar=None,
+               stream_cb=None) -> Request:
         """Enqueue one request; returns its live handle immediately.
+
+        `params` attaches per-request SamplingParams (default greedy;
+        ``params.max_tokens`` overrides `max_new_tokens`). `deadline_s`
+        is a relative deadline: a request still waiting or decoding
+        `deadline_s` seconds after submit finishes "timeout" at the next
+        iteration or block boundary. `grammar` constrains decoding (one
+        `serve.grammar.JsonStepper` per request — it is stateful): every
+        draw is restricted to its allowed ids and the stream finishes
+        ("stop") when the grammar accepts a complete document, so a
+        grammar request carries no EOS (the engine default is dropped;
+        an explicit `eos_id` raises). `stream_cb(request, n_new,
+        finished)` is called on the engine thread after every token
+        append and at finish.
 
         Bad inputs raise `ValueError` here, host-side: empty, non-integer
         or non-1-D prompts, ids outside the vocabulary (a CUDA embedding
         gather out of range kills the process), budgets < 1, top_k above
-        `sample_cap`, and prompt + budget beyond the engine capacity.
-        A full waiting queue returns the request ``rejected``.
+        `sample_cap`, prompt + budget beyond the engine capacity,
+        non-positive deadlines, stop strings without a `detokenize`
+        callable, a grammar alongside an explicit eos_id, and a budget
+        too small for the grammar's shortest complete document. A full
+        waiting queue returns the request ``rejected``.
         """
         arr = np.asarray(prompt)
         if arr.size < 1:
@@ -382,6 +456,14 @@ class ServeEngine:
             max_new_tokens = params.max_tokens
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if params.stop and self.detokenize is None:
+            raise ValueError(
+                "params.stop (stop strings) needs the engine constructed "
+                "with a `detokenize` callable (token ids -> text); "
+                "stop_token_ids work without one"
+            )
         if params.top_k > self.config.sample_cap:
             raise ValueError(
                 f"top_k {params.top_k} exceeds ServeConfig.sample_cap "
@@ -396,28 +478,111 @@ class ServeEngine:
                 f"= {total} exceeds the engine capacity {cap} "
                 "(min of ServeConfig.max_len and the model's max positions)"
             )
+        if grammar is not None:
+            if eos_id is not _UNSET and eos_id is not None:
+                raise ValueError(
+                    "a grammar-constrained request cannot carry an eos_id: "
+                    "EOS is only legal at a complete document, where the "
+                    "grammar finishes the stream itself"
+                )
+            eos_id = None  # the engine default must not leak in either
+            min_close = getattr(grammar, "min_close", 0)
+            if max_new_tokens < min_close:
+                raise ValueError(
+                    f"max_new_tokens {max_new_tokens} cannot complete the "
+                    f"grammar's shortest document ({min_close} tokens) — "
+                    "the constrained stream would be cut mid-structure"
+                )
         req = Request(
             prompt=prompt,
             max_new_tokens=max_new_tokens,
             eos_id=self.config.eos_id if eos_id is _UNSET else eos_id,
             params=params,
+            grammar=grammar,
+            stream_cb=stream_cb,
         )
+        if deadline_s is not None:
+            req.deadline = req.submit_time + deadline_s
         if not self.scheduler.submit(req):
             self.metrics.record_reject()
+        elif req.deadline is not None:
+            self._waiting_deadlines += 1
         return req
 
     def cancel(self, req: Request) -> None:
         """A WAITING request leaves the queue and finishes "cancelled" at
-        once; an ACTIVE one keeps its lane until the next block boundary.
-        Finished/rejected requests are a no-op."""
+        once; an ACTIVE one keeps its lane until the next block boundary,
+        where that block's output is discarded. Finished/rejected
+        requests are a no-op."""
         if req.state == WAITING:
             if self.scheduler.remove(req):
-                req.state = FINISHED
-                req.finish_reason = "cancelled"
-                req.finish_time = smetrics.now()
-                self.metrics.record_finish(req, req.finish_time)
+                if req.deadline is not None:
+                    self._waiting_deadlines -= 1
+                self._finish_unadmitted(req, "cancelled", smetrics.now())
         elif req.state == ACTIVE:
             req.cancelled = True
+
+    def force_drain(self, reason: str = "cancelled") -> list[Request]:
+        """Finish every in-flight and queued request host-side, with no
+        device work (so it cannot hang): the bounded shutdown's backstop.
+        Slots and pages return through the ordinary finish paths."""
+        now = smetrics.now()
+        finished: list[Request] = []
+        for req in [r for r in self._slot_req if r is not None]:
+            self._finish(req, reason, now)
+            self._notify(req, 0)
+            finished.append(req)
+        for req in list(self.scheduler.queue):
+            self.scheduler.remove(req)
+            self._finish_unadmitted(req, reason, now)
+            finished.append(req)
+        self._waiting_deadlines = 0
+        return finished
+
+    def close(self) -> None:
+        """Shutdown's last step: `force_drain` whatever is still in flight
+        (the front door's `EngineLoop.close` drains gracefully first).
+        Idempotent; the engine stays usable."""
+        if self.has_work():
+            self.force_drain("cancelled")
+
+    def statusz(self) -> dict:
+        """The /statusz document from host-side mirrors only: the engine's
+        shape and queue, every slot's request and position, the metrics
+        snapshot, and (present iff enabled) the page pool and the prefix
+        cache."""
+        d = {
+            "engine": {
+                "n_slots": self.config.n_slots,
+                "n_free": self.pool.n_free,
+                "occupancy": self.pool.occupancy,
+                "queue_depth": len(self.scheduler),
+                "step": self._step_idx,
+                "max_len": self.config.max_len,
+                "decode_block": self.config.decode_block,
+            },
+            "slots": [
+                {"slot": i, "req": None if r is None else r.id,
+                 "position": int(self.pool.positions[i])}
+                for i, r in enumerate(self._slot_req)
+            ],
+            "metrics": self.metrics.snapshot(),
+        }
+        if self._paged:
+            d["kv_pages"] = {
+                "page_size": self.pool.page_size,
+                "page_budget": self.pool.page_budget,
+                "pages_free": self.pool.pages_free,
+                "pages_active": self.pool.pages_active,
+                "fragmentation": self.pool.fragmentation,
+                "per_slot_pages": self.pool.n_alloc.tolist(),
+            }
+        if self.prefix_cache is not None:
+            d["prefix_cache"] = {
+                "bytes_held": self.prefix_cache.bytes_held,
+                "evictions": self.prefix_cache.evictions,
+            }
+        return d
 
     # --------------------------------------------------------------- step
 
@@ -432,17 +597,29 @@ class ServeEngine:
 
     def _step_inner(self) -> list[Request]:
         finished: list[Request] = []
+        now = smetrics.now()
+        if self._waiting_deadlines > 0:
+            expired = [r for r in self.scheduler.queue
+                       if r.deadline is not None and now >= r.deadline]
+            for req in expired:
+                self.scheduler.remove(req)
+                self._waiting_deadlines -= 1
+                self._finish_unadmitted(req, "timeout", now)
+                finished.append(req)
         if self._paged:
             self._unblock_head()
         picked = self.scheduler.pick(self.pool.n_free, self.pool.n_active)
         at = -1
         try:
             for at, req in enumerate(picked):
+                if req.deadline is not None:
+                    self._waiting_deadlines -= 1  # left the queue via pick
                 if self._admit(req):
                     finished.append(req)  # prefill-only finish (eos/budget 1)
         except BaseException:
             # `pick` already popped this batch: put the not-yet-admitted
             # tail back at the head, in order, before the error propagates
+            # (the tail never reached its deadline decrement above)
             for r in reversed(picked[at + 1:]):
                 self.scheduler.requeue_front(r)
             raise
@@ -450,6 +627,7 @@ class ServeEngine:
             finished.extend(self._decode_block())
         self.scheduler.tick()
         self.metrics.record_step(self.pool.occupancy)
+        self._step_idx += 1
         return finished
 
     def run(self, max_steps: int | None = None) -> None:
@@ -544,34 +722,44 @@ class ServeEngine:
             self._slot_req[slot] = None
             self.pool.release(slot)
             req.slot = None
-            self.scheduler.requeue_front(req)
+            self._requeue(req)
             return False
         if not resumed:
             self.metrics.record_admit(req, now)
         if pc is not None and length > 1:
             self.metrics.record_prefix_lookup(matched)
-        # one transfer carries the suffix ids and, paged, the table row
-        ids = np.zeros(padded, np.int64)
-        ids[:suffix] = seq[matched:]
-        if self._paged:
-            ids = np.concatenate([ids, self.pool.table[slot]])
-        ids = torch.as_tensor(ids, device=self.device)
         samp_row, top_k, seed = encode_params(req.params)
         self._samp_f[:, slot] = samp_row
         self._top_k[slot] = top_k
         self._seed[slot] = seed
+        self._need_lp[slot] = req.params.logprobs
+        # the grammar's allow-list for the FIRST sampled token (a resumed
+        # request discards that sample, but the list must be well formed)
+        constrained = req.grammar is not None
+        self._allow[slot] = self._grammar_allow(req) if constrained else -1
+        # one transfer carries the suffix ids, paged the table row, and a
+        # constrained request's allow-list
+        parts = [np.zeros(padded, np.int64)]
+        parts[0][:suffix] = seq[matched:]
+        if self._paged:
+            parts.append(self.pool.table[slot])
+        if constrained:
+            parts.append(self._allow[slot])
+        ids = torch.as_tensor(np.concatenate(parts), device=self.device)
+        table_end = padded + (self.pool.pages_per_lane if self._paged else 0)
+        allow = ids[None, table_end:] if constrained else None
         generator = (None if req.params.greedy else request_generator(
             self.config.seed, self._rng_step, slot, seed, 0, self.device))
         self._rng_step += 1
         args = (self.model, padded, chunk, matched, self.config.sample_cap)
+        sample = (self._packed([slot]), generator, allow, req.params.logprobs)
         if self._paged:
-            self.pool.phys, first = _paged_prefill_program(
-                *args, self.pool.phys, ids[:padded], ids[padded:], suffix,
-                self._packed([slot]), generator)
+            self.pool.phys, first, logprob = _paged_prefill_program(
+                *args, self.pool.phys, ids[:padded], ids[padded:table_end],
+                suffix, *sample)
         else:
-            self.pool.caches, first = _prefill_program(
-                *args, self.pool.caches, ids, slot, suffix,
-                self._packed([slot]), generator)
+            self.pool.caches, first, logprob = _prefill_program(
+                *args, self.pool.caches, ids[:padded], slot, suffix, *sample)
         first = int(first)  # waits for the device: `now` below is device-true
         if pc is not None:
             # hand the prefilled span to the tree while [0, length) is
@@ -596,51 +784,129 @@ class ServeEngine:
             return False
         req.first_token_time = now
         req.tokens.append(first)
+        if req.grammar is not None:
+            req.grammar.advance(first)
+        if req.params.logprobs:
+            req.logprobs.append(float(logprob))
         self.metrics.record_first_token(req, now, prefilled=suffix)
         self._last_emit[slot] = now
         self.pool.positions[slot] = length
         self._toks[slot] = first
         self._pos[slot] = length
-        reason = self._stop_reason(req, first)
-        if reason is None:
-            return False
-        self._finish(req, reason, now)
-        return True
+        reason = self._stop_reason(req, first, req.remaining)
+        if req.grammar is not None and req.grammar.done:
+            reason = "stop"  # a complete document beats a length finish
+        if reason != "eos" and self._stop_string_at(req, [], 0) is not None:
+            reason = "stop"  # the first token alone completed a match
+        if reason is not None:
+            self._finish(req, reason, now)
+        self._notify(req, 1)
+        return reason is not None
 
-    def _stop_reason(self, req: Request, tok: int) -> str | None:
+    def _stop_reason(self, req: Request, tok: int,
+                     remaining: int) -> str | None:
+        """Why token `tok`, after which `remaining` tokens of the budget
+        are left, ends `req`'s stream — "eos", "stop" (stop token-id
+        set), "length", or None. Token-level checks only; stop STRINGS
+        are matched once per block by `_stop_string_at`."""
         if req.eos_id is not None and tok == req.eos_id:
             return "eos"
-        if req.remaining == 0:
+        if req.params.stop_token_ids and tok in req.params.stop_token_ids:
+            return "stop"
+        if remaining == 0:
             return "length"
         return None
 
+    def _stop_string_at(self, req: Request, new: list[int],
+                        start: int) -> int | None:
+        """Earliest token index >= `start` of the stream `req.tokens +
+        new` whose text completes a stop-string match, or None. One full
+        decode per block (matches may span block boundaries because the
+        whole generated stream is searched); the per-prefix walk that
+        finds the completing token runs only on a hit, at most once in a
+        request's life. A full re-decode rather than a window: a
+        caller's `detokenize` need not be prefix-stable (merges can
+        rewrite text at token boundaries, tokens may decode to nothing)."""
+        if not req.params.stop:
+            return None
+        tokens = req.tokens + new
+        text = self.detokenize(tokens)
+        if not any(s in text for s in req.params.stop):
+            return None
+        for k in range(start, len(tokens)):
+            prefix = self.detokenize(tokens[:k + 1])
+            if any(s in prefix for s in req.params.stop):
+                return k
+        # the match only shows with the full stream: the last token made it
+        return len(tokens) - 1
+
+    def _notify(self, req: Request, n_new: int) -> None:
+        """Fire the request's streaming hook (engine thread): `n_new`
+        tokens were appended (0 at a tokenless cancel/timeout finish)."""
+        cb = req.stream_cb
+        if cb is not None:
+            cb(req, n_new, req.state == FINISHED)
+
+    def _grammar_allow(self, req: Request) -> np.ndarray:
+        """The request's allowed-token list as a (sample_cap,) row. The
+        grammar's contract is a list never empty before the document
+        completes (and completion finishes the request at once), so an
+        empty one is a stepper bug: fail loudly rather than decode
+        unconstrained."""
+        ids = req.grammar.allowed(req.remaining)
+        if not ids:
+            raise RuntimeError(
+                f"grammar for request {req.id} returned an empty allow-list "
+                f"mid-generation (budget {req.remaining})"
+            )
+        return encode_allow(ids, self.config.sample_cap).astype(np.int64)
+
+    def _requeue(self, req: Request) -> None:
+        """Back to the head of the queue (a bailed admission or a
+        preemption), its deadline counted as waiting again."""
+        self.scheduler.requeue_front(req)
+        if req.deadline is not None:
+            self._waiting_deadlines += 1
+
     def _decode_block(self) -> list[Request]:
         cfg = self.config
-        block, n = cfg.decode_block, cfg.n_slots
+        block, n, cap = cfg.decode_block, cfg.n_slots, cfg.sample_cap
         if self._paged:
             self._cover_decode(block)
             if self.pool.n_active == 0:
                 return []  # page exhaustion preempted every stream
+        samp_idx = np.zeros(n, np.int64)
+        stochastic = np.zeros(n, bool)
+        constrained = False
+        for slot, r in enumerate(self._slot_req):
+            if r is not None:
+                # sample index of this block's first draw (index 0 was
+                # the prefill's)
+                samp_idx[slot] = len(r.tokens)
+                stochastic[slot] = not r.params.greedy
+                if r.grammar is not None:
+                    # the stepper advanced with the last accepted token:
+                    # refresh the list (only the block's FIRST draw counts)
+                    self._allow[slot] = self._grammar_allow(r)
+                    constrained = True
+        need_lp = bool(self._need_lp.any())
         # the block's int control values go to the device in ONE transfer:
-        # rows toks, pos, active, eos, then (paged) the page tables
-        n_rows = 4 + (self.pool.pages_per_lane if self._paged else 0)
-        state = np.zeros((n_rows, n), np.int64)
+        # rows toks, pos, active, eos, then (paged) the page tables, then
+        # (with a constrained slot) the allow-lists
+        pages = self.pool.pages_per_lane if self._paged else 0
+        state = np.zeros((4 + pages + (cap if constrained else 0), n), np.int64)
         state[0] = self._toks
         state[1] = self._pos
         state[3] = -1
-        samp_idx = np.zeros(n, np.int64)
-        stochastic = np.zeros(n, bool)
         for slot, r in enumerate(self._slot_req):
             if r is not None:
                 state[2, slot] = 1
                 if r.eos_id is not None:
                     state[3, slot] = r.eos_id
-                # sample index of this block's first draw (index 0 was
-                # the prefill's)
-                samp_idx[slot] = len(r.tokens)
-                stochastic[slot] = not r.params.greedy
         if self._paged:
-            state[4:] = self.pool.table.T
+            state[4:4 + pages] = self.pool.table.T
+        if constrained:
+            state[4 + pages:] = self._allow.T
         step_tag = self._rng_step
         self._rng_step += 1
         dev = self.device
@@ -652,36 +918,72 @@ class ServeEngine:
 
         t0 = smetrics.now()
         state = torch.as_tensor(state, device=dev)
+        allow = state[4 + pages:].T if constrained else None
         ctl = (state[0], state[1], state[2].bool(), state[3],
-               self._packed(slice(None)), generators)
+               self._packed(slice(None)), generators, allow, need_lp)
         if self._paged:
-            self.pool.phys, out = _paged_decode_program(
-                self.model, block, cfg.sample_cap, self.pool.phys,
-                state[4:].T, *ctl)
+            self.pool.phys, out, lps = _paged_decode_program(
+                self.model, block, cap, self.pool.phys,
+                state[4:4 + pages].T, *ctl)
         else:
-            self.pool.caches, out = _decode_program(
-                self.model, block, cfg.sample_cap, self.pool.caches, *ctl)
+            self.pool.caches, out, lps = _decode_program(
+                self.model, block, cap, self.pool.caches, *ctl)
         out = out.cpu().numpy()  # (block, n_slots); overshoot truncated below
+        lps = None if lps is None else lps.cpu().numpy()
         now = smetrics.now()
         self.metrics.record_decode_block(now - t0)
         finished: list[Request] = []
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
-            if req.cancelled:
+            if req.cancelled or (req.deadline is not None
+                                 and now >= req.deadline):
                 # lifecycle kill at the block boundary: the block's output
                 # is discarded and the lane frees for the next pick
-                self._finish(req, "cancelled", now)
+                self._finish(req, "cancelled" if req.cancelled else "timeout",
+                             now)
                 finished.append(req)
+                self._notify(req, 0)
                 continue
-            appended = 0
             reason = None
-            for t in out[:, slot]:
-                req.tokens.append(int(t))
-                appended += 1
-                reason = self._stop_reason(req, int(t))
+            base = len(req.tokens)
+            # the block's tokens gather here and reach `req.tokens` only
+            # once the stop checks have cut them: a handler thread that
+            # streams `req.tokens` never sees a token that a stop string
+            # truncates. A constrained slot keeps only the block's FIRST
+            # draw: its allow-list is stale after one advance, and the
+            # tail is discarded like post-EOS overshoot (its stale writes
+            # in the slot's own lane are overwritten before they are
+            # attended)
+            new, new_lps = [], []
+            span = 1 if req.grammar is not None else block
+            for i in range(span):
+                t = int(out[i, slot])
+                new.append(t)
+                if req.grammar is not None:
+                    req.grammar.advance(t)
+                if req.params.logprobs:
+                    new_lps.append(float(lps[i, slot]))
+                reason = self._stop_reason(
+                    req, t, req.max_new_tokens - base - len(new))
+                if req.grammar is not None and req.grammar.done:
+                    reason = "stop"  # a complete document ends the stream
                 if reason is not None:
                     break  # the tail of the block is discarded overshoot
+            k = self._stop_string_at(req, new, base)
+            if k is not None:
+                # a stop string completed at token k: it wins over a
+                # token-level reason that fired later in the block (and
+                # over "length" at the same token), truncating the rest
+                last = base + len(new) - 1
+                if reason is None or k < last or reason == "length":
+                    del new[k + 1 - base:]
+                    del new_lps[k + 1 - base:]
+                    reason = "stop"
+            # logprobs first: a reader that sees token i finds its logprob
+            req.logprobs.extend(new_lps)
+            req.tokens.extend(new)
+            appended = len(new)
             self.metrics.record_tokens(appended, now - self._last_emit[slot],
                                        now)
             self._last_emit[slot] = now
@@ -689,16 +991,24 @@ class ServeEngine:
             if reason is not None:
                 self._finish(req, reason, now)
                 finished.append(req)
+            elif req.grammar is not None:
+                # the mirror advances by the ONE accepted token; the
+                # device's later writes land past it and are overwritten
+                self._toks[slot] = out[0, slot]
+                self._pos[slot] += 1
             else:
                 # mirror the device carry: the slot ran the full block
                 self._toks[slot] = out[-1, slot]
                 self._pos[slot] += block
+            self._notify(req, appended)
         return finished
 
     def _finish(self, req: Request, reason: str, now: float) -> None:
         req.state = FINISHED
         req.finish_reason = reason
         req.finish_time = now
+        if req.first_token_time is None:
+            req.first_token_time = now  # force-drained mid-admission
         if self._paged:
             # streams only grow, so the count at finish is the peak
             req.pages_held = max(req.pages_held,
@@ -706,17 +1016,30 @@ class ServeEngine:
         self.metrics.record_finish(req, now)
         self._vacate(req.slot)
 
+    def _finish_unadmitted(self, req: Request, reason: str,
+                           now: float) -> None:
+        """Finish a request cancelled or timed out in the waiting queue
+        (never admitted, or a preempted stream waiting to resume)."""
+        req.state = FINISHED
+        req.finish_reason = reason
+        req.finish_time = now
+        self.metrics.record_finish(req, now)
+        self._notify(req, 0)
+
     def _vacate(self, slot: int) -> None:
-        """Free `slot` and park it at position 0 with greedy sampling rows:
-        its masked dummy writes land in lane position 0 (overwritten by
-        the next prefill) or the trash page, and an all-greedy resting
-        state keeps idle batches on the argmax-only path."""
+        """Free `slot` and park it at position 0 with greedy, unconstrained
+        sampling rows: its masked dummy writes land in lane position 0
+        (overwritten by the next prefill) or the trash page, and an
+        all-greedy resting state keeps idle batches on the argmax-only
+        path."""
         self._slot_req[slot] = None
         self._toks[slot] = 0
         self._pos[slot] = 0
         self._samp_f[:, slot] = GREEDY_ROW
         self._top_k[slot] = 0
         self._seed[slot] = -1
+        self._allow[slot] = -1
+        self._need_lp[slot] = False
         self.pool.release(slot)
 
     # -------------------------------------------------- prefix, pages
@@ -818,7 +1141,7 @@ class ServeEngine:
         req.pages_held = max(req.pages_held, int(self.pool.n_alloc[slot]))
         self._vacate(slot)
         req.slot = None
-        self.scheduler.requeue_front(req)
+        self._requeue(req)
 
     def _cover_decode(self, block: int) -> None:
         """Before a decode block every surviving slot must own pages for

@@ -20,7 +20,10 @@ the counters, latencies and gauges the engine records).
 TTFT, ITL and queue wait go into mergeable log histograms
 (`metrics.hist.LogHistogram`: means exact, percentiles bucket-resolution
 estimates), as the reference records them; the prefill and decode-block
-times stay exact lists of every observation.
+times stay exact lists of every observation. `prom_snapshot` adds the
+histograms themselves, which the `/metrics` exposition
+(`metrics.writer.PrometheusTextWriter.render`) renders as native
+``_bucket`` / ``_sum`` / ``_count`` series, one ``# TYPE`` line a name.
 
 Paged-pool gauges (present iff `ServeConfig.paged`; the engine registers
 a gauge provider):
@@ -237,6 +240,19 @@ class ServeMetrics:
                     out[f"serve/{name}_{k}"] = v
         for provider in self._gauge_providers:
             out.update(provider())
+        return out
+
+    def prom_snapshot(self) -> dict:
+        """`snapshot()` plus the latency histograms themselves under their
+        base names (``serve/ttft_s``): the metric set of the Prometheus
+        exposition, where they render as native histograms (their
+        ``_sum`` / ``_count`` claim those names over the snapshot's
+        gauges)."""
+        out = self.snapshot()
+        for name, hist in (("ttft_s", self.ttft), ("itl_s", self.itl),
+                           ("queue_wait_s", self.queue_wait)):
+            if len(hist):
+                out[f"serve/{name}"] = hist
         return out
 
 

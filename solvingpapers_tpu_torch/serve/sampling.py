@@ -1,6 +1,6 @@
 """Per-request sampling for the serving engine (port of
-`solvingpapers_tpu/serve/sampling.py`, without the grammar allow path,
-logprobs, stop sets and SLO tags, which are later slices).
+`solvingpapers_tpu/serve/sampling.py`, without the SLO tag and the
+quantized pool's `kv_exact`, which are later slices).
 
 * `SamplingParams` — the per-request knobs, validated at construction so
   a bad request fails at `submit`;
@@ -9,7 +9,12 @@ logprobs, stop sets and SLO tags, which are later slices).
 * `fused_sample` — one sampler over the whole slot axis: greedy rows take
   ``argmax`` of the raw logits; stochastic rows draw inside the top
   `cap` logits after temperature scaling and the shared
-  `ops.top_k_mask` / `top_p_mask` / `min_p_mask` truncations.
+  `ops.top_k_mask` / `top_p_mask` / `min_p_mask` truncations; a
+  grammar-constrained row (its allow-list, `serve/grammar.py`) draws or
+  takes its argmax inside its allowed ids instead; and the chosen
+  token's log-softmax under the RAW logits comes back for the requests
+  that asked for logprobs (the model's own distribution, independent of
+  temperature and truncation, well defined for greedy rows too).
 
 Randomness. The reference folds ``(seed, sample index)`` — or, for an
 unseeded request, ``(engine step, slot, sample index)`` — into the
@@ -26,6 +31,7 @@ packages — only greedy streams are compared across them.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import NamedTuple
 
 import torch
@@ -51,6 +57,17 @@ class SamplingParams:
     min_p        drop tokens below ``min_p * max probability`` (0 = off).
     seed         rng seed for a reproducible stream (None = engine entropy).
     max_tokens   generation budget; overrides `submit`'s max_new_tokens.
+    stop_token_ids  finishing token ids beyond the request's `eos_id`,
+                 matched on the host; the matching token is kept in the
+                 stream, finish reason "stop".
+    stop         stop strings, matched on the host against the decoded
+                 generated text (the engine needs a `detokenize`
+                 callable); the stream ends at the token that completes
+                 the first match, finish reason "stop". A match may span
+                 decode-block boundaries.
+    logprobs     when True, the chosen token's log-softmax under the
+                 model's raw logits goes into `Request.logprobs`, one
+                 entry per generated token.
     """
 
     temperature: float = 0.0
@@ -59,6 +76,9 @@ class SamplingParams:
     min_p: float = 0.0
     seed: int | None = None
     max_tokens: int | None = None
+    stop_token_ids: tuple[int, ...] = ()
+    stop: tuple[str, ...] = ()
+    logprobs: bool = False
 
     def __post_init__(self):
         if self.temperature < 0:
@@ -76,6 +96,24 @@ class SamplingParams:
             raise ValueError(f"seed must be None or in [0, 2**31), got {self.seed}")
         if self.max_tokens is not None and self.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {self.max_tokens}")
+        # a lone string is one stop string, not its characters
+        stop = (self.stop,) if isinstance(self.stop, str) else tuple(self.stop)
+        if any(not s for s in stop):
+            raise ValueError("stop strings must be non-empty")
+        object.__setattr__(self, "stop", stop)
+        ids = self.stop_token_ids
+        try:
+            ids = (operator.index(ids),)  # a lone id, like a lone string
+        except TypeError:
+            pass
+        try:
+            # operator.index: int(50256.9) would stop on the WRONG id
+            ids = tuple(operator.index(t) for t in ids)
+        except TypeError:
+            raise ValueError(
+                f"stop_token_ids must be integer token ids, got {ids!r}"
+            ) from None
+        object.__setattr__(self, "stop_token_ids", ids)
 
     @property
     def greedy(self) -> bool:
@@ -132,12 +170,21 @@ def request_generator(base: int, step_tag: int, slot: int, seed: int,
     return g
 
 
-def capped_support(logits32: torch.Tensor, packed: PackedSampling, *, cap: int):
-    """The bounded-support truncation: one top-`cap` selection, then
-    temperature scaling (greedy rows scale by 1 — their token comes from
-    argmax; the scale only keeps the row finite) and the shared top-k /
-    top-p / min-p masks. Returns ``(masked, top_idx)``."""
+def capped_support(logits32: torch.Tensor, packed: PackedSampling, *,
+                   cap: int, allow: torch.Tensor | None = None):
+    """The bounded-support truncation: one top-`cap` selection, the
+    optional per-row grammar allow-swap (`ops.allowed_logits`; a row
+    whose first entry is >= 0 is constrained and its candidate domain
+    becomes its allowed ids), temperature scaling (greedy rows scale by 1
+    — their token comes from argmax; the scale only keeps the row
+    finite) and the shared top-k / top-p / min-p masks. Returns
+    ``(masked, top_idx)``."""
     top_vals, top_idx = torch.topk(logits32, cap, dim=-1)
+    if allow is not None:
+        constrained = (allow[:, 0] >= 0)[:, None]
+        a_vals, a_idx = ops.allowed_logits(logits32, allow)
+        top_vals = torch.where(constrained, a_vals, top_vals)
+        top_idx = torch.where(constrained, a_idx, top_idx)
     temp = torch.where(packed.temperature <= 0.0,
                        torch.ones_like(packed.temperature),
                        packed.temperature)[:, None]
@@ -149,28 +196,63 @@ def capped_support(logits32: torch.Tensor, packed: PackedSampling, *, cap: int):
 
 
 def fused_sample(logits: torch.Tensor, packed: PackedSampling,
-                 generators, *, cap: int = 64) -> torch.Tensor:
-    """Sample one token per slot; returns (S,) int64.
+                 generators, *, cap: int = 64,
+                 allow: torch.Tensor | None = None, need_lp: bool = False):
+    """Sample one token per slot; returns ``(tokens (S,) int64, logprobs
+    (S,) float32 or None)``.
 
     `logits` is (S, vocab); `generators` holds one `torch.Generator` per
-    STOCHASTIC slot and None for greedy ones — the host knows which rows
-    are greedy, so an all-greedy batch is argmax only, with no selection
-    and no masking. Stochastic rows draw by Gumbel-max over the masked
-    top-`cap` support (the same categorical the reference draws) and map
-    back through the gathered vocab ids.
+    STOCHASTIC slot and None for greedy ones. `allow` is the grammar
+    constraint: (S, A) int64 token ids with -1 padding (`serve/grammar.
+    py`), or None when no slot is constrained; a row whose first entry
+    is >= 0 is constrained, its draw (or its argmax, for a greedy row)
+    restricted to the listed ids, and all -1 rows are untouched. The host
+    knows which rows are greedy and which constrained, so an all-greedy
+    unconstrained batch is argmax only, with no selection and no masking.
+    Stochastic rows draw by Gumbel-max over the masked top-`cap` support
+    (the same categorical the reference draws) and map back through the
+    gathered vocab ids.
+
+    With `need_lp` (some slot asked for logprobs) the second result is
+    the log-softmax of the RAW full-vocab logits at each chosen token;
+    otherwise None and no log-softmax runs.
     """
     logits32 = logits.float()
     greedy_tok = torch.argmax(logits32, dim=-1)
-    if all(g is None for g in generators):
-        return greedy_tok
-    cap = min(cap, logits.shape[-1])
-    masked, top_idx = capped_support(logits32, packed, cap=cap)
-    tiny = torch.finfo(torch.float32).tiny
-    noise = torch.zeros_like(masked)
-    for row, g in enumerate(generators):
-        if g is not None:
-            u = torch.rand(cap, generator=g, device=logits.device).clamp_min(tiny)
-            noise[row] = -torch.log(-torch.log(u))
-    sel = torch.argmax(masked + noise, dim=-1, keepdim=True)
-    drawn = torch.gather(top_idx, -1, sel)[:, 0]
-    return torch.where(packed.temperature <= 0.0, greedy_tok, drawn)
+    stochastic = any(g is not None for g in generators)
+    toks = greedy_tok
+    if stochastic or allow is not None:
+        cap = min(cap, logits.shape[-1])
+        if allow is not None:
+            # the engine packs sample_cap entries; the cap may have
+            # clamped to a smaller vocab (allowed ids are distinct and
+            # < vocab, so past `cap` only -1 padding can remain)
+            if allow.shape[-1] > cap:
+                allow = allow[:, :cap]
+            elif allow.shape[-1] < cap:
+                allow = torch.nn.functional.pad(
+                    allow, (0, cap - allow.shape[-1]), value=-1)
+        masked, top_idx = capped_support(logits32, packed, cap=cap,
+                                         allow=allow)
+        if allow is not None:
+            # greedy under a constraint = argmax over the allowed domain
+            # (the masks never drop a row's argmax)
+            dom = torch.gather(top_idx, -1,
+                               torch.argmax(masked, dim=-1, keepdim=True))[:, 0]
+            toks = torch.where(allow[:, 0] >= 0, dom, greedy_tok)
+        if stochastic:
+            tiny = torch.finfo(torch.float32).tiny
+            noise = torch.zeros_like(masked)
+            for row, g in enumerate(generators):
+                if g is not None:
+                    u = torch.rand(masked.shape[-1], generator=g,
+                                   device=logits.device).clamp_min(tiny)
+                    noise[row] = -torch.log(-torch.log(u))
+            sel = torch.argmax(masked + noise, dim=-1, keepdim=True)
+            drawn = torch.gather(top_idx, -1, sel)[:, 0]
+            toks = torch.where(packed.temperature <= 0.0, toks, drawn)
+    lps = None
+    if need_lp:
+        chosen = torch.gather(logits32, -1, toks[:, None])[:, 0]
+        lps = chosen - torch.logsumexp(logits32, dim=-1)
+    return toks, lps

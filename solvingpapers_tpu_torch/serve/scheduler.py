@@ -55,8 +55,17 @@ class Request:
 
         eos        the request's `eos_id` was emitted (kept in the stream)
         length     `max_new_tokens` (or `params.max_tokens`) ids emitted
+        stop       a `params.stop_token_ids` id or `params.stop` string
+                   matched, or the grammar accepted a complete document
+                   (the matching token is kept in the stream)
         cancelled  `engine.cancel(request)` — a waiting request finishes
                    at once, an active one at the next block boundary
+        timeout    the request's deadline passed (a waiting request
+                   leaves the queue; an active one is freed at the next
+                   block boundary, the expired block's tokens discarded)
+
+    `logprobs` holds the chosen token's logprob per generated token when
+    `params.logprobs`.
     """
 
     prompt: np.ndarray
@@ -66,10 +75,25 @@ class Request:
     id: int = dataclasses.field(default_factory=lambda: next(_ids))
     state: str = WAITING
     tokens: list[int] = dataclasses.field(default_factory=list)
+    logprobs: list[float] = dataclasses.field(default_factory=list)
     finish_reason: str | None = None
     slot: int | None = None
     waited_steps: int = 0
+    # absolute deadline on the engine clock (serve.metrics.now), or None
+    deadline: float | None = None
     cancelled: bool = False
+    # grammar-constrained decoding (serve/grammar.py JsonStepper, or any
+    # object with allowed(budget) / advance(tok) / done): the engine packs
+    # its allowed ids into the sampler's allow-list and finishes the
+    # stream ("stop") when the grammar accepts. One stepper per request.
+    grammar: object | None = None
+    # streaming hook, called on the ENGINE thread as
+    # ``stream_cb(request, n_new_tokens, finished)`` after every token
+    # append and once at finish (n_new may be 0 at a cancel or timeout
+    # boundary). It must be cheap and must not block: the HTTP front door
+    # (serve/api.py) pushes a count into a bounded per-connection queue
+    # and does its I/O on its own handler thread.
+    stream_cb: object | None = None
     # memoized cached-prefix match length for prefix-aware scheduling,
     # computed at the first pick (slightly stale by design: it only
     # orders admission; the engine matches again at admit time)
@@ -112,6 +136,12 @@ class FIFOScheduler:
 
     def __len__(self) -> int:
         return len(self.queue)
+
+    @property
+    def capacity_left(self) -> int:
+        """Waiting-queue room before `submit` starts rejecting — the HTTP
+        front door's cheap backpressure probe."""
+        return max(0, self.max_waiting - len(self.queue))
 
     def submit(self, req: Request) -> bool:
         """Enqueue, or reject when the waiting queue is at capacity."""

@@ -51,6 +51,8 @@ from solvingpapers_tpu_torch.train import (
     make_optimizer,
 )
 from solvingpapers_tpu_torch.train.objectives import dsv3_loss_fn
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 BIAS_TOL = 1e-7
@@ -155,7 +157,8 @@ def _jax_steps(trainer, state, batches, with_bias=False):
                 ids=lambda p: f"{p[0]}-k{p[1]}")
 def jax_run(request):
     """The JAX Trainer over 2k + 1 steps of the dense twin of
-    `llama3_long_smoke` with accum_steps k and a clip that fires."""
+    `llama3_long_smoke`, cut to one layer, with accum_steps k and a clip
+    that fires."""
     name, k = request.param
     base = LLAMA_ADAMW if name == "adamw" else SGD
     optimizer = dataclasses.replace(base, accum_steps=k, grad_clip=CLIP)
@@ -163,7 +166,8 @@ def jax_run(request):
     train = dataclasses.replace(run.train, context_parallel=False,
                                 mesh=MeshConfig(data=1), batch_size=BATCH,
                                 optimizer=optimizer)
-    model = JLlama(dataclasses.replace(run.model, context_parallel=False))
+    model = JLlama(dataclasses.replace(run.model, context_parallel=False,
+                                       n_layers=1))
     trainer = JTrainer(model, train,
                        mesh=create_mesh(MeshConfig(data=1), jax.devices()[:1]))
     batches = _batches(k, 2 * k + 1)
@@ -191,7 +195,8 @@ def test_trainer_accumulates_like_the_jax_trainer(jax_run):
     train = dataclasses.replace(
         run.train, batch_size=BATCH,
         optimizer=OptimizerConfig(**dataclasses.asdict(jax_run["optimizer"])))
-    trainer = Trainer(Llama(run.model, device="cpu", param_dtype=torch.float32),
+    model = dataclasses.replace(run.model, n_layers=1)
+    trainer = Trainer(Llama(model, device="cpu", param_dtype=torch.float32),
                       train, device="cpu")
     state = trainer.init_state()
     trainer.model.load_state_dict(flax_to_torch(jax_run["params0"]))
@@ -213,8 +218,9 @@ def test_trainer_accumulates_like_the_jax_trainer(jax_run):
 
 @pytest.fixture(scope="module")
 def dsv3_run():
-    """The JAX Trainer over 5 steps of the tiny DeepSeek-V3 (random routing
-    biases) with dsv3_long's AdamW at accum_steps 2."""
+    """The JAX Trainer over 3 steps of the tiny DeepSeek-V3 (random routing
+    biases) with dsv3_long's AdamW at accum_steps 2: a micro step that
+    only accumulates, one that applies the update, and one after it."""
     cfg = JConfig(vocab_size=256, block_size=64, dim=64, n_layers=2, n_heads=4,
                   latent_dim=8, rope_dim=8, n_experts=4, top_experts=2,
                   dtype="float32", use_flash=True, dropout=0.0,
@@ -226,7 +232,7 @@ def dsv3_run():
     trainer = JTrainer(JDeepSeekV3(cfg), train, loss_fn=j_dsv3_loss_fn,
                        init_fn=dsv3_init_fn,
                        mesh=create_mesh(MeshConfig(data=1), jax.devices()[:1]))
-    batches = _batches(11, 5)
+    batches = _batches(11, 3)
     state = trainer.init_state(batches[0])
     r = np.random.default_rng(7)
     ms0 = jax.tree.map(
@@ -250,7 +256,7 @@ def test_dsv3_routing_biases_move_every_micro_step(dsv3_run):
     state = trainer.init_state()
     model.load_state_dict(flax_to_torch(dsv3_run["params0"],
                                         {"moe_state": dsv3_run["ms0"]}))
-    bias = model.layers[0].moe.routing_bias.clone()
+    biases = [layer.moe.routing_bias.clone() for layer in model.layers]
     for i, batch in enumerate(dsv3_run["batches"]):
         m = trainer.train_step(state, batch)
         for key in ("train_loss", "grad_norm", "lr", "train_moe_bias_norm"):
@@ -261,9 +267,11 @@ def test_dsv3_routing_biases_move_every_micro_step(dsv3_run):
                       flax_to_torch(dsv3_run["params"][i],
                                     {"moe_state": dsv3_run["biases"][i]}),
                       f"step {i}")
-        new = model.layers[0].moe.routing_bias
-        assert not torch.equal(new, bias), f"the bias held still at step {i}"
-        bias = new.clone()
+        for j, layer in enumerate(model.layers):
+            new = layer.moe.routing_bias
+            assert not torch.equal(new, biases[j]), \
+                f"layer {j}'s bias held still at step {i}"
+            biases[j] = new.clone()
 
 
 def _tiny_trainer(tmp_path=None, **train_kw):

@@ -20,6 +20,7 @@ and the registry it reads.
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from solvingpapers_tpu_torch.configs import registry
 from solvingpapers_tpu_torch.infer import generate
 from solvingpapers_tpu_torch.models import DeepSeekV3Config
 from solvingpapers_tpu_torch.train import OptimizerConfig, TrainConfig
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 DSV3_CLI = "dsv3_cli_tiny"
 
@@ -182,7 +185,7 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--config", "gpt_tiny", "--port", "8000"], "A3.4"),
+    (["serve", "--config", "gpt_tiny", "--journal", "j.jsonl"], "A4"),
     (["replay", "--journal", "j.jsonl"], "A4"),
     (["trace-summary", "t.json"], "A4"),
     (["serve-bench", "--config", "gpt_tiny"], "A5"),
@@ -190,12 +193,33 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
     (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
       "--greedy"], "A5"),
     (["train", "--config", "vit_mnist", "--device", "cpu"], "A6"),
-    (["train", "--config", "llama3_long", "--device", "cpu"], "A3"),
+    (["serve", "--config", "gpt_tiny", "--kv-quant=int8"], "A5"),
 ])
 def test_refused_commands_exit_2_naming_their_roadmap_item(capsys, argv, item):
     rc, out, err = _run(capsys, *argv)
     assert rc == 2 and not out
     assert f"ROADMAP {item}" in err
+
+
+def test_serve_flags_set_the_front_door_knobs():
+    """`cli serve`'s front-door flags reach the ServeConfig; left out,
+    each takes ServeConfig's default."""
+    from solvingpapers_tpu_torch.serve import ServeConfig
+
+    model = types.SimpleNamespace(max_positions=128)
+    args = cli.build_parser().parse_args([
+        "serve", "--config", "gpt_tiny", "--port", "0", "--host", "0.0.0.0",
+        "--max-connections", "3", "--drain-timeout", "0.5", "--no-json-mode",
+        "--max-waiting", "7"])
+    got = cli._serve_config(args, model)
+    assert (got.api_port, got.api_host, got.api_max_connections,
+            got.drain_timeout_s, got.json_mode, got.max_waiting) == (
+        0, "0.0.0.0", 3, 0.5, False, 7)
+    got = cli._serve_config(
+        cli.build_parser().parse_args(["serve", "--config", "gpt_tiny"]), model)
+    for name in ("api_host", "api_max_connections", "drain_timeout_s",
+                 "json_mode", "max_waiting"):
+        assert getattr(got, name) == getattr(ServeConfig(), name), name
 
 
 def test_the_default_device_is_the_card(monkeypatch):

@@ -55,6 +55,8 @@ from solvingpapers_tpu_torch.models import DeepSeekV3, DeepSeekV3Config
 from solvingpapers_tpu_torch.models import deepseekv3 as tds
 from solvingpapers_tpu_torch.train import OptimizerConfig, TrainConfig, Trainer
 from solvingpapers_tpu_torch.train.objectives import dsv3_loss_fn
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 BIAS_TOL = 1e-7
@@ -230,15 +232,16 @@ def test_balance_loss_matches_reference():
                                       {"moe_state": moe_state}, True)
         return loss, aux
 
-    (jl, jaux), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     model = _port_model(params, moe_state, **kw).train()
     loss, aux, new_state = dsv3_loss_fn(
         model, {k: torch.from_numpy(v) for k, v in batch.items()}, 123)
     _close(loss, jl)
     _close(aux["balance_loss"], jaux["balance_loss"])
     loss.backward()
-    _close(model.layers[1].moe.gate.weight.grad,
-           np.asarray(jg["layer_1"]["moe"]["gate"]["kernel"]).T)
+    for i in range(2):
+        _close(model.layers[i].moe.gate.weight.grad,
+               np.asarray(jg[f"layer_{i}"]["moe"]["gate"]["kernel"]).T)
     assert set(new_state) == {f"layers.{i}.moe.routing_bias" for i in range(2)}
 
 
@@ -256,16 +259,21 @@ def _copy(tree):
     return jax.tree.map(lambda a: np.array(a, copy=True), tree)
 
 
-@pytest.fixture(scope="module", params=[("sgd", "dispatch"), ("sgd", "dense"),
-                                        ("adamw", "dispatch")],
-                ids=lambda p: "-".join(p))
+# (optimizer, moe_impl, layers): the AdamW run keeps TINY's two layers,
+# where the moe_* metrics average over layers and each layer's routing
+# bias moves on its own; the SGD runs take one, which checks the rest
+# for less time
+@pytest.fixture(scope="module", params=[("sgd", "dispatch", 1),
+                                        ("sgd", "dense", 1),
+                                        ("adamw", "dispatch", 2)],
+                ids=lambda p: f"{p[0]}-{p[1]}")
 def jax_run(request):
     """The JAX Trainer's run of the tiny model (dsv3_long's train
     settings, single-device mesh): initial params and routing state,
     per-step metrics, params and routing biases, an evaluation."""
-    opt_name, moe_impl = request.param
+    opt_name, moe_impl, n_layers = request.param
     optimizer = ADAMW if opt_name == "adamw" else SGD
-    cfg = JConfig(**{**TINY, "moe_impl": moe_impl})
+    cfg = JConfig(**{**TINY, "n_layers": n_layers, "moe_impl": moe_impl})
     run = jreg.get_config("dsv3_long")
     train = dataclasses.replace(run.train, mesh=MeshConfig(data=1),
                                 batch_size=BATCH, optimizer=optimizer)
@@ -285,7 +293,8 @@ def jax_run(request):
         params.append(_copy(state.params))
         biases.append(_copy(state.model_state["moe_state"]))
     val = trainer.evaluate(state, iter(batches[STEPS:]))
-    return dict(optimizer=optimizer, moe_impl=moe_impl, batches=batches,
+    return dict(optimizer=optimizer, moe_impl=moe_impl, n_layers=n_layers,
+                batches=batches,
                 params0=params0, ms0=ms0, metrics=metrics, params=params,
                 biases=biases, val=val)
 
@@ -299,7 +308,8 @@ def test_trainer_steps_match_jax_trainer(jax_run, n_steps):
     train = dataclasses.replace(
         run.train, batch_size=BATCH,
         optimizer=OptimizerConfig(**dataclasses.asdict(jax_run["optimizer"])))
-    model = DeepSeekV3(DeepSeekV3Config(**{**TINY, "moe_impl": jax_run["moe_impl"]}),
+    model = DeepSeekV3(DeepSeekV3Config(**{**TINY, "n_layers": jax_run["n_layers"],
+                                           "moe_impl": jax_run["moe_impl"]}),
                        device="cpu", param_dtype=torch.float32)
     trainer = Trainer(model, train, loss_fn=dsv3_loss_fn, device="cpu")
     state = trainer.init_state()

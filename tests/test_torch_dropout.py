@@ -25,6 +25,8 @@ import torch
 from solvingpapers_tpu_torch import kernels
 from solvingpapers_tpu_torch import ops as tops
 from solvingpapers_tpu_torch.kernels import build
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 tdr = importlib.import_module("solvingpapers_tpu_torch.kernels.dropout")
 

@@ -54,6 +54,8 @@ from solvingpapers_tpu_torch.serve import (
     store_lane,
 )
 from solvingpapers_tpu_torch.serve import engine as tengine
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 VOCAB = 256
@@ -280,9 +282,9 @@ def _skewed():
     # every layer's bias sends every token to expert HOT (its second
     # expert still follows the gate), which then carries nearly all the
     # weight; experts scaled up 4x (64x their output) so that a dropped
-    # pair moves the residual stream by O(1)
+    # pair moves the residual stream by O(1); one layer is enough for that
     return _pair(bias=lambda e: np.where(np.arange(e) == HOT, 10.0, 0.0),
-                 expert_scale=4.0, **ROUTED)
+                 expert_scale=4.0, **{**ROUTED, "n_layers": 1})
 
 
 def test_sixteen_slots_route_each_row_as_batch_one():

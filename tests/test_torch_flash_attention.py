@@ -27,6 +27,8 @@ import torch
 from solvingpapers_tpu import ops as jops
 from solvingpapers_tpu_torch import ops as tops
 from solvingpapers_tpu_torch.kernels import build
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # the modules, not the functions of the same name the packages export
 jfa = importlib.import_module("solvingpapers_tpu.kernels.flash_attention")

@@ -23,6 +23,8 @@ import torch
 from solvingpapers_tpu_torch import kernels
 from solvingpapers_tpu_torch.kernels import build
 from solvingpapers_tpu_torch.ops import dot_product_attention
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # the modules (the package's names `dropout` and `flash_attention` are
 # the functions)

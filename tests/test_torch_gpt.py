@@ -43,6 +43,8 @@ from solvingpapers_tpu_torch.data import lm_batch_iterator
 from solvingpapers_tpu_torch.infer.decode import generate
 from solvingpapers_tpu_torch.models import GPT, GPTConfig
 from solvingpapers_tpu_torch.train import OptimizerConfig, TrainConfig, Trainer
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 TINY = dict(vocab_size=64, block_size=64, dim=64, n_layers=2, n_heads=2,

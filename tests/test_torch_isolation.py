@@ -79,6 +79,11 @@ def test_engine_import_loads_no_jax():
             "solvingpapers_tpu_torch.models.deepseekv3, "
             "solvingpapers_tpu_torch.ops.moe, "
             "solvingpapers_tpu_torch.kernels.dropout, "
+            "solvingpapers_tpu_torch.native, "
+            "solvingpapers_tpu_torch.data.bpe, "
+            "solvingpapers_tpu_torch.serve.api, "
+            "solvingpapers_tpu_torch.serve.grammar, "
+            "solvingpapers_tpu_torch.serve.openai, "
             "solvingpapers_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'solvingpapers_tpu')]; "

@@ -26,6 +26,8 @@ from solvingpapers_tpu_torch.configs import dense_twin, get_config, list_configs
 from solvingpapers_tpu_torch.convert import flax_to_torch
 from solvingpapers_tpu_torch.infer.cache import KVCache, update_kv_cache
 from solvingpapers_tpu_torch.models import Llama, LlamaConfig, init_params
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-4
 TINY = dict(vocab_size=256, max_seq_len=64, dim=64, n_layers=2, n_heads=4,

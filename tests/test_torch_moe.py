@@ -24,6 +24,8 @@ from solvingpapers_tpu.ops import moe as jmoe
 from solvingpapers_tpu.ops.activations import swish as j_swish
 from solvingpapers_tpu_torch import ops
 from solvingpapers_tpu_torch.ops import moe as tmoe
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 F32_TOL, EXPERT_TOL = 1e-6, 1e-5
 

@@ -12,6 +12,8 @@ import torch
 
 from solvingpapers_tpu import ops as jops
 from solvingpapers_tpu_torch import ops as tops
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 RTOL, ATOL = 1e-5, 1e-6
 

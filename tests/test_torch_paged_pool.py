@@ -50,6 +50,8 @@ from solvingpapers_tpu_torch.serve import (
     scatter_lane_pages,
     scatter_written_pages,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 VOCAB = 256
 TINY = dict(vocab_size=VOCAB, max_seq_len=64, dim=64, n_layers=2, n_heads=4,

@@ -40,6 +40,8 @@ from solvingpapers_tpu_torch.serve import (
     ServeEngine,
 )
 from solvingpapers_tpu_torch.serve.prefix_cache import segment_bytes
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # ------------------------------------------------------------- tree units
 

@@ -36,6 +36,8 @@ from solvingpapers_tpu_torch.serve import (
     extract_lane,
     store_lane,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(vocab_size=256, max_seq_len=64, dim=64, n_layers=2, n_heads=4,
             n_kv_heads=2, dtype="float32", use_flash=True)

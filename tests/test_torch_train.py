@@ -66,6 +66,8 @@ from solvingpapers_tpu_torch.train import (
     make_optimizer,
     warmup_cosine,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL = 1e-5
 SEQ, BATCH, STEPS = 32, 2, 3
@@ -462,8 +464,8 @@ def test_factory_builds_a_token_file_run_and_refuses_other_kinds(tmp_path):
     assert batch["x"].shape == (run.train.batch_size, 32)
     assert next(eval_fn())["y"].dtype == torch.int32
     assert factory.loss_fn_for(cfg) is not None
-    bad = dataclasses.replace(run, data={"kind": "bpe"})
-    with pytest.raises(NotImplementedError, match="A3"):
+    bad = dataclasses.replace(run, data={"kind": "images"})
+    with pytest.raises(ValueError, match="unknown data kind"):
         factory.build_char_lm_run(bad, device="cpu")
     big = dataclasses.replace(run, model=dataclasses.replace(run.model,
                                                              vocab_size=100))

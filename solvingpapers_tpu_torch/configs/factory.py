@@ -49,7 +49,7 @@ def build_model(cfg: RunConfig, device=None, param_dtype=None):
 
         return GPT(cfg.model, device=device, param_dtype=param_dtype)
     raise NotImplementedError(
-        f"model family {cfg.model_family!r} is not ported yet (ROADMAP A2, A6)")
+        f"model family {cfg.model_family!r} is not ported yet (ROADMAP A6)")
 
 
 def loss_fn_for(cfg: RunConfig):

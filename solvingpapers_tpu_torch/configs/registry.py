@@ -3,10 +3,10 @@
 RunConfig (model + train + data settings), with the reference's own
 values.
 
-Vocabulary: the factory resizes `vocab_size` to the corpus's char
-tokenizer (the char and Markov corpora), as the reference's does. The
-BPE tokenizer is not ported yet, so token files carry ids and keep the
-registry's vocabulary.
+Vocabulary: the factory resizes `vocab_size` to the corpus's tokenizer
+(the char tokenizer of the char and Markov corpora, or the byte BPE of a
+`kind: "bpe"` config, `data/bpe.py`), as the reference's does; token
+files carry ids and keep the registry's vocabulary.
 """
 
 from __future__ import annotations

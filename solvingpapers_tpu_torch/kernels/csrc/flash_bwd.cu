@@ -76,11 +76,31 @@
 //     group over Params::splits blocks per kv tile, each writing float32
 //     partials that the wrapper folds in head order; otherwise the group
 //     folds inside the block and the kernel writes bf16 dk, dv.
-// float32 (the parity path and the small float32 configs), `*_fma` at D 16,
-// 32, 64 and 128: 256 threads, each a 4x4 block of the score tile and D / 16
-// output columns; all products as f32 FMAs on the CUDA cores, exact to
-// ~1e-6. Their row pitches (D + 4, D + 1) keep shared-memory reads
-// conflict-free at every D, as in flash_fwd.cu.
+// float32 (the parity path and the small float32 configs) at D 16, 32, 64
+// and 128:
+//   * dq, `flash_bwd_dq_fma`: 256 threads, each a 4x4 block of the score
+//     tile and D / 16 output columns; its products as f32 FMAs on the CUDA
+//     cores, exact to ~1e-6; row pitches D + 4 and D + 1 keep its
+//     shared-memory reads conflict-free.
+//   * dk/dv, `flash_bwd_dkv_tf32`: its four products on the tensor cores,
+//     mma.sync m16n8k8 in 3xTF32 (hopper.cuh; as flash_fwd.cu's float32
+//     kernel). A block is 64 kv rows and 8 warps, a pair of warps on each
+//     16 kv rows: each warp of a pair takes half of D, both for the score
+//     products (the pair adds its two partial s^T and dp^T through shared
+//     memory) and for dk and dv, which it owns on that half (D / 2
+//     accumulator registers a warp: one warp holding all of dk and dv at
+//     D 128 spilled). cp.async copies k and v once and a ring of two
+//     stages of q (scaled on arrival), dO, lse and delta tiles of 64 rows
+//     (32 at D 128, for shared memory), rows at pitch D + 4. S^T = K Q^T and dP^T = V dO^T take k's and v's
+//     A fragments and q's and dO's B fragments by ldmatrix.x4; their
+//     accumulators, as A fragments (c_as_a), give dV += P^T dO and dK +=
+//     dS^T Q with dO's and q's B fragments read at the permuted rows
+//     (2t, 2t + 1): no transposed copy and no P or dS tile in shared
+//     memory. Each q tile's product reaches dk and dv by an ordinary add
+//     (the tensor cores' truncating accumulation never runs over the whole
+//     sequence). The split of the GQA group and the launch order are
+//     `bwd_plan`'s, with kv tiles of KV32 rows: phase 7's MQA shape (1 kv
+//     head, 8 q heads, 2048 rows) runs 8 x 32 blocks, not 32.
 // What bounds them: at the training shapes dq does 3 and dk/dv 4 products
 // of 2*D operations per visible (row, column) pair against O(D) bytes per
 // row, so both are compute-bound at the tensor-core peak; PERF.md keeps
@@ -98,9 +118,9 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;            // fma kernels: q rows per tile
-constexpr int BK = 64;            // fma kernels: kv rows per tile
-constexpr int THREADS = 256;      // fma kernels: 16 row groups x 16 lanes
+constexpr int BQ = 64;            // dq fma kernel: q rows per tile
+constexpr int BK = 64;            // dq fma kernel: kv rows per tile
+constexpr int THREADS = 256;      // dq fma kernel: 16 row groups x 16 lanes
 constexpr float LOG2E = 1.4426950408889634f;
 
 // All tensors contiguous: q, dO, dq (B, Sq, N, D); k, v, dk, dv
@@ -122,8 +142,8 @@ struct Params {
   unsigned long long seed;  // dropout: Philox key
   uint32_t threshold;       // dropout: keep iff word < threshold
   float drop_scale;         // dropout: 1 / (1 - rate)
-  int splits;               // bf16 dk/dv: blocks per (b, kv head, kv tile)
-  const int* tiles;         // bf16: output tiles (BLOCK_ROWS rows) in launch order
+  int splits;               // dk/dv: blocks per (b, kv head, kv tile)
+  const int* tiles;         // output tiles in launch order (not float32 dq's)
 };
 
 // first q row at or after which query rows can see kv column `col`, rounded
@@ -293,167 +313,279 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_fma(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 dk/dv: 3xTF32 on the tensor cores (mma.sync), fed by a cp.async ring
+
+constexpr int KV32 = 64;        // kv rows a block: 4 warp pairs of 16
+constexpr int THREADS32 = 256;  // 8 warps: (16 kv rows) x (half of D)
+constexpr int STAGES32 = 2;     // q tiles in flight
+
+// q rows a tile: 64, or 32 at D 128, where the stages of 64 rows and the
+// pairs' partial scores would not fit in shared memory beside k and v
 template <int D>
-struct DkvFma {
-  static constexpr int RP = D + 1;   // k, v, q (scaled), dO rows
-  static constexpr int PP = BQ + 4;  // p^T and ds^T rows: (BK, BQ)
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (2 * BK * RP + 2 * BQ * RP + 2 * BK * PP + 2 * BQ);
+constexpr int dkv_q_rows() {
+  return D == 128 ? 32 : 64;
+}
+
+// shared memory in floats: the block's k and v tiles, then per stage a q
+// tile (scaled), a dO tile and their rows' lse and delta, then each warp's
+// partial s^T and dp^T for its pair (X floats a lane); rows at pitch D + 4
+template <int D>
+struct DkvTf32Smem {
+  static constexpr int TQ = dkv_q_rows<D>();
+  static constexpr int P = D + 4;
+  static constexpr int V = KV32 * P;
+  static constexpr int STAGE0 = 2 * KV32 * P;
+  static constexpr int STAGE = 2 * TQ * P + 2 * TQ;  // q, dO, lse, delta
+  static constexpr int X = TQ;                       // 2 x (TQ / 8) n8 tiles x 4
+  static constexpr int XBUF = STAGE0 + STAGES32 * STAGE;  // warp w at XBUF + w * X * 32
+  static constexpr size_t bytes = sizeof(float) * (XBUF + (THREADS32 / 32) * X * 32);
+  static_assert(BQ % TQ == 0, "first_live_q rounds to a whole q tile");
 };
 
-template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
-  using TL = DkvFma<D>;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * TL::RP;
-  float* Qs = Vs + BK * TL::RP;
-  float* dOs = Qs + BQ * TL::RP;
-  float* Pt = dOs + BQ * TL::RP;
-  float* dSt = Pt + BK * TL::PP;
-  float* lse_s = dSt + BK * TL::PP;
-  float* dl_s = lse_s + BQ;
+// c (16 x 8NQ) = the 16 rows at `a` times the 8NQ rows at `b` transposed,
+// over the D / 2 columns at both (A and B fragments by ldmatrix_x4 at this
+// lane's addresses; pitch D + 4). The small terms go to an accumulator of
+// their own, added at the end
+template <int D, int NQ>
+__device__ __forceinline__ void half_product(float (&c)[NQ][4], uint32_t a, uint32_t b) {
+  constexpr int P = D + 4;
+  float e[NQ][4];
+  zero(c);
+  zero(e);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t x[4];
+    Tf32A af;
+    ldmatrix_x4(x, a + 32u * kk);
+    split_tf32(x, af.big, af.small);
+#pragma unroll
+    for (int np = 0; np < NQ / 2; ++np) {
+      uint32_t y[4];
+      Tf32B b0, b1;
+      ldmatrix_x4(y, b + 4u * (16 * np * P) + 32u * kk);
+      b_frags(y, b0, b1);
+      mma_3xtf32(c[2 * np], e[2 * np], af, b0);
+      mma_3xtf32(c[2 * np + 1], e[2 * np + 1], af, b1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[nt][i] += e[nt][i];
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // q columns tx + 16j
-  const int ty = tid >> 4;  // kv rows ty*4 + i
-  const int bkv = blockIdx.y;
+// acc (16 x D / 2) += x (16 x 8NQ, C fragments, as the A operand) times
+// the 8NQ rows from `rows` (this lane's first: row 2t, column g; pitch
+// D + 4), in passes of 4 k-steps (32 registers of A fragments): each n8
+// tile of acc takes a pass's product, accumulated from zero, by one add
+template <int D, int NQ>
+__device__ __forceinline__ void add_product(float (&acc)[D / 16][4], const float (&x)[NQ][4],
+                                            const float* rows) {
+  constexpr int P = D + 4;
+#pragma unroll
+  for (int k0 = 0; k0 < NQ; k0 += 4) {
+    Tf32A xa[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) xa[kk] = c_as_a(x[k0 + kk]);
+#pragma unroll
+    for (int nt = 0; nt < D / 16; ++nt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* r = rows + 8 * (k0 + kk) * P + 8 * nt;
+        mma_3xtf32(d, e, xa[kk], b_of(r[0], r[P]));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += d[i] + e[i];
+    }
+  }
+}
+
+// dk/dv: block i = (kv tile p.tiles[i / per_tile], b * Nkv + kv head,
+// split), per_tile = B * Nkv * splits, as the bf16 kernel's; the block
+// loops over its group / splits q heads and, for each, over the TQ-row q
+// tiles from the first 64-row tile that sees the kv tile. Warps w and w + 4
+// are a pair on kv rows kv0 + 16 (w % 4): each computes s^T and dp^T over
+// its half of D, the pair adds the halves through shared memory, and each
+// then owns dk, dv on its half of D (D / 2 accumulator registers each, not
+// D: at D 128 a warp holding all of dk and dv spilled). With splits > 1 it
+// writes float32 partials for the wrapper to fold.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS32, 1) flash_bwd_dkv_tf32(const Params p) {
+  using SM = DkvTf32Smem<D>;
+  constexpr int TQ = SM::TQ;
+  constexpr int NQ = TQ / 8;  // n8 tiles of a warp's s^T and dp^T
+  constexpr int P = SM::P;
+  constexpr int NT = D / 16;  // n8 tiles of a warp's dk and dv (half of D)
+  extern __shared__ __align__(16) float fsm[];
+  const uint32_t sbase = smem_addr(fsm);
+
+  const int per_tile = p.B * p.Nkv * p.splits;
+  const int tile = blockIdx.x / per_tile;
+  const int rest = blockIdx.x - tile * per_tile;
+  const int bkv = rest / p.splits;
+  const int split = rest - bkv * p.splits;
   const int b = bkv / p.Nkv;
   const int kvh = bkv - b * p.Nkv;
   const int group = p.N / p.Nkv;
-  const int kv0 = blockIdx.x * BK;
+  const int heads = group / p.splits;
+  const int h0 = kvh * group + split * heads;
+  const int kv0 = p.tiles[tile] * KV32;
+  const int q_first = first_live_q(p, kv0);
+  const int n_q = p.Sq > q_first ? (p.Sq - q_first + TQ - 1) / TQ : 0;
+  const int iters = heads * n_q;
+  const int offset = p.Skv - p.Sq;
+  const int tid = threadIdx.x;
   const long long qstride = static_cast<long long>(p.N) * D;
   const long long kstride = static_cast<long long>(p.Nkv) * D;
+  const long long head0 = (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+  auto stage = [&](int it) { return SM::STAGE0 + (it % STAGES32) * SM::STAGE; };
+  // q tile, dO tile, lse and delta of item it (q head, TQ-row q tile)
+  auto load_item = [&](int it) {
+    const int h = h0 + it / n_q;
+    const int q0 = q_first + (it % n_q) * TQ;
+    const uint32_t st = sbase + 4u * stage(it);
+    const long long at = static_cast<long long>(b) * p.Sq * qstride + h * D + q0 * qstride;
+    load_rows<D, THREADS32>(st, static_cast<const float*>(p.q) + at, qstride, TQ, p.Sq - q0,
+                            tid);
+    load_rows<D, THREADS32>(st + 4u * TQ * P, static_cast<const float*>(p.dout) + at, qstride,
+                            TQ, p.Sq - q0, tid);
+    if (tid < 2 * TQ) {
+      const int r = tid % TQ;
+      const bool in = q0 + r < p.Sq;
+      const float* src = (tid < TQ ? p.lse : p.delta) +
+                         static_cast<long long>(b * p.N + h) * p.Sq + (in ? q0 + r : 0);
+      cp_async4(st + 4u * (2 * TQ * P + tid), src, in);
+    }
+  };
+  auto scale_q = [&](int it) { scale_rows<D, THREADS32>(fsm + stage(it), TQ, p.scale, tid); };
 
-  const float* kg = static_cast<const float*>(p.k) +
-                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  const float* vg = static_cast<const float*>(p.v) +
-                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int c = i / D;
-    const int d = i - c * D;
-    const int col = kv0 + c;
-    const bool in = col < p.Skv;
-    Ks[c * TL::RP + d] = in ? kg[col * kstride + d] : 0.f;
-    Vs[c * TL::RP + d] = in ? vg[col * kstride + d] : 0.f;
-  }
+  // k, v and item 0 in one group; each item's q is scaled where it landed
+  load_rows<D, THREADS32>(sbase, static_cast<const float*>(p.k) + head0 + kv0 * kstride,
+                          kstride, KV32, p.Skv - kv0, tid);
+  load_rows<D, THREADS32>(sbase + 4u * SM::V,
+                          static_cast<const float*>(p.v) + head0 + kv0 * kstride, kstride,
+                          KV32, p.Skv - kv0, tid);
+  if (iters > 0) load_item(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (iters > 0) scale_q(0);
+  __syncthreads();
 
-  float dk[4][DC], dv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wq = warp % 4;
+  const int dc = (warp / 4) * (D / 2);  // the warp's half of D
+  const int kw = kv0 + 16 * wq;         // the pair's first kv row
+  // ldmatrix.x4 addresses (matrix lane / 8, its row lane % 8): k's and v's
+  // A fragments (rows kw.., columns dc + 8kk..: rows +0 / +8 x columns
+  // +0 / +4), q's and dO's B fragments (two n8 tiles x columns +0 / +4)
+  const int mi = lane / 8;
+  const int mr = lane % 8;
+  const uint32_t a_lane = sbase + 4u * ((16 * wq + mr + 8 * (mi & 1)) * P + dc + 4 * (mi >> 1));
+  const uint32_t b_lane = 4u * ((8 * (mi >> 1) + mr) * P + dc + 4 * (mi & 1));
+  float* xmine = fsm + SM::XBUF + warp * SM::X * 32 + lane;
+  const float* xpair = fsm + SM::XBUF + (warp ^ 4) * SM::X * 32 + lane;
 
-  const int q_first = first_live_q(p, kv0);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const long long bn = static_cast<long long>(b) * p.N + h;
-    const float* qg = static_cast<const float*>(p.q) +
-                      (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-    const float* dog = static_cast<const float*>(p.dout) +
-                       (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-    for (int q0 = q_first; q0 < p.Sq; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      for (int i = tid; i < BQ * D; i += THREADS) {
-        const int r = i / D;
-        const int d = i - r * D;
-        const int row = q0 + r;
-        const bool in = row < p.Sq;
-        Qs[r * TL::RP + d] = in ? qg[row * qstride + d] * p.scale : 0.f;
-        dOs[r * TL::RP + d] = in ? dog[row * qstride + d] : 0.f;
-      }
-      if (tid < BQ) {
-        const int row = q0 + tid;
-        const bool in = row < p.Sq;
-        lse_s[tid] = in ? p.lse[bn * p.Sq + row] : 0.f;
-        dl_s[tid] = in ? p.delta[bn * p.Sq + row] : 0.f;
-      }
-      __syncthreads();
+  float dk[NT][4], dv[NT][4];
+  zero(dk);
+  zero(dv);
 
-      float s[4][4], dp[4][4];
+#pragma unroll 1  // one q tile at a time
+  for (int it = 0; it < iters; ++it) {
+    if (it + 1 < iters) load_item(it + 1);
+    cp_async_commit();
+    const int h = h0 + it / n_q;
+    const int qa = q_first + (it % n_q) * TQ;  // the tile's first q row
+    const uint32_t qs = sbase + 4u * stage(it);
+    const float* qf = fsm + stage(it);
+    const float* dof = qf + TQ * P;
+    const float* lse_s = qf + 2 * TQ * P;
+    const float* dl_s = lse_s + TQ;
+    // the pair skips a tile none of whose q rows sees its first kv row
+    if (kw < p.Skv && (!p.causal || kw <= min(qa + TQ - 1, p.Sq - 1) + offset)) {
+      // with dropout, this q head's keep bits in the transposed layout (the
+      // forward's mask, philox.cuh)
+      uint32_t kb = 0;
+      if (DROP)
+        kb = dropout::keep_bits_cols<TQ / 16>(p.seed, static_cast<uint32_t>(b * p.N + h),
+                                              qa + 2 * t, kw + g, p.threshold);
+      // s^T = k q^T and dp^T = v dO^T (16 kv rows x TQ q columns) over
+      // this warp's half of D, then the pair's halves added (the same sum
+      // in both warps): st[nt][c] is kv row kw + g + 8 (c / 2), q row
+      // qa + 8nt + 2t + c % 2
+      float st[NQ][4], dpt[NQ][4];
+      half_product<D, NQ>(st, a_lane, qs + b_lane);
+      half_product<D, NQ>(dpt, a_lane + 4u * SM::V, qs + 4u * TQ * P + b_lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float ka[4], va[4], qb[4], db[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ka[i] = Ks[(ty * 4 + i) * TL::RP + d];
-          va[i] = Vs[(ty * 4 + i) * TL::RP + d];
+        for (int c = 0; c < 4; ++c) {
+          xmine[(4 * nt + c) * 32] = st[nt][c];
+          xmine[(4 * NQ + 4 * nt + c) * 32] = dpt[nt][c];
         }
+      bar_sync(1 + wq, 64);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qb[j] = Qs[(tx + 16 * j) * TL::RP + d];
-          db[j] = dOs[(tx + 16 * j) * TL::RP + d];
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          st[nt][c] += xpair[(4 * nt + c) * 32];
+          dpt[nt][c] += xpair[(4 * NQ + 4 * nt + c) * 32];
         }
+      // p = exp(s - lse), 0 where masked (a tile every element of which
+      // the pair sees skips the test; the test is a select, not a branch);
+      // ds = p (dp - delta), and with dropout dp and dv's p are
+      // keep * x / (1 - rate)
+      const bool whole = qa + TQ <= p.Sq && kw + 16 <= p.Skv &&
+                         (!p.causal || kw + 15 <= qa + offset);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
-            dp[i][j] = fmaf(va[i], db[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx + 16 * j;
-          const float pv = visible(p, q0 + r, kv0 + ty * 4 + i)
-                               ? expf(s[i][j] - lse_s[r])
-                               : 0.f;
-          float pu = pv, dpv = dp[i][j];  // dv's p and ds's dp
+        for (int c = 0; c < 4; ++c) {
+          const int r = 8 * nt + 2 * t + c % 2;  // q row qa + r
+          const int kv = kw + g + 8 * (c / 2);
+          const bool vis = whole || (qa + r < p.Sq && kv < p.Skv &&
+                                     (!p.causal || kv <= qa + r + offset));
+          const float ex = exp2_approx((st[nt][c] - lse_s[r]) * LOG2E);
+          const float pv = vis ? ex : 0.f;
+          float dpv = dpt[nt][c];
+          float pu = pv;
           if (DROP) {
-            const bool kp = dropout::keep(p.seed, static_cast<uint32_t>(bn),
-                                          q0 + r, kv0 + ty * 4 + i,
-                                          p.threshold);
+            const bool kp = (kb >> (4 * nt + c)) & 1u;
             pu = kp ? pv * p.drop_scale : 0.f;
             dpv = kp ? dpv * p.drop_scale : 0.f;
           }
-          Pt[(ty * 4 + i) * TL::PP + r] = pu;
-          dSt[(ty * 4 + i) * TL::PP + r] = pv * (dpv - dl_s[r]);
+          dpt[nt][c] = pv * (dpv - dl_s[r]);
+          st[nt][c] = pu;
         }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pr[4], sr[4], dob[DC], qb[DC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pr[i] = Pt[(ty * 4 + i) * TL::PP + r];
-          sr[i] = dSt[(ty * 4 + i) * TL::PP + r];
-        }
-#pragma unroll
-        for (int jj = 0; jj < DC; ++jj) {
-          dob[jj] = dOs[r * TL::RP + tx + 16 * jj];
-          qb[jj] = Qs[r * TL::RP + tx + 16 * jj];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DC; ++jj) {
-            dv[i][jj] = fmaf(pr[i], dob[jj], dv[i][jj]);
-            dk[i][jj] = fmaf(sr[i], qb[jj], dk[i][jj]);  // q is pre-scaled
-          }
-      }
+      // dV += P^T dO and dK += dS^T q on this warp's half of D, over the
+      // tile's q rows: k-step kk takes n8 tile kk (q rows 8kk + 2t, + 1 as
+      // its k indices t, t + 4), so dO's and q's B fragments are those
+      // rows, column dc + g
+      const int row = 2 * t * P + dc + g;
+      add_product<D, NQ>(dv, st, dof + row);
+      add_product<D, NQ>(dk, dpt, qf + row);
     }
+    cp_async_wait<0>();  // item it + 1 has landed: scale its q
+    if (it + 1 < iters) scale_q(it + 1);
+    __syncthreads();  // every warp is done with item it's stage and scores
   }
 
-  float* dkg = static_cast<float*>(p.dk) +
-               (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  float* dvg = static_cast<float*>(p.dv) +
-               (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+  const long long part0 = static_cast<long long>(split) * p.B * p.Skv * kstride;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = kv0 + ty * 4 + i;
-    if (col >= p.Skv) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = kw + g + 8 * i;
+    if (row >= p.Skv) continue;
+    const long long at = part0 + head0 + row * kstride + dc + 2 * t;
+    float* dkr = static_cast<float*>(p.dk) + at;
+    float* dvr = static_cast<float*>(p.dv) + at;
 #pragma unroll
-    for (int jj = 0; jj < DC; ++jj) {
-      dkg[col * kstride + tx + 16 * jj] = dk[i][jj];
-      dvg[col * kstride + tx + 16 * jj] = dv[i][jj];
+    for (int nt = 0; nt < NT; ++nt) {
+      *reinterpret_cast<float2*>(dkr + 8 * nt) = make_float2(dk[nt][2 * i], dk[nt][2 * i + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * nt) = make_float2(dv[nt][2 * i], dv[nt][2 * i + 1]);
     }
   }
 }
@@ -965,11 +1097,20 @@ int launch_dq_fma(const Params& p, cudaStream_t s) {
                 dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
 }
 
+// one block per entry of the plan; shared memory past 48 KB, with the
+// carveout's maximum
 template <int D, bool DROP>
-int launch_dkv_fma(const Params& p, cudaStream_t s) {
+int launch_dkv_tf32(const Params& p, cudaStream_t s) {
   static bool configured = false;
-  return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
-                dim3((p.Skv + BK - 1) / BK, p.B * p.Nkv), THREADS, p, s);
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tf32<D, DROP>,
+                                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (p.Skv + KV32 - 1) / KV32 * p.B * p.Nkv * p.splits;
+  return launch(flash_bwd_dkv_tf32<D, DROP>, DkvTf32Smem<D>::bytes, configured,
+                dim3(blocks), THREADS32, p, s);
 }
 
 template <int D, bool DROP>
@@ -1003,7 +1144,7 @@ int launch_dq(int dtype, bool drop, const Params& p, cudaStream_t s) {
 template <int D>
 int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
   if (dtype == 0)
-    return drop ? launch_dkv_fma<D, true>(p, s) : launch_dkv_fma<D, false>(p, s);
+    return drop ? launch_dkv_tf32<D, true>(p, s) : launch_dkv_tf32<D, false>(p, s);
   if constexpr (D % 64 == 0)
     return drop ? launch_dkv_wgmma<D, true>(p, s) : launch_dkv_wgmma<D, false>(p, s);
   return -1;
@@ -1014,12 +1155,12 @@ int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16. Every tensor contiguous with 16-byte
 // aligned rows (the wrapper guarantees it). dropout != 0 redraws the
 // forward's mask from (seed, threshold) and scales kept entries by
-// drop_scale. bf16 takes `tiles`, device int32: the output tiles of
-// BLOCK_ROWS rows (q tiles for dq, kv tiles for dk/dv) in launch order,
-// each once; float32 ignores it. flash_bwd_dkv with splits > 1 (bf16)
-// splits each kv head's q heads over that many blocks and writes float32
-// partials (splits, B, Skv, Nkv, D) to dk, dv for the caller to sum; splits
-// must divide N / Nkv, and float32 takes 1. Each returns 0 on success, the CUDA
+// drop_scale. `tiles`, device int32, lists the output tiles in launch
+// order, each once: bf16's of BLOCK_ROWS rows (q tiles for dq, kv tiles
+// for dk/dv), float32 dk/dv's of KV32 rows; float32 dq ignores it.
+// flash_bwd_dkv with splits > 1 splits each kv head's q heads over that
+// many blocks and writes float32 partials (splits, B, Skv, Nkv, D) to dk,
+// dv for the caller to sum; splits must divide N / Nkv. Each returns 0 on success, the CUDA
 // error code of a refused launch, -1 for a (dtype, head_dim) pair this
 // library was not built for, or -2 when no tensor map could be made. The
 // caller launches only with B, N, Sq and Skv all positive.
@@ -1057,7 +1198,7 @@ extern "C" int flash_bwd_dkv(int dtype, int head_dim, const void* q,
                  scale, causal, seed, threshold, drop_scale, splits, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return -1;
-  if (splits < 1 || (N / Nkv) % splits != 0 || (dtype == 0 && splits != 1))
+  if (splits < 1 || (N / Nkv) % splits != 0)
     return -1;
   switch (head_dim) {
     case 16: return launch_dkv<16>(dtype, dropout != 0, p, s);

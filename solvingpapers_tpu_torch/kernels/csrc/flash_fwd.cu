@@ -79,16 +79,46 @@
 //     float32, written as bf16 into the consumer's q tile in the swizzled
 //     layout and stored by TMA (rows past Sq are not written); lse by the
 //     first thread of each row's quad.
-// float32 (the parity paths and the small float32 configs), `flash_fwd_fma`
-// at D 16, 32, 64 and 128: one block per (b * N + h, 64-row q tile), 256
-// threads, Q, K, V and P tiles in shared memory as f32, each thread a 4x4
-// block of the score tile and D / 16 output columns; both products as f32
-// FMAs on the CUDA cores, exact to ~1e-6; q scaled before QK^T as the TPU
-// kernel does. Its in-block loop over 64-column kv tiles stops at the last
-// tile any row of the q tile can see (the causal skip). Row pitches D + 4
-// (Q) and D + 1 (K) keep the accesses conflict-free at every D: a warp's
-// two row groups sit 4 (D + 4) = 16 banks apart (mod 32), and K's 16
-// column lanes read rows D + 1 apart, an odd stride.
+// float32 (the parity paths and the small float32 configs),
+// `flash_fwd_tf32<D, DROP>` at D 16, 32, 64 and 128: both products on the
+// tensor cores, mma.sync m16n8k8 in 3xTF32 (hopper.cuh: each operand split
+// into two tf32 parts, three products accumulated in f32, ~2^-21 relative
+// a product where one tf32 product keeps ~2^-11). Three tf32 products at
+// 495 TFLOP/s outrun one f32 FMA product at 67. wgmma reads B from shared
+// memory and does not transpose 32-bit types, so both parts of k and of a
+// transposed v would sit there; with mma.sync the B fragments are split
+// in registers, and shared memory holds each f32 tile once.
+//   * A block is 64 q rows of one (b, q head), launched heaviest first
+//     as bf16's, and two halves of 4 warps (16 rows a warp): half h takes
+//     kv tiles 2j + h, and the halves' o, row maxima and row sums meet in
+//     shared memory at the end. So 8 warps share a q tile, and the 128
+//     blocks of a 1024-row chunk of 8 heads still keep 8 warps an SM.
+//     Shared memory: 169 KB a block at D 128 (one an SM), 87 KB at D 64
+//     (two).
+//   * cp.async copies the q tile (scaled on arrival: q is scaled before
+//     QK^T, as the TPU kernel does) and a ring of two stages, each a pair
+//     of 32-row k and v tiles, in 16-byte pieces into rows of pitch D + 4
+//     floats, rows past Skv zero-filled: pair j + 1's copies are in flight
+//     while pair j's products run. The pitch keeps every fragment read
+//     free of bank conflicts: ldmatrix's 8 rows of 16 bytes (4 (D + 4)
+//     words apart: distinct bank quads) and v's (2t, g) reads
+//     (2t (D + 4) = 8t mod 32).
+//   * S = Q K^T: q's A fragments by ldmatrix.x4, split once a k-step and
+//     used for 4 n8 tiles; k's B fragments by ldmatrix.x4, two n8 tiles at
+//     a time, split in registers.
+//   * The softmax runs in base 2 (log2 e folded into the exponent,
+//     ex2.approx) with the row maximum in scaled units; it masks only tiles
+//     a warp does not see whole (a masked probability is exactly 0), and a
+//     warp skips a tile none of its rows sees. With dropout the keep bits
+//     are philox.cuh's keep_bits_rows, drawn in the C fragment's layout.
+//   * O = alpha O + P V with P in registers: each C fragment of S is the
+//     A fragment of a k-step (hopper.cuh's c_as_a), and v's B fragment is
+//     read from the rows that permutation names; no P tile in shared
+//     memory. Each n8 tile of o takes a tile's product (accumulated from
+//     zero) by one fma, so the tensor cores' truncating accumulation never
+//     runs over the whole row.
+//   * Epilogue: o = acc * (1 / l) (times 1 / (1 - rate)) by float2 stores,
+//     lse = m + ln l; rows that saw no key get o = 0 and lse = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,10 +132,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;        // fma kernel: q rows per block
-constexpr int BK = 64;        // fma kernel: kv columns per tile
-constexpr int THREADS = 256;  // fma kernel: 16 row groups x 16 column lanes
-constexpr float BIG_NEG = -1073741824.0f;  // -2**30, the reference's fill
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
@@ -125,176 +151,6 @@ struct Params {
   float drop_scale;         // dropout: 1 / (1 - rate)
 };
 
-// Row pitches (in floats) chosen so the two row groups a warp spans land
-// in different shared-memory banks, and K's column reads are conflict-free.
-template <int D>
-struct Tile {
-  static constexpr int QP = D + 4;
-  static constexpr int KP = D + 1;
-  static constexpr int VP = D;
-  static constexpr int PP = BK + 4;
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (BQ * QP + BK * KP + BK * VP + BQ * PP);
-};
-
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS) flash_fwd_fma(Params p) {
-  using TL = Tile<D>;
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * TL::QP;
-  float* Vs = Ks + BK * TL::KP;
-  float* Ps = Vs + BK * TL::VP;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bn = blockIdx.y;
-  const int b = bn / p.N;
-  const int h = bn - b * p.N;
-  const int kvh = h / (p.N / p.Nkv);
-  const int q0 = blockIdx.x * BQ;
-  const int offset = p.Skv - p.Sq;
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const float* kg = static_cast<const float*>(p.k) + b * p.sk_b + kvh * p.sk_h;
-  const float* vg = static_cast<const float*>(p.v) + b * p.sv_b + kvh * p.sv_h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int row = q0 + r;
-    float x = 0.f;
-    if (row < p.Sq) x = qg[row * p.sq_s + d] * p.scale;
-    Qs[r * TL::QP + d] = x;
-  }
-
-  // last kv column any row of this tile can see (exclusive bound)
-  int kv_end = p.Skv;
-  if (p.causal) {
-    const int last_row = min(q0 + BQ, p.Sq) - 1;
-    kv_end = min(p.Skv, last_row + offset + 1);
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = BIG_NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D;
-      const int d = i - c * D;
-      const int col = kv0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (col < p.Skv) {
-        kx = kg[col * p.sk_s + d];
-        vx = vg[col * p.sv_s + d];
-      }
-      Ks[c * TL::KP + d] = kx;
-      Vs[c * TL::VP + d] = vx;
-    }
-    __syncthreads();  // (the first pass also publishes Qs)
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * TL::QP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * TL::KP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool vis[4];
-      float rmax = BIG_NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kv0 + tx + 16 * j;
-        vis[j] = col < p.Skv && (!p.causal || col <= row + offset);
-        if (!vis[j]) s[i][j] = BIG_NEG;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // a masked probability is 0, never exp(BIG_NEG - m_new): a row
-        // that has seen no visible key keeps l == 0 (the empty-row guard)
-        const float pv = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        rsum += pv;
-        float pu = pv;  // what the PV product takes
-        if (DROP)
-          pu = dropout::keep(p.seed, bn, row, kv0 + tx + 16 * j, p.threshold)
-                   ? pv * p.drop_scale
-                   : 0.f;
-        Ps[(ty * 4 + i) * TL::PP + tx + 16 * j] = pu;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pr[4], vr[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty * 4 + i) * TL::PP + c];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) vr[jj] = Vs[c * TL::VP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DC; ++jj)
-          acc[i][jj] = fmaf(pr[i], vr[jj], acc[i][jj]);
-    }
-    __syncthreads();  // before the next tile overwrites Ks, Vs, Ps
-  }
-
-  float* og = static_cast<float*>(p.o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Sq) continue;
-    const bool empty = !(l[i] > 0.f);
-    // o is allocated contiguous (B, Sq, N, D)
-    float* orow = og + ((static_cast<long long>(b) * p.Sq + row) * p.N + h) * D;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj)
-      orow[tx + 16 * jj] = empty ? 0.f : acc[i][jj] / l[i];
-    if (tx == 0)
-      p.lse[static_cast<long long>(bn) * p.Sq + row] =
-          empty ? 0.f : m[i] + logf(l[i]);
-  }
-}
 // ---------------------------------------------------------------------------
 // bfloat16: a warp-specialised wgmma kernel fed by a TMA ring
 
@@ -670,6 +526,257 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (mma.sync), fed by a cp.async ring
+
+constexpr int TQ32 = 64;        // q rows a block: 4 warps of 16, in each half
+constexpr int TKV32 = 32;       // kv rows a tile
+constexpr int THREADS32 = 256;  // two halves of 4 warps, on alternate kv tiles
+constexpr int STAGES32 = 2;     // pairs of kv tiles in flight
+
+// shared memory in floats: the q tile, then per stage and half a k and a
+// v tile, every row at pitch D + 4; after the loop the stages hold the
+// halves' merge
+template <int D>
+struct Tf32Smem {
+  static constexpr int P = D + 4;
+  static constexpr int T = TKV32 * P;  // a k or v tile
+  static constexpr int KV = TQ32 * P;  // stage s, half h: k at KV + (2s + h) 2T, v at + T
+  static constexpr size_t bytes = sizeof(float) * (KV + STAGES32 * 4 * T);
+  static_assert(STAGES32 * 4 * T >= (THREADS32 / 2) * (D / 2 + 4), "the merge fits");
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS32, D == 128 ? 1 : 2)
+    flash_fwd_tf32(const Params p) {
+  using SM = Tf32Smem<D>;
+  constexpr int P = SM::P;
+  constexpr int NT = D / 8;   // n8 tiles of a warp's o
+  constexpr int HT = THREADS32 / 2;
+  extern __shared__ __align__(16) float fsm[];
+  const uint32_t sbase = smem_addr(fsm);
+
+  const int n_bh = p.B * p.N;
+  const int q_tiles = (p.Sq + TQ32 - 1) / TQ32;
+  const int bn = blockIdx.x % n_bh;
+  const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.x) / n_bh) * TQ32;  // heaviest first
+  const int b = bn / p.N;
+  const int h = bn - b * p.N;
+  const int kvh = h / (p.N / p.Nkv);
+  const int kv_tiles = (kv_end_rows(p, q0, TQ32) + TKV32 - 1) / TKV32;
+  const int pairs = (kv_tiles + 1) / 2;
+  const int offset = p.Skv - p.Sq;
+  const int tid = threadIdx.x;
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.sq_b + h * p.sq_h + q0 * p.sq_s;
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk_b + kvh * p.sk_h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv_b + kvh * p.sv_h;
+  auto tile = [&](int it, int half) { return SM::KV + ((it % STAGES32) * 2 + half) * 2 * SM::T; };
+  // kv tiles 2it and 2it + 1, one for each half
+  auto load_pair = [&](int it) {
+#pragma unroll 1
+    for (int half = 0; half < 2 && 2 * it + half < kv_tiles; ++half) {
+      const int kv0 = (2 * it + half) * TKV32;
+      const uint32_t kt = sbase + 4u * tile(it, half);
+      load_rows<D, THREADS32>(kt, kg + kv0 * p.sk_s, p.sk_s, TKV32, p.Skv - kv0, tid);
+      load_rows<D, THREADS32>(kt + 4u * SM::T, vg + kv0 * p.sv_s, p.sv_s, TKV32,
+                              p.Skv - kv0, tid);
+    }
+  };
+
+  // the q tile and the first pair in one group; q is scaled where it landed
+  load_rows<D, THREADS32>(sbase, qg, p.sq_s, TQ32, p.Sq - q0, tid);
+  if (pairs > 0) load_pair(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  scale_rows<D, THREADS32>(fsm, TQ32, p.scale, tid);
+  __syncthreads();
+
+  // warp w owns rows r0 = q0 + 16 (w % 4) .. of the kv tiles 2it + w / 4;
+  // this thread rows row0 and row0 + 8
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int half = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = q0 + 16 * (warp % 4);
+  const int row0 = r0 + g;
+  const int last = min(r0 + 15, p.Sq - 1);  // the warp's last row in range
+  // ldmatrix.x4 addresses: matrix lane / 8, its row lane % 8. For q's A
+  // fragment (rows r0.., columns 8kk..) the matrices are (rows +0 / +8) x
+  // (columns +0 / +4); for k's B fragments two n8 tiles x (columns +0 / +4)
+  const int mi = lane / 8;
+  const int mr = lane % 8;
+  const uint32_t qa = sbase + 4u * ((r0 - q0 + mr + 8 * (mi & 1)) * P + 4 * (mi >> 1));
+  const uint32_t kb_lane = 4u * ((8 * (mi >> 1) + mr) * P + 4 * (mi & 1));
+
+  float o[NT][4];
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY};  // row maxima, scaled units
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
+
+#pragma unroll 1  // one pair of tiles at a time
+  for (int it = 0; it < pairs; ++it) {
+    if (it + 1 < pairs) load_pair(it + 1);
+    cp_async_commit();
+    const int kv0 = (2 * it + half) * TKV32;
+    const uint32_t ks = sbase + 4u * tile(it, half);
+    const float* vs = fsm + tile(it, half) + SM::T;
+    // a warp whose rows see no column of its tile skips it
+    if (kv0 < kv_tiles * TKV32 && r0 < p.Sq && (!p.causal || kv0 <= last + offset)) {
+      // S (16 x 32): sc[nt][c] is row row0 + 8 (c / 2), column kv0 + 8nt + 2t + c % 2
+      float sc[4][4], se[4][4];
+      zero(sc);
+      zero(se);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t x[4];
+        Tf32A a;
+        ldmatrix_x4(x, qa + 32u * kk);
+        split_tf32(x, a.big, a.small);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t y[4];
+          Tf32B b0, b1;
+          ldmatrix_x4(y, ks + kb_lane + 4u * (16 * np * P) + 32u * kk);
+          b_frags(y, b0, b1);
+          mma_3xtf32(sc[2 * np], se[2 * np], a, b0);
+          mma_3xtf32(sc[2 * np + 1], se[2 * np + 1], a, b1);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[nt][c] += se[nt][c];
+      // a tile every row of this warp sees whole skips the mask
+      const bool whole =
+          kv0 + TKV32 <= p.Skv && (!p.causal || kv0 + TKV32 - 1 <= r0 + offset);
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // row row0 + 8i sees the columns below lim (from kv0 + 2t)
+          const int lim =
+              (p.causal ? min(p.Skv, row0 + 8 * i + offset + 1) : p.Skv) - (kv0 + 2 * t);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (8 * nt + j >= lim) sc[nt][2 * i + j] = -INFINITY;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx[c / 2] = fmaxf(mx[c / 2], sc[nt][c]);
+      float ms[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // a row that has seen no visible key keeps max -inf: it subtracts
+        // 0, so its masked scores give 2^-inf = 0 and l stays 0 (the
+        // empty-row guard); alpha is 0 until its first key
+        ms[i] = mx[i] == -INFINITY ? 0.f : mx[i] * LOG2E;
+        alpha[i] = m[i] == -INFINITY ? 0.f : exp2_approx(m[i] * LOG2E - ms[i]);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+      uint32_t kb = 0;
+      if (DROP)
+        kb = dropout::keep_bits_rows<TKV32 / 16>(p.seed, bn, row0, kv0 + 2 * t, p.threshold);
+      // l takes the undropped p, P V the kept one (1 / (1 - rate) at the end)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float pv = exp2_approx(fmaf(sc[nt][c], LOG2E, -ms[c / 2]));
+          l[c / 2] += pv;
+          sc[nt][c] = (!DROP || ((kb >> (4 * nt + c)) & 1u)) ? pv : 0.f;
+        }
+      // O = alpha O + P V: k-step kk takes S's n8 tile kk (columns 2t, 2t + 1
+      // as its k indices t, t + 4), so v's B fragment is rows 2t, 2t + 1,
+      // column g; each n8 tile of o takes the tile's product by one fma
+      Tf32A pa[TKV32 / 8];
+#pragma unroll
+      for (int kk = 0; kk < TKV32 / 8; ++kk) pa[kk] = c_as_a(sc[kk]);
+      const float* v0 = vs + 2 * t * P + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f}, pe[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < TKV32 / 8; ++kk) {
+          const float* vr = v0 + 8 * kk * P + 8 * nt;
+          mma_3xtf32(pv, pe, pa[kk], b_of(vr[0], vr[P]));
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[nt][c] = fmaf(o[nt][c], alpha[c / 2], pv[c] + pe[c]);
+      }
+    }
+    cp_async_wait<0>();  // the next pair has landed
+    __syncthreads();     // and every warp is done with this pair's stage
+  }
+
+  // the halves (same rows, alternate kv tiles) meet: half 1 leaves o, m
+  // and l in the stages, half 0 rescales both to the joint maximum
+  float* mg = fsm + SM::KV;
+  const int ht = tid % HT;
+  if (half == 1) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mg[(4 * nt + c) * HT + ht] = o[nt][c];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mg[(D / 2 + i) * HT + ht] = m[i];
+      mg[(D / 2 + 2 + i) * HT + ht] = l[i];
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+  float a0[2], a1[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = mg[(D / 2 + i) * HT + ht];
+    const float mx = fmaxf(m[i], m1);
+    a0[i] = m[i] == -INFINITY ? 0.f : exp2_approx((m[i] - mx) * LOG2E);
+    a1[i] = m1 == -INFINITY ? 0.f : exp2_approx((m1 - mx) * LOG2E);
+    l[i] = l[i] * a0[i] + mg[(D / 2 + 2 + i) * HT + ht] * a1[i];
+    m[i] = mx;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      o[nt][c] = o[nt][c] * a0[c / 2] + mg[(4 * nt + c) * HT + ht] * a1[c / 2];
+
+  // epilogue: o = acc / l (times 1 / (1 - rate)), lse = m + ln l; rows that
+  // saw no key get o = 0 and lse = 0
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const bool empty = !(l[i] > 0.f);
+    inv[i] = empty ? 0.f : (DROP ? p.drop_scale : 1.f) / l[i];
+    const int row = row0 + 8 * i;
+    if (t == 0 && row < p.Sq)
+      p.lse[static_cast<long long>(bn) * p.Sq + row] = empty ? 0.f : m[i] + logf(l[i]);
+  }
+  // o is allocated contiguous (B, Sq, N, D)
+  float* og = static_cast<float*>(p.o) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.Sq) continue;
+    float* orow = og + static_cast<long long>(row) * p.N * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<float2*>(orow + 8 * nt) =
+          make_float2(o[nt][2 * i] * inv[i], o[nt][2 * i + 1] * inv[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <typename Kernel>
@@ -684,13 +791,21 @@ int set_smem(Kernel kernel, size_t smem, bool& configured) {
   return 0;
 }
 
+// one block per 64-row q tile and (b, q head); shared memory past 48 KB,
+// and the carveout that lets two blocks share an SM (D <= 64)
 template <int D, bool DROP>
-int launch_fma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Tile<D>::smem_bytes;
+int launch_tf32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = Tf32Smem<D>::bytes;
   static bool configured = false;
-  if (const int e = set_smem(flash_fwd_fma<D, DROP>, smem, configured)) return e;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.N);
-  flash_fwd_fma<D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tf32<D, DROP>,
+                                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (const int e = set_smem(flash_fwd_tf32<D, DROP>, smem, configured)) return e;
+  const int blocks = (p.Sq + TQ32 - 1) / TQ32 * p.B * p.N;
+  flash_fwd_tf32<D, DROP><<<blocks, THREADS32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -719,7 +834,7 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 template <int D>
 int launch(int dtype, bool drop, const Params& p, cudaStream_t s) {
   if (dtype == 0)
-    return drop ? launch_fma<D, true>(p, s) : launch_fma<D, false>(p, s);
+    return drop ? launch_tf32<D, true>(p, s) : launch_tf32<D, false>(p, s);
   if constexpr (D % 64 == 0)
     return drop ? launch_wgmma<D, true>(p, s) : launch_wgmma<D, false>(p, s);
   return -1;
@@ -728,8 +843,9 @@ int launch(int dtype, bool drop, const Params& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, the head_dim
-// axis has unit stride; bf16 takes a base and (b, s, h) strides on 16-byte
-// boundaries (the wrapper copies what is not), float32 any. dropout != 0
+// axis has unit stride; the base and the (b, s, h) strides lie on 16-byte
+// boundaries (TMA and cp.async read 16 bytes at a time; the wrapper copies
+// what does not). dropout != 0
 // applies attention-prob dropout with the Philox key `seed`, keeping a
 // probability iff its word is below `threshold` and scaling it by
 // `drop_scale`. Returns 0 on success, the CUDA error code of a refused

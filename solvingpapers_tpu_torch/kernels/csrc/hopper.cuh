@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the warp-specialised flash
-// kernels (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads and
-// stores, setmaxnreg, wgmma and its shared-memory descriptors in the
-// 128-byte swizzle, and on the host the tensor maps those loads read.
+// Hopper (sm_90a) building blocks shared by the flash kernels
+// (flash_fwd.cu, flash_bwd.cu): for the warp-specialised bf16 kernels
+// mbarriers, TMA tile loads and stores, setmaxnreg, wgmma and its
+// shared-memory descriptors in the 128-byte swizzle, and on the host the
+// tensor maps those loads read; for the float32 kernels cp.async rings of
+// padded rows, ldmatrix, and mma.sync in 3xTF32 with its fragment helpers.
 //
-// Layout every kernel here assumes: a tile of R rows of one (b, head) of a
+// Layout every bf16 kernel here assumes: a tile of R rows of one (b, head) of a
 // (B, S, H, D) bf16 tensor is D / 64 panels, each one TMA box of R rows x
 // 64 columns (128 bytes a row) in the 128-byte swizzle, 1024-byte aligned.
 // The same tile serves wgmma's K-major mode (D is the product's K) and its
@@ -329,6 +331,173 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// --- cp.async (the float32 kernels' rings)
+
+// 16 bytes from global `src` to shared `dst`, or 16 zero bytes when !in
+// (src is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// the same for 4 bytes (any 4-byte aligned address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows of D floats from global `src` (row stride `stride` floats,
+// 16-byte aligned rows) into shared memory at `dst` (row pitch D + 4
+// floats), 16 bytes a copy spread over THREADS threads; rows at or past
+// `valid` are zero-filled. Each thread's copies are those with index
+// tid + k * THREADS: `scale_rows` touches the same ones.
+template <int D, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* src, long long stride,
+                                          int rows, int valid, int tid) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  for (int c = tid; c < rows * CH; c += THREADS) {
+    const int r = c / CH;
+    const int col = (c - r * CH) * 4;
+    const bool in = r < valid;
+    cp_async16(dst + 4u * (r * (D + 4) + col), in ? src + r * stride + col : src, in);
+  }
+}
+
+// this thread's chunks of `load_rows` (landed: after its wait) times s
+template <int D, int THREADS>
+__device__ __forceinline__ void scale_rows(float* tile, int rows, float s, int tid) {
+  constexpr int CH = D / 4;
+  for (int c = tid; c < rows * CH; c += THREADS) {
+    const int r = c / CH;
+    float4* x = reinterpret_cast<float4*>(tile + r * (D + 4) + (c - r * CH) * 4);
+    float4 v = *x;
+    v.x *= s;
+    v.y *= s;
+    v.z *= s;
+    v.w *= s;
+    *x = v;
+  }
+}
+
+// --- mma.sync m16n8k8 in 3xTF32 (the float32 kernels)
+//
+// Fragments of mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 for lane l,
+// g = l / 4, t = l % 4: A (16 x 8) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g); C (16 x 8)
+// c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// A float32 x enters as big = x rounded to tf32 (nearest, ties away) and
+// small = x - big (exact), each read by the tensor cores as tf32; a
+// product is big·small + small·big + big·big, so each operand carries ~21
+// bits and a product errs by ~2^-21 relative, where one tf32 product errs
+// by ~2^-11. The tensor cores truncate their float32 accumulator at each
+// product, so the small terms go to an accumulator of their own (`e`,
+// ~2^-11 of the sum: its truncation is lost in the sum's rounding), and
+// a long sum (o over kv tiles, dk and dv over q tiles) is kept in
+// registers and takes each tile's product by an ordinary float add.
+//
+// A C fragment is reused as the A operand of the next product without
+// shared memory: its column pair (2t, 2t + 1) is taken as A's k indices
+// (t, t + 4) — a0 = c0, a1 = c2, a2 = c1, a3 = c3 (`c_as_a`) — and that
+// product's B is read from the same permuted rows (2t, 2t + 1): the sum
+// over k does not depend on its order.
+
+struct Tf32A {  // an A fragment, split
+  uint32_t big[4], small[4];
+};
+
+struct Tf32B {  // a B fragment, split
+  uint32_t big[2], small[2];
+};
+
+// x's two tf32 parts as bits, in three instructions (two cvt.rna.tf32.f32
+// and a subtraction compiled to about seven, with the conversions' NaN and
+// infinity tests). big adds half a tf32 ulp to x's bits
+// and clears the 13 bits tf32 drops; small = x - big is exact, and the
+// tensor cores drop its low 13 bits (|small| <= 2^-11 |x|, so that costs
+// at most 2^-21 |x|). |x| within 2^128 (1 - 2^-12); NaN stays NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&big)[N],
+                                           uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+
+// an accumulator fragment (C layout) as the A operand of a product over
+// its columns, split
+__device__ __forceinline__ Tf32A c_as_a(const float (&c)[4]) {
+  Tf32A a;
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], a.big[i], a.small[i]);
+  return a;
+}
+
+// two floats of shared memory `lo` and `hi` as a split B fragment
+__device__ __forceinline__ Tf32B b_of(float lo, float hi) {
+  Tf32B b;
+  split_tf32(lo, b.big[0], b.small[0]);
+  split_tf32(hi, b.big[1], b.small[1]);
+  return b;
+}
+
+// the split B fragments of two n8 tiles from an ldmatrix_x4 of n rows x
+// k columns (matrices 0, 1: tile 0's k 0..3 and 4..7; 2, 3: tile 1's)
+__device__ __forceinline__ void b_frags(const uint32_t (&y)[4], Tf32B& b0, Tf32B& b1) {
+  b0 = b_of(__uint_as_float(y[0]), __uint_as_float(y[1]));
+  b1 = b_of(__uint_as_float(y[2]), __uint_as_float(y[3]));
+}
+
+// four 8 x 8 b16 matrices (here 8 x 4 float32 each) from shared memory:
+// lane l gives the address of row l % 8 of matrix l / 8 and receives
+// element (l / 4, l % 4) of each matrix
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b, one tf32 product
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d + e += a b in 3xTF32: big·big into d, the small terms into e
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&e)[4], const Tf32A& a,
+                                           const Tf32B& b) {
+  mma_tf32(e, a.small, b.big[0], b.big[1]);
+  mma_tf32(e, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[i][c] = 0.f;
 }
 
 // --- host: tensor maps (static: each kernel library keeps its own copy)

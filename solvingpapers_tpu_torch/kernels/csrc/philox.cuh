@@ -87,18 +87,20 @@ __device__ __forceinline__ bool keep(unsigned long long seed, uint32_t bh,
   return g.w[((row >> 3) & 1u) * 2u + ((col >> 3) & 1u)] < threshold;
 }
 
-// Keep bits of one mma.sync thread's 16 x 64 score slice in the (q rows x
-// kv columns) layout of the forward and dq kernels: element [nt][2i + j]
+// Keep bits of one mma.sync thread's 16 x 16·GROUPS score slice (64
+// columns by default) in the (q rows x kv columns) layout of the forward
+// and dq kernels: element [nt][2i + j]
 // is q row `row0 + 8i` and kv column `col0 + 8nt + j`, where row0 = the
 // warp's first row + g and col0 = the tile's first column + 2t (row0 has
 // bit 3 clear, col0 a multiple of 16 plus 2t). Bit nt * 4 + 2i + j.
+template <int GROUPS = 4>
 __device__ __forceinline__ uint32_t keep_bits_rows(unsigned long long seed,
                                                    uint32_t bh, uint32_t row0,
                                                    uint32_t col0,
                                                    uint32_t threshold) {
   uint32_t bits = 0;
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < GROUPS; ++m)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const Words g = group_words(seed, bh, row0, col0 + 16 * m + j);
@@ -116,13 +118,14 @@ __device__ __forceinline__ uint32_t keep_bits_rows(unsigned long long seed,
 // element [nt][2i + j] is kv column `kv0 + 8i` and q row `q0 + 8nt + j`,
 // where kv0 = the tile's first kv row + the warp's offset + g and q0 = the
 // q tile's first row + 2t. Bit nt * 4 + 2i + j.
+template <int GROUPS = 4>
 __device__ __forceinline__ uint32_t keep_bits_cols(unsigned long long seed,
                                                    uint32_t bh, uint32_t q0,
                                                    uint32_t kv0,
                                                    uint32_t threshold) {
   uint32_t bits = 0;
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < GROUPS; ++m)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const Words g = group_words(seed, bh, q0 + 16 * m + j, kv0);

@@ -51,8 +51,8 @@ from solvingpapers_tpu_torch.kernels.dropout import (
 from solvingpapers_tpu_torch.ops.attention import BIG_NEG, causal_mask
 
 # the (dtype, head_dim) pairs the kernels are built for: the float32
-# CUDA-core kernels at any of these, the bf16 wgmma kernels at whole
-# 64-column panels
+# kernels (3xTF32 forward and dk/dv, CUDA-core dq) at any of these, the
+# bf16 wgmma kernels at whole 64-column panels
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _GRID_Y_MAX = 65535
 
@@ -126,9 +126,10 @@ _TMA_STRIDE_LIMIT = 2**40  # bytes: a tensor map's strides stay below it
 
 
 def tma_strides(x: torch.Tensor) -> tuple | None:
-    """The (B, S, H) strides, in elements, with which the bf16 forward
-    kernel's tensor maps read the (B, S, H, D) tensor `x` in place, or
-    None when TMA cannot: a base off 16 bytes, or a stride that is not a
+    """The (B, S, H) strides, in elements, with which the forward kernels
+    read the (B, S, H, D) tensor `x` in place (bf16 through TMA tensor
+    maps, float32 by 16-byte cp.async copies), or
+    None when they cannot: a base off 16 bytes, or a stride that is not a
     positive multiple of 16 bytes below 2**40. An axis of length 1 is
     never stepped over, so its stride is replaced by the one a contiguous
     layout would give it. The kernel takes the extents from the shape, so
@@ -148,7 +149,7 @@ def tma_strides(x: torch.Tensor) -> tuple | None:
 
 
 def fwd_tma_inputs(q, k, v):
-    """q, k and v as the bf16 forward kernel reads them, each with its
+    """q, k and v as the forward kernels read them, each with its
     `tma_strides`: a tensor TMA can read in place passes as it is (a
     sequence slice of the serving cache among them); only one it cannot
     is copied, contiguous, first."""
@@ -288,7 +289,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     sm_90a kernel (float32 at D 16, 32, 64 or 128, bfloat16 at D 64 or
     128 — `HEAD_DIMS` —, unit stride on the last axis — other strides are
     passed through, so a cache slice needs no copy; see `fwd_tma_inputs`
-    for what bf16 copies) on the current stream, and raises if the build,
+    for what is copied) on the current stream, and raises if the build,
     a tensor map or the launch fails; bf16 takes any scale through
     `positive_scale`. ``dropout_rate > 0`` drops attention probabilities
     with the keep mask of `dropout_seed` (a 64-bit int; see
@@ -307,12 +308,10 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     _check_kernel_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
         q, scale = positive_scale(q, scale)
-        # the tensor-core kernel reads q, k, v through TMA tensor maps of
-        # their own strides
-        (q, qs), (k, ks), (v, vs) = fwd_tma_inputs(q, k, v)
-        strides = [*qs, *ks, *vs]
-    else:
-        strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+    # the kernels read q, k, v in place at their own strides: bf16 through
+    # TMA tensor maps, float32 by cp.async, both 16 bytes at a time
+    (q, qs), (k, ks), (v, vs) = fwd_tma_inputs(q, k, v)
+    strides = [*qs, *ks, *vs]
     o = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * n, 1, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -419,22 +418,26 @@ def _bwd_kernel_inputs(q, k, v, do, lse, delta):
     return tuple(ready(x) for x in (q, k, v, do, lse, delta))
 
 
-# The bf16 backward kernels' work split, decided here and read by
-# csrc/flash_bwd.cu. A block is BWD_CONSUMERS warpgroups, each owning
+# The backward kernels' work split, decided here and read by
+# csrc/flash_bwd.cu. A bf16 block is BWD_CONSUMERS warpgroups, each owning
 # BWD_TILE output rows, that loop over BWD_TILE-row tiles of the other
-# sequence axis. dk/dv splits a kv head's q heads over several blocks
-# while it would have fewer than BWD_WAVES blocks per SM of the card.
+# sequence axis; a float32 dk/dv block owns F32_DKV_ROWS kv rows (4 pairs
+# of warps, each pair 16 rows, each warp half of D) and loops over q tiles
+# from the first BWD_TILE-row tile that sees its rows. dk/dv splits a kv
+# head's q heads over several blocks while it would have fewer than
+# BWD_WAVES blocks per SM of the card.
 BWD_TILE = 64
 BWD_CONSUMERS = 2
 BWD_BLOCK_ROWS = BWD_TILE * BWD_CONSUMERS
+F32_DKV_ROWS = 64
 BWD_WAVES = 4
 H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """The bf16 backward kernels' blocks at one shape. Each kernel's
-    output tiles of BWD_BLOCK_ROWS rows (dq: q tiles; dk/dv: kv tiles)
+    """The backward kernels' blocks at one shape. Each kernel's
+    output tiles of `rows` rows (dq: q tiles; dk/dv: kv tiles)
     launch in the order of `dq_tiles` / `dkv_tiles`, heaviest first: the
     kernel's block i takes tile ``tiles[i // per_tile]`` and, as
     ``i % per_tile``, ``b * N + h`` (dq) or ``(b * Nkv + kv head) * splits
@@ -452,6 +455,7 @@ class BwdPlan:
     splits: int
     dq_tiles: tuple
     dkv_tiles: tuple
+    rows: int = BWD_BLOCK_ROWS
 
     @property
     def group(self) -> int:
@@ -484,33 +488,33 @@ def _first_live_q(sq, skv, causal, col):
 
 
 @functools.cache
-def bwd_plan(b, sq, skv, n, n_kv, causal, sms=H100_SMS) -> BwdPlan:
-    """The work split of the bf16 backward kernels: dk/dv takes the fewest
-    splits of the GQA group (a divisor of it) that give BWD_WAVES blocks
-    per SM, or one q head per block when none does; each kernel's tiles
-    launch by the BWD_TILE x BWD_TILE tile pairs their consumers compute,
-    most first (ties: later q tiles, earlier kv tiles first)."""
+def bwd_plan(b, sq, skv, n, n_kv, causal, sms=H100_SMS,
+             rows=BWD_BLOCK_ROWS) -> BwdPlan:
+    """The work split of the backward kernels whose blocks own `rows`
+    output rows (bf16: BWD_BLOCK_ROWS; float32 dk/dv: F32_DKV_ROWS): dk/dv
+    takes the fewest splits of the GQA group (a divisor of it) that give
+    BWD_WAVES blocks per SM, or one q head per block when none does; each
+    kernel's tiles launch by the BWD_TILE x BWD_TILE tile pairs their
+    blocks compute, most first (ties: later q tiles, earlier kv tiles
+    first)."""
     causal = bool(causal)
     t, group = BWD_TILE, n // n_kv
-    folded = -(-skv // BWD_BLOCK_ROWS) * b * n_kv
+    folded = -(-skv // rows) * b * n_kv
     splits = next((s for s in range(1, group + 1)
                    if group % s == 0 and folded * s >= BWD_WAVES * sms), group)
 
     def dq_work(j):  # kv tiles the consumers of q tile j compute
         return sum(-(-_kv_end(sq, skv, causal, r0, t) // t) for r0 in
-                   range(j * BWD_BLOCK_ROWS, (j + 1) * BWD_BLOCK_ROWS, t))
+                   range(j * rows, (j + 1) * rows, t))
 
     def dkv_work(j):  # q tiles the consumers of kv tile j compute, a head
         return sum(-(-(sq - _first_live_q(sq, skv, causal, c)) // t)
-                   for c in range(j * BWD_BLOCK_ROWS,
-                                  min((j + 1) * BWD_BLOCK_ROWS, skv), t))
+                   for c in range(j * rows, min((j + 1) * rows, skv), t))
 
-    dq_tiles = sorted(range(-(-sq // BWD_BLOCK_ROWS)),
-                      key=lambda j: (-dq_work(j), -j))
-    dkv_tiles = sorted(range(-(-skv // BWD_BLOCK_ROWS)),
-                       key=lambda j: (-dkv_work(j), j))
+    dq_tiles = sorted(range(-(-sq // rows)), key=lambda j: (-dq_work(j), -j))
+    dkv_tiles = sorted(range(-(-skv // rows)), key=lambda j: (-dkv_work(j), j))
     return BwdPlan(b, sq, skv, n, n_kv, causal, splits, tuple(dq_tiles),
-                   tuple(dkv_tiles))
+                   tuple(dkv_tiles), rows)
 
 
 @functools.cache
@@ -546,10 +550,12 @@ def _launch_args(q, k, scale, causal, dropout_rate, dropout_seed):
 
 
 def _plan_of(q, k, causal):
-    """`bwd_plan` for a launch on q's device (bf16 only)."""
+    """`bwd_plan` for a launch on q's device, with the rows of q's dtype's
+    blocks (float32: the dk/dv kernel's)."""
     b, sq, n, _ = q.shape
+    rows = F32_DKV_ROWS if q.dtype == torch.float32 else BWD_BLOCK_ROWS
     return bwd_plan(b, sq, k.shape[1], n, k.shape[2], bool(causal),
-                    sms=_sm_count(q.device))
+                    sms=_sm_count(q.device), rows=rows)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
@@ -584,10 +590,10 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
                   dropout_rate=0.0, dropout_seed=0):
     """(dk, dv) by the sm_90a dk/dv kernel (CUDA tensors only; raises on
-    others and when the build or the launch fails). bf16 takes
-    `bwd_plan`'s split of each kv head's q heads over blocks and folds
-    their float32 partials here in head order; with one split, and always
-    in float32, the group folds inside the block."""
+    others and when the build or the launch fails). It takes `bwd_plan`'s
+    split of each kv head's q heads over blocks and folds their float32
+    partials here in head order; with one split the group folds inside
+    the block."""
     return _launch_dkv(q, k, v, do, lse, delta, None, causal=causal,
                        scale=scale, dropout_rate=dropout_rate,
                        dropout_seed=dropout_seed)
@@ -595,19 +601,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, scale=None,
 
 def _launch_dkv(q, k, v, do, lse, delta, splits, *, causal=False, scale=None,
                 dropout_rate=0.0, dropout_seed=0):
-    """`flash_bwd_dkv` with bf16's split given (None: the plan's), for the
+    """`flash_bwd_dkv` with the split given (None: the plan's), for the
     checks and timings that compare the split with the in-block fold."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
     args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:
         return torch.zeros_like(k), torch.zeros_like(v)
-    tiles = None
-    if q.dtype == torch.float32:
-        splits = 1
-    else:
-        plan = _plan_of(q, k, causal)
-        splits = plan.splits if splits is None else splits
-        tiles = _tiles_on(plan.dkv_tiles, q.device).data_ptr()
+    plan = _plan_of(q, k, causal)
+    splits = plan.splits if splits is None else splits
+    tiles = _tiles_on(plan.dkv_tiles, q.device).data_ptr()
     if splits == 1:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     else:

@@ -1,4 +1,4 @@
-"""The bf16 backward kernels' work split, walked on the CPU.
+"""The backward kernels' work split, walked on the CPU.
 
 `kernels.flash_attention.bwd_plan` decides how the sm_90a dq and dk/dv
 kernels split their work (blocks per kv tile, fold or split of the GQA
@@ -7,9 +7,10 @@ read from the plan's tile tables. `_blocks` walks those tables as the
 kernels do (block index -> tile, head, split; loop bounds and causal
 skips) and lists, block by block in launch order, the (q head, 64-row q
 tile, 64-row kv tile) pairs each computes. At every shape of
-`chip_smoke.py`'s backward cases and at both training paths' shapes:
-every pair with a visible element is computed exactly once, no hidden
-pair is computed, and blocks come heaviest first. The fold of
+`chip_smoke.py`'s backward cases and at both training paths' shapes —
+for the bf16 kernels' 128-row blocks and the float32 dk/dv kernel's
+64-row ones: every pair with a visible element is computed exactly once,
+no hidden pair is computed, and blocks come heaviest first. The fold of
 float32 per-head partials equals the JAX package's fold in `_flash_bwd`
 (`x.reshape(b, n_kv, group, seq_k, d).sum(axis=2)`) exactly.
 """
@@ -42,7 +43,7 @@ def _blocks(plan, kernel):
     consumers compute: block i takes the plan's tile ``tiles[i //
     per_tile]``, and its consumers the loop bounds and skips of
     csrc/flash_bwd.cu."""
-    rows = tfa.BWD_BLOCK_ROWS
+    rows = plan.rows
     shape = (plan.sq, plan.skv, plan.causal)
     blocks = []
     if kernel == "dq":
@@ -97,6 +98,42 @@ def test_plan_covers_every_visible_tile_pair_once_heaviest_first(
     assert weights == sorted(weights, reverse=True)
 
 
+# the float32 dk/dv kernel's shapes: phase 6's and phase 7's steps, the
+# float32 backward cases and the D 16 smoke step (B 4, S 256, 4 / 2 heads)
+F32_SHAPES = [
+    pytest.param(1, 2048, 2048, 16, 8, 64, True, id="train_f32"),
+    pytest.param(1, 2048, 2048, 8, 1, 128, True, id="dsv3_f32"),
+    pytest.param(1, 150, 97, 4, 2, 128, True, id="f32_empty_rows_d128"),
+    pytest.param(2, 37, 100, 4, 4, 64, False, id="f32_bidirectional_odd"),
+    pytest.param(4, 256, 256, 4, 2, 16, True, id="smoke_d16"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal", F32_SHAPES)
+def test_f32_dkv_plan_covers_every_visible_tile_pair_once_heaviest_first(
+        b, sq, skv, n, n_kv, d, causal):
+    plan = tfa.bwd_plan(b, sq, skv, n, n_kv, causal, rows=tfa.F32_DKV_ROWS)
+    assert sorted(plan.dkv_tiles) == list(range(-(-skv // tfa.F32_DKV_ROWS)))
+    blocks = _blocks(plan, "dkv")
+    computed = [pair for block in blocks for pair in block]
+    assert len(computed) == len(set(computed))
+    assert set(computed) == _visible_pairs(b, sq, skv, n, causal)
+    weights = [len(block) for block in blocks]
+    assert weights == sorted(weights, reverse=True)
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((1, 2048, 2048, 8, 1, 128), 8),   # phase 7's MQA step: 32 x 8 blocks
+    ((1, 2048, 2048, 16, 8, 64), 2),   # phase 6's: 32 x 8 x 2
+    ((4, 2112, 2112, 16, 8, 64), 1),   # 33 x 32 = 1056 >= 4 x 132
+])
+def test_f32_dkv_plan_splits_the_group_over_64_row_blocks(shape, splits):
+    b, sq, skv, n, n_kv, _ = shape
+    plan = tfa.bwd_plan(b, sq, skv, n, n_kv, True, rows=tfa.F32_DKV_ROWS)
+    assert plan.splits == splits
+    assert plan.dkv_blocks == -(-skv // 64) * b * n_kv * splits
+
+
 @pytest.mark.parametrize("shape,splits", [
     (chip_smoke.BWD_PATH, 1),    # LLaMA: 64 kv tiles x 16 = 1024 blocks
     (chip_smoke.DSV3_PATH, 8),   # DeepSeek-V3: 128 blocks folded, 1024 split
@@ -115,7 +152,9 @@ def test_plan_splits_the_gqa_group_only_when_the_card_would_starve(shape,
 
 
 @pytest.mark.parametrize("b,skv,n,n_kv,d", [(1, 97, 8, 1, 128), (2, 64, 16, 8, 64),
-                                            (2, 33, 4, 2, 16)])
+                                            (2, 33, 4, 2, 16),
+                                            # phase 7's float32 MQA partials
+                                            (1, 2048, 8, 1, 128)])
 def test_fold_of_per_head_partials_equals_the_jax_fold_exactly(b, skv, n, n_kv,
                                                               d):
     group = n // n_kv

@@ -16,9 +16,10 @@ the dropout apply kernel's outputs (forward and backward) the plain
 dropout's, bit for bit, at its timed shapes, ragged sizes and unaligned
 bases, and at every bf16 input and every float32 sign and significand
 (at a sweep of divisors) against IEEE division. float32 head dims 16
-and 32, the bf16 forward at scales <= 0 (through `positive_scale`) and
-the forward over a lane gathered from a page pool (the paged engine's
-prefill) are held to the same limits.
+to 128 (the 3xTF32 forward and dk/dv kernels), the bf16 forward at
+scales <= 0 (through `positive_scale`) and the forward over a lane
+gathered from a page pool (the paged engine's prefill) are held to the
+same limits.
 """
 
 import importlib
@@ -471,29 +472,32 @@ def _chip_smoke():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,n,n_kv,d,rate,splits,folds", [
+@pytest.mark.parametrize("dtype,b,s,n,n_kv,d,rate,splits,folds", [
     # MQA at D 128, group 8, ragged: the plan splits the group, one q head
     # a block, float32 partials folded in head order
-    (1, 1000, 8, 1, 128, 0.0, None, False),
-    (1, 1000, 8, 1, 128, 0.1, None, False),
+    (torch.bfloat16, 1, 1000, 8, 1, 128, 0.0, None, False),
+    (torch.bfloat16, 1, 1000, 8, 1, 128, 0.1, None, False),
     # four q heads folded in a block, two partials
-    (1, 1000, 8, 1, 128, 0.1, 2, False),
+    (torch.bfloat16, 1, 1000, 8, 1, 128, 0.1, 2, False),
     # GQA group 2 at D 64 with 17 x 32 = 544 blocks: the in-block fold
-    (4, 2112, 16, 8, 64, 0.0, None, True),
+    (torch.bfloat16, 4, 2112, 16, 8, 64, 0.0, None, True),
+    # float32 (64-row dk/dv blocks): the same MQA group split over 8 (the
+    # plan) or 2, or folded in one block
+    (torch.float32, 1, 1000, 8, 1, 128, 0.1, None, False),
+    (torch.float32, 1, 1000, 8, 1, 128, 0.1, 2, False),
+    (torch.float32, 1, 1000, 8, 1, 128, 0.1, 1, False),
 ])
 def test_flash_backward_split_and_fold_are_right_and_deterministic(
-        cuda_device, b, s, n, n_kv, d, rate, splits, folds):
-    """bf16 dq and dk/dv on both sides of the plan's split, against the
-    plain backward (max |kernel - plain| / max |plain| within 1e-2), and
-    a second call on the same inputs bit-identical (no atomics; the fold
-    sums the partials in head order)."""
-    plan = tfa.bwd_plan(b, s, s, n, n_kv, True,
-                        sms=tfa._sm_count(cuda_device))
-    assert (plan.splits == 1) == folds
+        cuda_device, dtype, b, s, n, n_kv, d, rate, splits, folds):
+    """dq and dk/dv on both sides of the plan's split, against the plain
+    backward (max |kernel - plain| / max |plain| within 1e-2 in bf16,
+    2e-5 in float32), and a second call on the same inputs bit-identical
+    (no atomics; the fold sums the partials in head order)."""
     kw = dict(causal=True, dropout_rate=rate, dropout_seed=77)
-    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype)
                for x in _qkv(21, b, s, s, n, n_kv, d))
-    do = torch.randn(b, s, n, d, device=cuda_device).bfloat16()
+    do = torch.randn(b, s, n, d, device=cuda_device).to(dtype)
+    assert (tfa._plan_of(q, k, True).splits == 1) == folds
     o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
     delta = tfa.flash_delta(do, o)
 
@@ -505,10 +509,11 @@ def test_flash_backward_split_and_fold_are_right_and_deterministic(
     torch.cuda.synchronize()
     ref = tfa.flash_attention_bwd_reference(q.float(), k.float(), v.float(),
                                             do.float(), lse, delta, **kw)
+    tol = {torch.bfloat16: 1e-2, torch.float32: 2e-5}[dtype]
     for x, y, want in zip(got, again, ref):
-        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all()
+        assert x.dtype == dtype and torch.isfinite(x).all()
         assert torch.equal(x, y)
-        assert _rel_err(x, want) <= 1e-2
+        assert _rel_err(x, want) <= tol
 
 
 @pytest.mark.cuda
@@ -530,7 +535,7 @@ def test_flash_backward_split_path_redraws_the_mask_bit_for_bit(cuda_device):
         assert int((got[kernel] != want).sum()) == 0, kernel
 
 
-# --------------------------------- float32 at head dims 16 and 32; any scale
+# ------------------------------ float32 at head dims 16 to 128; any scale
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal,rate,kv", [
@@ -539,12 +544,20 @@ def test_flash_backward_split_path_redraws_the_mask_bit_for_bit(cuda_device):
     (1, 300, 100, 8, 1, 16, True, 0.1, "k_is_v"),   # MQA, k is v, empty rows
     (1, 777, 777, 4, 2, 32, True, 0.5, "own"),
     (2, 129, 129, 8, 1, 32, True, 0.1, "k_is_v"),
-])
+] + [(b, sq, skv, n, n_kv, d, causal, rate, kv)
+     for d in (16, 32, 64, 128) for rate in (0.0, 0.5)
+     for b, sq, skv, n, n_kv, causal, kv in (
+         (2, 37, 100, 4, 2, True, "own"),       # ragged, Sq < Skv
+         (1, 300, 100, 4, 2, True, "own"),      # Sq > Skv: rows see no key
+         (2, 97, 150, 4, 2, False, "own"),      # bidirectional, ragged
+         (1, 515, 515, 8, 1, True, "k_is_v"),   # MQA, k = v: dk/dv splits
+     )])
 def test_flash_f32_small_head_dims_match_reference(cuda_device, b, sq, skv, n,
                                                    n_kv, d, causal, rate, kv):
-    """The float32 forward, dq and dk/dv kernels at D 16 and 32 against the
-    plain versions (o, lse within 1e-4; grads within 2e-5 of the largest),
-    with and without dropout; two calls bit-identical."""
+    """The float32 forward (`flash_fwd_tf32`), dq and dk/dv
+    (`flash_bwd_dkv_tf32`) kernels at D 16 to 128 against the plain
+    versions (o, lse within 1e-4; grads within 2e-5 of the largest), with
+    and without dropout; two calls bit-identical."""
     q, k, v = (torch.from_numpy(x).to(cuda_device)
                for x in _qkv(31, b, sq, skv, n, n_kv, d))
     if kv == "k_is_v":
@@ -695,3 +708,4 @@ def test_dropout_apply_kernel_divides_every_float32_significand_exactly(
         differ, _ = smoke.every_input_differing(
             smoke.significand_band(e, cuda_device), d, cuda_device)
         assert differ == 0, (float(d), e)
+

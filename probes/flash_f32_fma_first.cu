@@ -1,13 +1,13 @@
-// The float32 flash forward and dk/dv kernels as they were before their
-// redesign for Hopper (`flash_fwd_fma` and `flash_bwd_dkv_fma`, copied
-// unchanged from kernels/csrc/flash_fwd.cu and flash_bwd.cu): f32 FMAs on
-// the CUDA cores, each thread a 4x4 block of the score tile, K and V tiles
-// copied element by element through registers. `chip_smoke.py` builds this
-// file beside the port's kernels (`build_probe`, kernels/csrc on the
-// include path) and times it in turns with the 3xTF32 kernels that
+// The float32 flash kernels as they were before their redesign for
+// Hopper (`flash_fwd_fma`, `flash_bwd_dkv_fma` and `flash_bwd_dq_fma`,
+// copied unchanged from kernels/csrc/flash_fwd.cu and flash_bwd.cu): f32
+// FMAs on the CUDA cores, each thread a 4x4 block of the score tile, K and
+// V tiles copied element by element through registers. `chip_smoke.py`
+// builds this file beside the port's kernels (`build_probe`, kernels/csrc
+// on the include path) and times it in turns with the 3xTF32 kernels that
 // replaced it, at the same shapes and through the same C signatures as
-// the port's `flash_fwd` and `flash_bwd_dkv` (float32 only: dtype 0,
-// splits 1, tiles ignored).
+// the port's `flash_fwd`, `flash_bwd_dkv` and `flash_bwd_dq` (float32
+// only: dtype 0, splits 1, tiles ignored).
 
 #include <cuda_runtime.h>
 
@@ -450,6 +450,150 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_fma(Params p) {
   }
 }
 
+template <int D>
+struct DqFma {
+  static constexpr int QP = D + 4;  // q (scaled) and dO rows
+  static constexpr int KP = D + 1;  // k and v rows: column reads conflict-free
+  static constexpr int SP = BK + 4;  // ds rows
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (2 * BQ * QP + 2 * BK * KP + BQ * SP);
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_fma(Params p) {
+  using TL = DqFma<D>;
+  constexpr int DC = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * TL::QP;
+  float* Ks = dOs + BQ * TL::QP;
+  float* Vs = Ks + BK * TL::KP;
+  float* dS = Vs + BK * TL::KP;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bn = blockIdx.y;
+  const int b = bn / p.N;
+  const int h = bn - b * p.N;
+  const int kvh = h / (p.N / p.Nkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const long long qstride = static_cast<long long>(p.N) * D;
+  const long long kstride = static_cast<long long>(p.Nkv) * D;
+
+  const float* qg =
+      static_cast<const float*>(p.q) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
+  const float* dog =
+      static_cast<const float*>(p.dout) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
+  const float* kg = static_cast<const float*>(p.k) +
+                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+  const float* vg = static_cast<const float*>(p.v) +
+                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
+
+  for (int i = tid; i < BQ * D; i += THREADS) {
+    const int r = i / D;
+    const int d = i - r * D;
+    const int row = q0 + r;
+    const bool in = row < p.Sq;
+    Qs[r * TL::QP + d] = in ? qg[row * qstride + d] * p.scale : 0.f;
+    dOs[r * TL::QP + d] = in ? dog[row * qstride + d] : 0.f;
+  }
+  float lse[4], dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const bool in = row < p.Sq;
+    lse[i] = in ? p.lse[static_cast<long long>(bn) * p.Sq + row] : 0.f;
+    dl[i] = in ? p.delta[static_cast<long long>(bn) * p.Sq + row] : 0.f;
+  }
+
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.f;
+
+  const int kv_end = kv_end_for(p, q0);
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+    for (int i = tid; i < BK * D; i += THREADS) {
+      const int c = i / D;
+      const int d = i - c * D;
+      const int col = kv0 + c;
+      const bool in = col < p.Skv;
+      Ks[c * TL::KP + d] = in ? kg[col * kstride + d] : 0.f;
+      Vs[c * TL::KP + d] = in ? vg[col * kstride + d] : 0.f;
+    }
+    __syncthreads();  // (the first pass also publishes Qs, dOs)
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = Qs[(ty * 4 + i) * TL::QP + d];
+        da[i] = dOs[(ty * 4 + i) * TL::QP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = Ks[(tx + 16 * j) * TL::KP + d];
+        vb[j] = Vs[(tx + 16 * j) * TL::KP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + ty * 4 + i;
+        const int col = kv0 + tx + 16 * j;
+        const float pv = visible(p, row, col) ? expf(s[i][j] - lse[i]) : 0.f;
+        float dpv = dp[i][j];
+        if (DROP)
+          dpv = dropout::keep(p.seed, bn, row, col, p.threshold)
+                    ? dpv * p.drop_scale
+                    : 0.f;
+        dS[(ty * 4 + i) * TL::SP + tx + 16 * j] = pv * (dpv - dl[i]);
+      }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float dsr[4], kr[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsr[i] = dS[(ty * 4 + i) * TL::SP + c];
+#pragma unroll
+      for (int jj = 0; jj < DC; ++jj) kr[jj] = Ks[c * TL::KP + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < DC; ++jj)
+          acc[i][jj] = fmaf(dsr[i], kr[jj], acc[i][jj]);
+    }
+    __syncthreads();  // before the next tile overwrites Ks, Vs, dS
+  }
+
+  float* dqg = static_cast<float*>(p.dq) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int jj = 0; jj < DC; ++jj)
+      dqg[row * qstride + tx + 16 * jj] = acc[i][jj] * p.scale;
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem, bool& configured) {
   // the shared-memory attribute is set once per kernel instance
@@ -475,6 +619,13 @@ int launch_dkv_fma(const Params& p, cudaStream_t s) {
   static bool configured = false;
   return launch(flash_bwd_dkv_fma<D, DROP>, DkvFma<D>::smem_bytes, configured,
                 dim3((p.Skv + BK - 1) / BK, p.B * p.Nkv), THREADS, p, s);
+}
+
+template <int D, bool DROP>
+int launch_dq_fma(const Params& p, cudaStream_t s) {
+  static bool configured = false;
+  return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
+                dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
 }
 
 }  // namespace bwd
@@ -523,6 +674,28 @@ extern "C" int flash_bwd_dkv_fma_first(int dtype, int head_dim, const void* q,
     case 32: return drop ? bwd::launch_dkv_fma<32, true>(p, s) : bwd::launch_dkv_fma<32, false>(p, s);
     case 64: return drop ? bwd::launch_dkv_fma<64, true>(p, s) : bwd::launch_dkv_fma<64, false>(p, s);
     case 128: return drop ? bwd::launch_dkv_fma<128, true>(p, s) : bwd::launch_dkv_fma<128, false>(p, s);
+    default: return -1;
+  }
+}
+
+extern "C" int flash_bwd_dq_fma_first(int dtype, int head_dim, const void* q,
+                                      const void* k, const void* v, const void* dout,
+                                      const float* lse, const float* delta, void* dq,
+                                      int B, int N, int Nkv, int Sq, int Skv, float scale,
+                                      int causal, int dropout, unsigned long long seed,
+                                      unsigned int threshold, float drop_scale,
+                                      const int* tiles, void* stream) {
+  const bwd::Params p{q,     k,       v, dout, lse,   delta,  dq,
+                      nullptr, nullptr, B, N,    Nkv,   Sq,     Skv,
+                      scale, causal,  seed, threshold, drop_scale, 1, tiles};
+  if (dtype != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = dropout != 0;
+  switch (head_dim) {
+    case 16: return drop ? bwd::launch_dq_fma<16, true>(p, s) : bwd::launch_dq_fma<16, false>(p, s);
+    case 32: return drop ? bwd::launch_dq_fma<32, true>(p, s) : bwd::launch_dq_fma<32, false>(p, s);
+    case 64: return drop ? bwd::launch_dq_fma<64, true>(p, s) : bwd::launch_dq_fma<64, false>(p, s);
+    case 128: return drop ? bwd::launch_dq_fma<128, true>(p, s) : bwd::launch_dq_fma<128, false>(p, s);
     default: return -1;
   }
 }

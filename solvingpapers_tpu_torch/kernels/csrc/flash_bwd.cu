@@ -77,34 +77,44 @@
 //     partials that the wrapper folds in head order; otherwise the group
 //     folds inside the block and the kernel writes bf16 dk, dv.
 // float32 (the parity path and the small float32 configs) at D 16, 32, 64
-// and 128:
-//   * dq, `flash_bwd_dq_fma`: 256 threads, each a 4x4 block of the score
-//     tile and D / 16 output columns; its products as f32 FMAs on the CUDA
-//     cores, exact to ~1e-6; row pitches D + 4 and D + 1 keep its
-//     shared-memory reads conflict-free.
-//   * dk/dv, `flash_bwd_dkv_tf32`: its four products on the tensor cores,
-//     mma.sync m16n8k8 in 3xTF32 (hopper.cuh; as flash_fwd.cu's float32
-//     kernel). A block is 64 kv rows and 8 warps, a pair of warps on each
-//     16 kv rows: each warp of a pair takes half of D, both for the score
-//     products (the pair adds its two partial s^T and dp^T through shared
-//     memory) and for dk and dv, which it owns on that half (D / 2
-//     accumulator registers a warp: one warp holding all of dk and dv at
-//     D 128 spilled). cp.async copies k and v once and a ring of two
-//     stages of q (scaled on arrival), dO, lse and delta tiles of 64 rows
-//     (32 at D 128, for shared memory), rows at pitch D + 4. S^T = K Q^T and dP^T = V dO^T take k's and v's
-//     A fragments and q's and dO's B fragments by ldmatrix.x4; their
-//     accumulators, as A fragments (c_as_a), give dV += P^T dO and dK +=
-//     dS^T Q with dO's and q's B fragments read at the permuted rows
-//     (2t, 2t + 1): no transposed copy and no P or dS tile in shared
-//     memory. Each q tile's product reaches dk and dv by an ordinary add
-//     (the tensor cores' truncating accumulation never runs over the whole
-//     sequence). The split of the GQA group and the launch order are
-//     `bwd_plan`'s, with kv tiles of KV32 rows: phase 7's MQA shape (1 kv
-//     head, 8 q heads, 2048 rows) runs 8 x 32 blocks, not 32.
+// and 128: both kernels run their products on the tensor cores, mma.sync
+// m16n8k8 in 3xTF32 (hopper.cuh; as flash_fwd.cu's float32 kernel), fed by
+// cp.async rings of rows at pitch D + 4 (conflict-free fragment reads).
+// Each tile's product reaches dq, dk and dv by an ordinary float add (the
+// tensor cores' truncating accumulation never runs over the whole
+// sequence), and a score-shaped accumulator is the A operand of the next
+// product in place (c_as_a), its B read at the permuted rows (2t, 2t + 1):
+// no transposed copy and no P or dS tile in shared memory.
+//   * dq, `flash_bwd_dq_tf32`: a block is 64 q rows of one (b, q head),
+//     launched heaviest first, and two halves of 4 warps (16 q rows a
+//     warp) on alternate kv tiles of 64 rows (32 at D 128), as the float32
+//     forward's halves; they add their dq partials through shared memory
+//     at the end, so 8 warps share a q tile and phase 7's 256 blocks still
+//     fill the card. cp.async copies the q tile (scaled on arrival) and the
+//     dO tile once and a ring of two stages, each a pair of k and v tiles.
+//     S = Q K^T and dP = dO V^T take q's and dO's A fragments and k's and v's B
+//     fragments by ldmatrix.x4; p = exp2(s log2 e - lse log2 e) (a masked
+//     score is -inf, so p is exactly 0), with dropout the keep bits of
+//     keep_bits_rows in the C fragment's layout; dS stays in C fragments
+//     and gives dQ += dS K with k's B fragments at the permuted rows.
+//   * dk/dv, `flash_bwd_dkv_tf32`: A block is 64 kv rows and 8 warps, a
+//     pair of warps on each 16 kv rows: each warp of a pair takes half of
+//     D, both for the score products (the pair adds its two partial s^T and
+//     dp^T through shared memory) and for dk and dv, which it owns on that
+//     half (D / 2 accumulator registers a warp: one warp holding all of dk
+//     and dv at D 128 spilled). cp.async copies k and v once and a ring of
+//     two stages of q (scaled on arrival), dO, lse and delta tiles of 64
+//     rows (32 at D 128, for shared memory). S^T = K Q^T and dP^T = V dO^T
+//     take k's and v's A fragments and q's and dO's B fragments by
+//     ldmatrix.x4; their accumulators give dV += P^T dO and dK += dS^T Q.
+//     The split of the GQA group and the launch order are `bwd_plan`'s,
+//     with kv tiles of KV32 rows: phase 7's MQA shape (1 kv head, 8 q
+//     heads, 2048 rows) runs 8 x 32 blocks, not 32.
 // What bounds them: at the training shapes dq does 3 and dk/dv 4 products
 // of 2*D operations per visible (row, column) pair against O(D) bytes per
-// row, so both are compute-bound at the tensor-core peak; PERF.md keeps
-// their measured times beside that bound.
+// row, so both are compute-bound at the tensor-core peak (float32: three
+// tf32 products at 495 TFLOP/s); PERF.md keeps their measured times
+// beside that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,9 +128,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;            // dq fma kernel: q rows per tile
-constexpr int BK = 64;            // dq fma kernel: kv rows per tile
-constexpr int THREADS = 256;      // dq fma kernel: 16 row groups x 16 lanes
+constexpr int BQ = 64;  // float32 kernels: q rows of a tile (dq: of a block)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // All tensors contiguous: q, dO, dq (B, Sq, N, D); k, v, dk, dv
@@ -154,11 +162,13 @@ __device__ __forceinline__ int first_live_q(const Params& p, int col) {
   return r <= 0 ? 0 : (r / BQ) * BQ;
 }
 
-// one past the last kv column any row of the q tile starting at q0 sees
-__device__ __forceinline__ int kv_end_for(const Params& p, int q0) {
+// one past the last kv column any of rows [r0, r0 + n) (clipped to Sq) can
+// see; 0 when the range holds no row
+__device__ __forceinline__ int kv_end_rows(const Params& p, int r0, int n) {
+  if (r0 >= p.Sq) return 0;
   if (!p.causal) return p.Skv;
-  const int last_row = min(q0 + BQ, p.Sq) - 1;
-  return max(0, min(p.Skv, last_row + (p.Skv - p.Sq) + 1));
+  const int last = min(r0 + n, p.Sq) - 1;
+  return max(0, min(p.Skv, last + (p.Skv - p.Sq) + 1));
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
@@ -167,158 +177,11 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores
+// float32: 3xTF32 on the tensor cores (mma.sync), fed by cp.async rings
 
-template <int D>
-struct DqFma {
-  static constexpr int QP = D + 4;  // q (scaled) and dO rows
-  static constexpr int KP = D + 1;  // k and v rows: column reads conflict-free
-  static constexpr int SP = BK + 4;  // ds rows
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (2 * BQ * QP + 2 * BK * KP + BQ * SP);
-};
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_fma(Params p) {
-  using TL = DqFma<D>;
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * TL::QP;
-  float* Ks = dOs + BQ * TL::QP;
-  float* Vs = Ks + BK * TL::KP;
-  float* dS = Vs + BK * TL::KP;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bn = blockIdx.y;
-  const int b = bn / p.N;
-  const int h = bn - b * p.N;
-  const int kvh = h / (p.N / p.Nkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const long long qstride = static_cast<long long>(p.N) * D;
-  const long long kstride = static_cast<long long>(p.Nkv) * D;
-
-  const float* qg =
-      static_cast<const float*>(p.q) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-  const float* dog =
-      static_cast<const float*>(p.dout) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-  const float* kg = static_cast<const float*>(p.k) +
-                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-  const float* vg = static_cast<const float*>(p.v) +
-                    (static_cast<long long>(b) * p.Skv * p.Nkv + kvh) * D;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int row = q0 + r;
-    const bool in = row < p.Sq;
-    Qs[r * TL::QP + d] = in ? qg[row * qstride + d] * p.scale : 0.f;
-    dOs[r * TL::QP + d] = in ? dog[row * qstride + d] : 0.f;
-  }
-  float lse[4], dl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const bool in = row < p.Sq;
-    lse[i] = in ? p.lse[static_cast<long long>(bn) * p.Sq + row] : 0.f;
-    dl[i] = in ? p.delta[static_cast<long long>(bn) * p.Sq + row] : 0.f;
-  }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) acc[i][jj] = 0.f;
-
-  const int kv_end = kv_end_for(p, q0);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D;
-      const int d = i - c * D;
-      const int col = kv0 + c;
-      const bool in = col < p.Skv;
-      Ks[c * TL::KP + d] = in ? kg[col * kstride + d] : 0.f;
-      Vs[c * TL::KP + d] = in ? vg[col * kstride + d] : 0.f;
-    }
-    __syncthreads();  // (the first pass also publishes Qs, dOs)
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty * 4 + i) * TL::QP + d];
-        da[i] = dOs[(ty * 4 + i) * TL::QP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * TL::KP + d];
-        vb[j] = Vs[(tx + 16 * j) * TL::KP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + ty * 4 + i;
-        const int col = kv0 + tx + 16 * j;
-        const float pv = visible(p, row, col) ? expf(s[i][j] - lse[i]) : 0.f;
-        float dpv = dp[i][j];
-        if (DROP)
-          dpv = dropout::keep(p.seed, bn, row, col, p.threshold)
-                    ? dpv * p.drop_scale
-                    : 0.f;
-        dS[(ty * 4 + i) * TL::SP + tx + 16 * j] = pv * (dpv - dl[i]);
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsr[4], kr[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = dS[(ty * 4 + i) * TL::SP + c];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) kr[jj] = Ks[c * TL::KP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DC; ++jj)
-          acc[i][jj] = fmaf(dsr[i], kr[jj], acc[i][jj]);
-    }
-    __syncthreads();  // before the next tile overwrites Ks, Vs, dS
-  }
-
-  float* dqg = static_cast<float*>(p.dq) + (static_cast<long long>(b) * p.Sq * p.N + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj)
-      dqg[row * qstride + tx + 16 * jj] = acc[i][jj] * p.scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 dk/dv: 3xTF32 on the tensor cores (mma.sync), fed by a cp.async ring
-
-constexpr int KV32 = 64;        // kv rows a block: 4 warp pairs of 16
-constexpr int THREADS32 = 256;  // 8 warps: (16 kv rows) x (half of D)
-constexpr int STAGES32 = 2;     // q tiles in flight
+constexpr int THREADS32 = 256;  // 8 warps a block
+constexpr int STAGES32 = 2;     // tiles (dq: pairs of tiles) in flight
+constexpr int KV32 = 64;        // dk/dv: kv rows a block, 4 warp pairs of 16
 
 // q rows a tile: 64, or 32 at D 128, where the stages of 64 rows and the
 // pairs' partial scores would not fit in shared memory beside k and v
@@ -344,17 +207,21 @@ struct DkvTf32Smem {
 };
 
 // c (16 x 8NQ) = the 16 rows at `a` times the 8NQ rows at `b` transposed,
-// over the D / 2 columns at both (A and B fragments by ldmatrix_x4 at this
-// lane's addresses; pitch D + 4). The small terms go to an accumulator of
-// their own, added at the end
-template <int D, int NQ>
-__device__ __forceinline__ void half_product(float (&c)[NQ][4], uint32_t a, uint32_t b) {
+// over 8KS columns at both (dk/dv: half of D; dq: all of it); A and B
+// fragments by ldmatrix_x4 at this lane's addresses, pitch D + 4. The small
+// terms go to an accumulator of their own, added at the end. The k-steps
+// run in unrolled runs of at most R (dq at D 128 takes 16 k-steps)
+template <int D, int NQ, int KS, int R = 8>
+__device__ __forceinline__ void score_product(float (&c)[NQ][4], uint32_t a, uint32_t b) {
   constexpr int P = D + 4;
+  constexpr int RUN = KS < R ? KS : R;
   float e[NQ][4];
   zero(c);
   zero(e);
+#pragma unroll 1
+  for (int k0 = 0; k0 < KS; k0 += RUN)
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = k0; kk < k0 + RUN; ++kk) {
     uint32_t x[4];
     Tf32A af;
     ldmatrix_x4(x, a + 32u * kk);
@@ -375,24 +242,26 @@ __device__ __forceinline__ void half_product(float (&c)[NQ][4], uint32_t a, uint
     for (int i = 0; i < 4; ++i) c[nt][i] += e[nt][i];
 }
 
-// acc (16 x D / 2) += x (16 x 8NQ, C fragments, as the A operand) times
+// acc (16 x 8NT) += x (16 x 8NQ, C fragments, as the A operand) times
 // the 8NQ rows from `rows` (this lane's first: row 2t, column g; pitch
-// D + 4), in passes of 4 k-steps (32 registers of A fragments): each n8
-// tile of acc takes a pass's product, accumulated from zero, by one add
-template <int D, int NQ>
-__device__ __forceinline__ void add_product(float (&acc)[D / 16][4], const float (&x)[NQ][4],
+// D + 4), in passes of PASS k-steps (8 PASS registers of A fragments):
+// each n8 tile of acc takes a pass's product, accumulated from zero, by
+// one add
+template <int D, int PASS = 4, int NT, int NQ>
+__device__ __forceinline__ void add_product(float (&acc)[NT][4], const float (&x)[NQ][4],
                                             const float* rows) {
   constexpr int P = D + 4;
+  static_assert(NQ % PASS == 0, "whole passes");
 #pragma unroll
-  for (int k0 = 0; k0 < NQ; k0 += 4) {
-    Tf32A xa[4];
+  for (int k0 = 0; k0 < NQ; k0 += PASS) {
+    Tf32A xa[PASS];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) xa[kk] = c_as_a(x[k0 + kk]);
+    for (int kk = 0; kk < PASS; ++kk) xa[kk] = c_as_a(x[k0 + kk]);
 #pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < PASS; ++kk) {
         const float* r = rows + 8 * (k0 + kk) * P + 8 * nt;
         mma_3xtf32(d, e, xa[kk], b_of(r[0], r[P]));
       }
@@ -518,8 +387,8 @@ __global__ void __launch_bounds__(THREADS32, 1) flash_bwd_dkv_tf32(const Params 
       // in both warps): st[nt][c] is kv row kw + g + 8 (c / 2), q row
       // qa + 8nt + 2t + c % 2
       float st[NQ][4], dpt[NQ][4];
-      half_product<D, NQ>(st, a_lane, qs + b_lane);
-      half_product<D, NQ>(dpt, a_lane + 4u * SM::V, qs + 4u * TQ * P + b_lane);
+      score_product<D, NQ, D / 16>(st, a_lane, qs + b_lane);
+      score_product<D, NQ, D / 16>(dpt, a_lane + 4u * SM::V, qs + 4u * TQ * P + b_lane);
 #pragma unroll
       for (int nt = 0; nt < NQ; ++nt)
 #pragma unroll
@@ -566,8 +435,8 @@ __global__ void __launch_bounds__(THREADS32, 1) flash_bwd_dkv_tf32(const Params 
       // its k indices t, t + 4), so dO's and q's B fragments are those
       // rows, column dc + g
       const int row = 2 * t * P + dc + g;
-      add_product<D, NQ>(dv, st, dof + row);
-      add_product<D, NQ>(dk, dpt, qf + row);
+      add_product<D>(dv, st, dof + row);
+      add_product<D>(dk, dpt, qf + row);
     }
     cp_async_wait<0>();  // item it + 1 has landed: scale its q
     if (it + 1 < iters) scale_q(it + 1);
@@ -587,6 +456,218 @@ __global__ void __launch_bounds__(THREADS32, 1) flash_bwd_dkv_tf32(const Params 
       *reinterpret_cast<float2*>(dkr + 8 * nt) = make_float2(dk[nt][2 * i], dk[nt][2 * i + 1]);
       *reinterpret_cast<float2*>(dvr + 8 * nt) = make_float2(dv[nt][2 * i], dv[nt][2 * i + 1]);
     }
+  }
+}
+
+// the dq kernel's form at (D, DROP): TKV kv rows a tile (each half of the
+// block takes every other tile: 64, or 32 at D 128, where a pair of 64-row
+// k and v tiles a stage would not fit beside the q and dO tiles), the
+// score products' k-steps in unrolled runs of RUN, dQ += dS K in passes of
+// PASS k-steps. At D 128 ptxas holds the kernel at 255 registers, and
+// whether it spills inside the tile loop turned on these two: of the forms
+// probes/flash_dq_ab.py builds, runs of 8 and passes of 4 spill there
+// without dropout and not with it, runs of 4 and passes of 2 the other way
+template <int D, bool DROP>
+struct DqForm {
+  static constexpr int TKV = D == 128 ? 32 : 64;
+  static constexpr int RUN = D == 128 && !DROP ? 4 : 8;
+  static constexpr int PASS = D == 128 && !DROP ? 2 : 4;
+};
+
+// shared memory in floats of the dq kernel: the block's q tile (scaled)
+// and dO tile, then per stage a pair of TKV-row k and v tiles, one for
+// each half; rows at pitch D + 4. After the loop the stages hold the
+// halves' merge
+template <int D, int TKV>
+struct DqTf32Smem {
+  static constexpr int P = D + 4;
+  static constexpr int T = TKV * P;      // a k or v tile
+  static constexpr int KV = 2 * BQ * P;  // stage s, half h: k at KV + (2s + h) 2T, v at + T
+  static constexpr size_t bytes = sizeof(float) * (KV + STAGES32 * 4 * T);
+  static_assert(STAGES32 * 4 * T >= (THREADS32 / 2) * (D / 2), "the merge fits");
+  static_assert(TKV % 16 == 0, "keep_bits_rows draws 16 columns a group");
+};
+
+// dq: block i = (q tile q_tiles - 1 - i / (B * N), b * N + h = i % (B *
+// N)), heaviest tiles first; warps w and w + 4 own q rows q0 + 16 (w % 4)
+// and take alternate kv tiles (half w / 4: tiles 2j + w / 4), so a block
+// is 8 warps on 64 q rows; the halves' dq partials meet at the end. One
+// block an SM (up to 255 registers a thread): at two, capped at 128, the
+// D 32 and 64 kernels spilled inside the tile loop, and at D <= 64 two
+// were no faster than one
+template <int D, bool DROP, int TKV = DqForm<D, DROP>::TKV, int RUN = DqForm<D, DROP>::RUN,
+          int PASS = DqForm<D, DROP>::PASS>
+__global__ void __launch_bounds__(THREADS32, 1) flash_bwd_dq_tf32(const Params p) {
+  using SM = DqTf32Smem<D, TKV>;
+  constexpr int P = SM::P;
+  constexpr int NK = TKV / 8;  // n8 tiles of a warp's s and dp
+  constexpr int NT = D / 8;    // n8 tiles of a warp's dq
+  constexpr int HT = THREADS32 / 2;
+  extern __shared__ __align__(16) float fsm[];
+  const uint32_t sbase = smem_addr(fsm);
+
+  const int n_bh = p.B * p.N;
+  const int q_tiles = (p.Sq + BQ - 1) / BQ;
+  const int bn = blockIdx.x % n_bh;
+  const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
+  const int b = bn / p.N;
+  const int h = bn - b * p.N;
+  const int kvh = h / (p.N / p.Nkv);
+  const int kv_tiles = (kv_end_rows(p, q0, BQ) + TKV - 1) / TKV;
+  const int pairs = (kv_tiles + 1) / 2;
+  const int offset = p.Skv - p.Sq;
+  const int tid = threadIdx.x;
+  // offsets and strides are recomputed where they are used, from the
+  // parameters (constant memory): kept across the tile loop, their 64-bit
+  // registers pushed the D 128 kernel past 255 and into a spill
+  auto q_at = [&] {  // row q0 of (b, h) in q, dO and dq
+    return (static_cast<long long>(b) * p.Sq + q0) * p.N * D + h * D;
+  };
+  auto tile = [&](int it, int half) { return SM::KV + ((it % STAGES32) * 2 + half) * 2 * SM::T; };
+  // kv tiles 2it and 2it + 1, one for each half
+  auto load_pair = [&](int it) {
+    const long long kstride = static_cast<long long>(p.Nkv) * D;
+#pragma unroll 1
+    for (int half = 0; half < 2 && 2 * it + half < kv_tiles; ++half) {
+      const int kv0 = (2 * it + half) * TKV;
+      const long long at = (static_cast<long long>(b) * p.Skv + kv0) * kstride + kvh * D;
+      const uint32_t kt = sbase + 4u * tile(it, half);
+      load_rows<D, THREADS32>(kt, static_cast<const float*>(p.k) + at, kstride, TKV,
+                              p.Skv - kv0, tid);
+      load_rows<D, THREADS32>(kt + 4u * SM::T, static_cast<const float*>(p.v) + at, kstride, TKV,
+                              p.Skv - kv0, tid);
+    }
+  };
+
+  // the q and dO tiles and the first pair in one group; q is scaled where
+  // it landed
+  const long long qstride = static_cast<long long>(p.N) * D;
+  load_rows<D, THREADS32>(sbase, static_cast<const float*>(p.q) + q_at(), qstride, BQ,
+                          p.Sq - q0, tid);
+  load_rows<D, THREADS32>(sbase + 4u * BQ * P, static_cast<const float*>(p.dout) + q_at(),
+                          qstride, BQ, p.Sq - q0, tid);
+  if (pairs > 0) load_pair(0);
+  cp_async_commit();
+
+  // this thread's rows row0 and row0 + 8 of its warp's 16 (from r0)
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int half = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = q0 + 16 * (warp % 4);
+  const int row0 = r0 + g;
+  const int last = min(r0 + 15, p.Sq - 1);  // the warp's last row in range
+  cp_async_wait<0>();
+  scale_rows<D, THREADS32>(fsm, BQ, p.scale, tid);
+  __syncthreads();
+
+  // ldmatrix.x4 addresses (matrix lane / 8, its row lane % 8): q's and
+  // dO's A fragments (rows r0.., columns 8kk..: rows +0 / +8 x columns
+  // +0 / +4), k's and v's B fragments (two n8 tiles x columns +0 / +4)
+  const int mi = lane / 8;
+  const int mr = lane % 8;
+  const uint32_t qa = sbase + 4u * ((r0 - q0 + mr + 8 * (mi & 1)) * P + 4 * (mi >> 1));
+  const uint32_t da = qa + 4u * BQ * P;
+  const uint32_t kb_lane = 4u * ((8 * (mi >> 1) + mr) * P + 4 * (mi & 1));
+
+  float acc[NT][4];
+  zero(acc);
+
+#pragma unroll 1  // one pair of tiles at a time
+  for (int it = 0; it < pairs; ++it) {
+    if (it + 1 < pairs) load_pair(it + 1);
+    cp_async_commit();
+    const int kv0 = (2 * it + half) * TKV;
+    const int kt = tile(it, half);
+    // a warp whose rows see no column of its tile skips it
+    if (kv0 < kv_tiles * TKV && r0 < p.Sq && (!p.causal || kv0 <= last + offset)) {
+      // with dropout, the keep bits in the C fragment's layout (the
+      // forward's mask, philox.cuh)
+      uint32_t kb = 0;
+      if (DROP)
+        kb = dropout::keep_bits_rows<TKV / 16>(p.seed, bn, row0, kv0 + 2 * t, p.threshold);
+      // the rows' lse (x log2 e) and delta, read again each tile (L1 hits)
+      // rather than held in registers across the loop
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        const bool in = row < p.Sq;
+        lse2[i] = in ? p.lse[static_cast<long long>(bn) * p.Sq + row] * LOG2E : 0.f;
+        dl[i] = in ? p.delta[static_cast<long long>(bn) * p.Sq + row] : 0.f;
+      }
+      // s = (q scale) k^T (16 x TKV): sc[nt][c] is row row0 + 8 (c / 2),
+      // column kv0 + 8nt + 2t + c % 2; a tile every row of this warp sees
+      // whole skips the mask, and a masked score is -inf, so p is exactly 0
+      float sc[NK][4];
+      score_product<D, NK, D / 8, RUN>(sc, qa, sbase + 4u * kt + kb_lane);
+      const bool whole =
+          r0 + 16 <= p.Sq && kv0 + TKV <= p.Skv && (!p.causal || kv0 + TKV - 1 <= r0 + offset);
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // row row0 + 8i sees the columns below lim (from kv0 + 2t)
+          const int row = row0 + 8 * i;
+          const int lim =
+              (row >= p.Sq ? 0 : p.causal ? min(p.Skv, row + offset + 1) : p.Skv) - (kv0 + 2 * t);
+#pragma unroll
+          for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (8 * nt + j >= lim) sc[nt][2 * i + j] = -INFINITY;
+        }
+      }
+      // p = exp(s - lse) in base 2
+#pragma unroll
+      for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sc[nt][c] = exp2_approx(fmaf(sc[nt][c], LOG2E, -lse2[c / 2]));
+      // dp = dO v^T, then ds = p (dp - delta), with dropout dp is
+      // keep * dp / (1 - rate)
+      float dp[NK][4];
+      score_product<D, NK, D / 8, RUN>(dp, da, sbase + 4u * (kt + SM::T) + kb_lane);
+#pragma unroll
+      for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float dpv = dp[nt][c];
+          if (DROP) dpv = (kb >> (4 * nt + c)) & 1u ? dpv * p.drop_scale : 0.f;
+          sc[nt][c] *= dpv - dl[c / 2];
+        }
+      // dQ += dS K: k-step kk takes ds's n8 tile kk (columns 2t, 2t + 1 as
+      // its k indices t, t + 4), so k's B fragment is rows 2t, 2t + 1,
+      // column g; each n8 tile of dq takes the tile's product by one add
+      add_product<D, PASS>(acc, sc, fsm + kt + 2 * t * P + g);
+    }
+    cp_async_wait<0>();  // the next pair has landed
+    __syncthreads();     // and every warp is done with this pair's stage
+  }
+
+  // the halves (same rows, alternate kv tiles) meet: half 1 leaves its dq
+  // in the stages, half 0 adds it and writes dq = scale * (half 0 + half 1)
+  float* mg = fsm + SM::KV;
+  const int ht = tid % HT;
+  if (half == 1) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mg[(4 * nt + c) * HT + ht] = acc[nt][c];
+  }
+  __syncthreads();
+  if (half == 1) return;
+  float* dqg = static_cast<float*>(p.dq) + q_at();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.Sq) continue;
+    float* dqr = dqg + (row - q0) * static_cast<long long>(p.N) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      *reinterpret_cast<float2*>(dqr + 8 * nt) =
+          make_float2((acc[nt][2 * i] + mg[(4 * nt + 2 * i) * HT + ht]) * p.scale,
+                      (acc[nt][2 * i + 1] + mg[(4 * nt + 2 * i + 1) * HT + ht]) * p.scale);
   }
 }
 
@@ -672,14 +753,6 @@ __device__ __forceinline__ void mma_rows(float (&c)[32], uint32_t a, uint32_t b)
     wgmma_ss_n64(c, kmajor_desc(a, kk), kmajor_desc(b, kk), kk > 0);
 }
 
-// one past the last kv column any of rows [r0, r0 + n) (clipped to Sq) can
-// see; 0 when the range holds no row
-__device__ __forceinline__ int kv_end_rows(const Params& p, int r0, int n) {
-  if (r0 >= p.Sq) return 0;
-  if (!p.causal) return p.Skv;
-  const int last = min(r0 + n, p.Sq) - 1;
-  return max(0, min(p.Skv, last + (p.Skv - p.Sq) + 1));
-}
 
 // dq: block i = (q tile p.tiles[i / (B * N)], b * N + h = i % (B * N)), so
 // blocks launch in the plan's order; consumer c owns rows q0 + 64c and
@@ -1090,27 +1163,34 @@ int launch_wgmma(Kernel kernel, size_t smem, bool& configured, int blocks, int D
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool DROP>
-int launch_dq_fma(const Params& p, cudaStream_t s) {
-  static bool configured = false;
-  return launch(flash_bwd_dq_fma<D, DROP>, DqFma<D>::smem_bytes, configured,
-                dim3((p.Sq + BQ - 1) / BQ, p.B * p.N), THREADS, p, s);
+// the float32 kernels: shared memory past 48 KB, with the carveout's
+// maximum
+template <typename Kernel>
+int launch_tf32(Kernel kernel, size_t smem, bool& configured, int blocks, const Params& p,
+                cudaStream_t s) {
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return launch(kernel, smem, configured, dim3(blocks), THREADS32, p, s);
 }
 
-// one block per entry of the plan; shared memory past 48 KB, with the
-// carveout's maximum
+// one block per 64-row q tile and (b, q head)
+template <int D, bool DROP, int TKV = DqForm<D, DROP>::TKV, int RUN = DqForm<D, DROP>::RUN,
+          int PASS = DqForm<D, DROP>::PASS>
+int launch_dq_tf32(const Params& p, cudaStream_t s) {
+  static bool configured = false;
+  return launch_tf32(flash_bwd_dq_tf32<D, DROP, TKV, RUN, PASS>, DqTf32Smem<D, TKV>::bytes,
+                     configured, (p.Sq + BQ - 1) / BQ * p.B * p.N, p, s);
+}
+
+// one block per entry of the plan
 template <int D, bool DROP>
 int launch_dkv_tf32(const Params& p, cudaStream_t s) {
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tf32<D, DROP>,
-                                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (p.Skv + KV32 - 1) / KV32 * p.B * p.Nkv * p.splits;
-  return launch(flash_bwd_dkv_tf32<D, DROP>, DkvTf32Smem<D>::bytes, configured,
-                dim3(blocks), THREADS32, p, s);
+  return launch_tf32(flash_bwd_dkv_tf32<D, DROP>, DkvTf32Smem<D>::bytes, configured,
+                     (p.Skv + KV32 - 1) / KV32 * p.B * p.Nkv * p.splits, p, s);
 }
 
 template <int D, bool DROP>
@@ -1135,7 +1215,7 @@ int launch_dkv_wgmma(const Params& p, cudaStream_t s) {
 template <int D>
 int launch_dq(int dtype, bool drop, const Params& p, cudaStream_t s) {
   if (dtype == 0)
-    return drop ? launch_dq_fma<D, true>(p, s) : launch_dq_fma<D, false>(p, s);
+    return drop ? launch_dq_tf32<D, true>(p, s) : launch_dq_tf32<D, false>(p, s);
   if constexpr (D % 64 == 0)
     return drop ? launch_dq_wgmma<D, true>(p, s) : launch_dq_wgmma<D, false>(p, s);
   return -1;
@@ -1157,7 +1237,8 @@ int launch_dkv(int dtype, bool drop, const Params& p, cudaStream_t s) {
 // forward's mask from (seed, threshold) and scales kept entries by
 // drop_scale. `tiles`, device int32, lists the output tiles in launch
 // order, each once: bf16's of BLOCK_ROWS rows (q tiles for dq, kv tiles
-// for dk/dv), float32 dk/dv's of KV32 rows; float32 dq ignores it.
+// for dk/dv), float32 dk/dv's of KV32 rows; float32 dq ignores it (its
+// blocks launch heaviest first by their index).
 // flash_bwd_dkv with splits > 1 splits each kv head's q heads over that
 // many blocks and writes float32 partials (splits, B, Skv, Nkv, D) to dk,
 // dv for the caller to sum; splits must divide N / Nkv. Each returns 0 on success, the CUDA

@@ -51,7 +51,7 @@ from solvingpapers_tpu_torch.kernels.dropout import (
 from solvingpapers_tpu_torch.ops.attention import BIG_NEG, causal_mask
 
 # the (dtype, head_dim) pairs the kernels are built for: the float32
-# kernels (3xTF32 forward and dk/dv, CUDA-core dq) at any of these, the
+# kernels (3xTF32 forward, dq and dk/dv) at any of these, the
 # bf16 wgmma kernels at whole 64-column panels
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _GRID_Y_MAX = 65535
@@ -562,7 +562,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
                  dropout_rate=0.0, dropout_seed=0):
     """dq by the sm_90a dq kernel (CUDA tensors only; raises on others
     and when the build or the launch fails). bf16 blocks launch in
-    `bwd_plan`'s order."""
+    `bwd_plan`'s order; float32 blocks (64 q rows each) heaviest first by
+    their index, which is the order `bwd_plan(..., rows=64)` would give."""
     q, k, v, do, lse, delta = _bwd_kernel_inputs(q, k, v, do, lse, delta)
     args, empty = _launch_args(q, k, scale, causal, dropout_rate, dropout_seed)
     if empty:

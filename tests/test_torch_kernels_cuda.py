@@ -16,7 +16,7 @@ the dropout apply kernel's outputs (forward and backward) the plain
 dropout's, bit for bit, at its timed shapes, ragged sizes and unaligned
 bases, and at every bf16 input and every float32 sign and significand
 (at a sweep of divisors) against IEEE division. float32 head dims 16
-to 128 (the 3xTF32 forward and dk/dv kernels), the bf16 forward at
+to 128 (the 3xTF32 forward, dq and dk/dv kernels), the bf16 forward at
 scales <= 0 (through `positive_scale`) and the forward over a lane
 gathered from a page pool (the paged engine's prefill) are held to the
 same limits.
@@ -486,6 +486,12 @@ def _chip_smoke():
     (torch.float32, 1, 1000, 8, 1, 128, 0.1, None, False),
     (torch.float32, 1, 1000, 8, 1, 128, 0.1, 2, False),
     (torch.float32, 1, 1000, 8, 1, 128, 0.1, 1, False),
+    # the float32 dq kernel's halves (on alternate kv tiles of 64 rows, 32
+    # at D 128) unequal: q tile 1 of S 160 sees 3 kv tiles at D 16, of S 96
+    # 3 at D 128; S 20 leaves the second half no tile at all
+    (torch.float32, 2, 96, 4, 2, 128, 0.0, None, False),
+    (torch.float32, 1, 160, 4, 2, 16, 0.5, None, False),
+    (torch.float32, 1, 20, 8, 1, 128, 0.1, None, False),
 ])
 def test_flash_backward_split_and_fold_are_right_and_deterministic(
         cuda_device, dtype, b, s, n, n_kv, d, rate, splits, folds):
@@ -551,11 +557,22 @@ def test_flash_backward_split_path_redraws_the_mask_bit_for_bit(cuda_device):
          (1, 300, 100, 4, 2, True, "own"),      # Sq > Skv: rows see no key
          (2, 97, 150, 4, 2, False, "own"),      # bidirectional, ragged
          (1, 515, 515, 8, 1, True, "k_is_v"),   # MQA, k = v: dk/dv splits
-     )])
+     )] + [
+    # the dq kernel's halves take alternate kv tiles (64 rows, 32 at D
+    # 128): an odd number of live tiles (S 160 causal at D 32: q rows
+    # 128-159 see 3; Skv 80 at D 128: every row sees 3), Sq 1, rows that
+    # see no key (Sq 200 over Skv 40), and D 128 at rate 0.1 with k = v
+    (1, 160, 160, 4, 2, 32, True, 0.1, "own"),
+    (2, 70, 80, 4, 2, 128, False, 0.0, "own"),
+    (1, 1, 100, 4, 2, 64, True, 0.0, "own"),
+    (2, 1, 77, 8, 1, 128, True, 0.1, "k_is_v"),
+    (1, 200, 40, 4, 2, 128, True, 0.1, "k_is_v"),
+    (1, 515, 515, 8, 1, 128, True, 0.1, "k_is_v"),
+])
 def test_flash_f32_small_head_dims_match_reference(cuda_device, b, sq, skv, n,
                                                    n_kv, d, causal, rate, kv):
-    """The float32 forward (`flash_fwd_tf32`), dq and dk/dv
-    (`flash_bwd_dkv_tf32`) kernels at D 16 to 128 against the plain
+    """The float32 forward (`flash_fwd_tf32`), dq (`flash_bwd_dq_tf32`)
+    and dk/dv (`flash_bwd_dkv_tf32`) kernels at D 16 to 128 against the plain
     versions (o, lse within 1e-4; grads within 2e-5 of the largest), with
     and without dropout; two calls bit-identical."""
     q, k, v = (torch.from_numpy(x).to(cuda_device)

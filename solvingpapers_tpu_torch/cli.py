@@ -15,6 +15,10 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--checkpoint-dir ckpts] [--slots 8] [--max-len N]
                [--decode-block 8] [--bucket 32] [--sample-cap 64]
                [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
+    cli serve-bench --config llama3_shakespeare [--shared-prefix |
+               --sampling | --paged | --http] [--requests N] [--slots 8]
+               [--max-new-tokens N] [--prompt-lens 16 32 48 64]
+               [--skip-sequential] [--out f.jsonl [--append]]
 
 Every command runs on ``--device cuda`` (the default; it raises when
 there is no card) or ``--device cpu``; the reference's `--platform` and
@@ -37,12 +41,22 @@ at startup), weights from `--checkpoint-dir` or random from `--seed`,
 and a token table over the full vocab. SIGINT / SIGTERM shut it down in
 order: drain streams, close the engine, stop the HTTP threads.
 
+`serve-bench` runs one workload of `serve/bench.py` a run — Poisson
+(engine against sequential `generate`, the default), `--shared-prefix`,
+`--sampling`, `--paged` or `--http` — on random weights, and prints one
+JSON line with a provenance stamp (written to `--out` too when given).
+Beyond the reference's flags it takes `--max-seq-len` (the model's
+position budget, which the prefix stems stretch to) and `--reps` (the
+paged and HTTP workloads' ABBA pairs); without `--prompt-lens`, the
+default cycle 16 32 48 64 keeps the lengths that fit the model's
+positions with the new tokens (gpt_tiny's 64 at 4 new tokens: 16 32 48).
+
 Not ported, refused with their ROADMAP items: `replay` and
-`trace-summary` (A4), `serve-bench`, `kernel-bench` and `sample
---speculative` (A5), and the `serve` flags of the journal, fleet,
-tracing, SLO and fault ladders (A4) and of the quantized pool and
-speculative decoding (A5); image, KD and Gemma configs (A6) and pipeline
-ones (A7) are not registered.
+`trace-summary` (A4), `kernel-bench` and `sample --speculative` (A5),
+the `serve` and `serve-bench` flags of the journal, fleet, tracing, SLO,
+status and fault ladders (A4), of the quantized pool and speculative
+decoding (A5) and of the compile observatory (A8); image, KD and Gemma
+configs (A6) and pipeline ones (A7) are not registered.
 """
 
 from __future__ import annotations
@@ -61,7 +75,6 @@ import torch
 UNPORTED = {
     "replay": "A4 (serve/replay.py)",
     "trace-summary": "A4 (metrics/trace.py)",
-    "serve-bench": "A5 (serve/bench.py)",
     "kernel-bench": "A5 (serve/kernel_bench.py)",
 }
 
@@ -356,6 +369,139 @@ def cmd_serve(args) -> int:
     return 0
 
 
+# `serve-bench` flags of the reference that the port refuses, with their
+# items
+BENCH_UNPORTED = {
+    "--speculative": "A5 (speculative decoding)",
+    "--spec-k": "A5 (speculative decoding)",
+    "--spec-rounds": "A5 (speculative decoding)",
+    "--spec-train-steps": "A5 (speculative decoding)",
+    "--kv-quant": "A5 (the quantized KV pool)",
+    "--kv-quant-block": "A5 (the quantized KV pool)",
+    "--quant-train-steps": "A5 (the quantized KV pool)",
+    "--slo": "A4 (SLO accounting)",
+    "--chaos": "A4 (the fault ladder)",
+    "--chaos-stall": "A4 (the fault ladder)",
+    "--journal": "A4 (the request journal)",
+    "--journal-kill-step": "A4 (the request journal)",
+    "--replay": "A4 (serve/replay.py)",
+    "--replay-train-steps": "A4 (serve/replay.py)",
+    "--fleet": "A4 (fleet routing)",
+    "--fleet-replicas": "A4 (fleet routing)",
+    "--trace": "A4 (request tracing)",
+    "--trace-out": "A4 (request tracing)",
+    "--trace-dump": "A4 (request tracing)",
+    "--status-port": "A4 (the status endpoint)",
+    "--status-hold-s": "A4 (the status endpoint)",
+    "--obs": "A8 (the compile and memory observatory)",
+    "--obs-hlo-dir": "A8 (the compile and memory observatory)",
+}
+
+
+def _bench_config(args):
+    """`--config` as a RunConfig, its position budget cut to
+    `--max-seq-len` when given (LLaMA's `max_seq_len`, GPT's and
+    DeepSeek-V3's `block_size`)."""
+    cfg = _config(args)
+    if args.max_seq_len is None:
+        return cfg
+    field = "max_seq_len" if hasattr(cfg.model, "max_seq_len") else "block_size"
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, **{field: args.max_seq_len}))
+
+
+def cmd_serve_bench(args) -> int:
+    """One serving workload (serve/bench.py): continuous batching against
+    sequential one-shot generate on a Poisson arrival stream, or with
+    --shared-prefix the prefix cache on against off over K shared system
+    prompts, with --sampling a per-request SamplingParams mix against
+    all-greedy, with --paged the paged KV pool against the lane pool
+    (throughput, equal-bytes capacity, page-sharing prefix TTFT), with
+    --http SSE clients through the front door against direct submit;
+    prints the result as one JSON line and writes it to --out when
+    given."""
+    if args.checkpoint_dir or args.data_path:
+        print("serve-bench benchmarks scheduling throughput on random-init "
+              "params; --checkpoint-dir/--data-path are not consumed",
+              file=sys.stderr)
+        return 2
+    if sum((args.shared_prefix, args.sampling, args.paged, args.http)) > 1:
+        print("--shared-prefix, --sampling, --paged and --http are separate "
+              "workloads; pick one per run", file=sys.stderr)
+        return 2
+    from solvingpapers_tpu_torch.serve.bench import (
+        bench_provenance,
+        run_http_bench,
+        run_paged_bench,
+        run_prefix_bench,
+        run_sampling_bench,
+        run_serve_bench,
+    )
+
+    device = _device(args)
+    config = _bench_config(args)
+    # shared flags with per-workload defaults (None sentinel, so an
+    # explicit value always wins)
+    max_new = args.max_new_tokens
+    if max_new is None:
+        max_new = 4 if args.shared_prefix else 64
+    decode_block = args.decode_block
+    if decode_block is None:
+        decode_block = 4 if args.shared_prefix else 16
+    n_requests = args.requests
+    if n_requests is None:
+        n_requests = 48 if args.shared_prefix else 32
+    mean_ia = 0.001 if args.mean_interarrival is None else args.mean_interarrival
+    common = dict(config=config, n_requests=n_requests, n_slots=args.slots,
+                  max_new=max_new, decode_block=decode_block,
+                  mean_interarrival_s=mean_ia, seed=args.seed, device=device)
+    prompt_lens = args.prompt_lens
+    if prompt_lens is None:
+        # the default cycle, cut to the lengths that fit the model's
+        # position budget with the new tokens (a small config's)
+        limit = getattr(config.model, "max_seq_len",
+                        getattr(config.model, "block_size", None))
+        prompt_lens = [n for n in (16, 32, 48, 64)
+                       if limit is None or n + max_new <= limit]
+        if len(prompt_lens) < 4:
+            print(f"[serve-bench] default prompt lengths cut to {prompt_lens}: "
+                  f"the model's max positions are {limit}", file=sys.stderr)
+        if not prompt_lens:
+            return 2
+    prompt_lens = tuple(prompt_lens)
+    reps = {} if args.reps is None else {"reps": args.reps}
+    if args.http:
+        result = run_http_bench(prompt_lens=prompt_lens, **reps, **common)
+    elif args.paged:
+        result = run_paged_bench(
+            prompt_lens=prompt_lens, n_prefixes=args.n_prefixes,
+            prefix_requests=args.prefix_requests, suffix_len=args.suffix_len,
+            page_size=args.page_size, **reps, **common)
+    elif args.sampling:
+        result = run_sampling_bench(prompt_lens=prompt_lens, **common)
+    elif args.shared_prefix:
+        result = run_prefix_bench(
+            n_prefixes=args.n_prefixes, prefix_len=args.prefix_len,
+            suffix_len=args.suffix_len, prefix_page=args.prefix_page,
+            **common)
+    else:
+        result = run_serve_bench(prompt_lens=prompt_lens,
+                                 skip_sequential=args.skip_sequential, **common)
+    # one clock reading per run, stamped here, the one place results are
+    # written
+    import time
+
+    result = {**bench_provenance(timestamp=time.time()), **result}
+    line = json.dumps(result)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "a" if args.append else "w") as f:
+            f.write(line + "\n")
+        verb = "appended to" if args.append else "wrote"
+        print(f"[serve-bench] {verb} {args.out}", file=sys.stderr)
+    return 0
+
+
 def cmd_sample(args) -> int:
     from solvingpapers_tpu_torch.checkpoint import restore_for_inference
     from solvingpapers_tpu_torch.configs.factory import build_char_lm_run
@@ -502,6 +648,70 @@ def build_parser() -> argparse.ArgumentParser:
                        help="random weights from this seed when no "
                             "--checkpoint-dir is given")
 
+    p_bench = sub.add_parser("serve-bench")
+    _add_common(p_bench)
+    p_bench.add_argument("--requests", type=int, default=None,
+                         help="default 32 (48 with --shared-prefix)")
+    p_bench.add_argument("--slots", type=int, default=8)
+    p_bench.add_argument("--max-new-tokens", type=int, default=None,
+                         help="default 64 (4 with --shared-prefix, whose "
+                              "TTFT story is prefill-bound)")
+    p_bench.add_argument("--decode-block", type=int, default=None,
+                         help="default 16 (4 with --shared-prefix)")
+    p_bench.add_argument("--prompt-lens", type=int, nargs="+", default=None,
+                         help="prompt-length cycle; default 16 32 48 64")
+    p_bench.add_argument("--mean-interarrival", type=float, default=None,
+                         help="Poisson arrival mean gap in seconds; default "
+                              "0.001")
+    p_bench.add_argument("--seed", type=int, default=0)
+    p_bench.add_argument("--skip-sequential", action="store_true",
+                         help="only run the engine arm")
+    p_bench.add_argument("--shared-prefix", action="store_true",
+                         help="shared-prefix workload instead: N requests "
+                              "over K distinct system prompts, prefix cache "
+                              "on vs off (run_prefix_bench)")
+    p_bench.add_argument("--sampling", action="store_true",
+                         help="sampling workload instead: the Poisson trace "
+                              "all-greedy vs a per-request temperature/top-p"
+                              "/top-k/min-p mix (run_sampling_bench)")
+    p_bench.add_argument("--http", action="store_true",
+                         help="HTTP soak instead: the Poisson trace as N "
+                              "concurrent SSE clients through the front "
+                              "door, ABBA-paired against direct submit "
+                              "(run_http_bench)")
+    p_bench.add_argument("--paged", action="store_true",
+                         help="paged-pool workload instead: paged vs lane "
+                              "pool on the Poisson trace, a capacity arm at "
+                              "equal pool bytes (2x slots) and a "
+                              "shared-prefix arm with page sharing "
+                              "(run_paged_bench)")
+    p_bench.add_argument("--page-size", type=int, default=16,
+                         help="[--paged] tokens per KV page")
+    p_bench.add_argument("--prefix-requests", type=int, default=None,
+                         help="[--paged] requests of the shared-prefix "
+                              "sub-arm (default 48)")
+    p_bench.add_argument("--n-prefixes", type=int, default=4,
+                         help="[--shared-prefix, --paged] distinct system "
+                              "prompts K")
+    p_bench.add_argument("--prefix-len", type=int, default=None,
+                         help="[--shared-prefix] shared stem length "
+                              "(default: stretch to the model's position "
+                              "budget, page-aligned)")
+    p_bench.add_argument("--suffix-len", type=int, default=8,
+                         help="[--shared-prefix, --paged] unique tail length")
+    p_bench.add_argument("--prefix-page", type=int, default=16,
+                         help="[--shared-prefix] radix-tree page size")
+    p_bench.add_argument("--max-seq-len", type=int, default=None,
+                         help="cut the model's position budget to this many "
+                              "positions (the prefix stems stretch to it)")
+    p_bench.add_argument("--reps", type=int, default=None,
+                         help="[--paged, --http] ABBA pairs (default 2)")
+    p_bench.add_argument("--out", default=None,
+                         help="also write the JSON result here")
+    p_bench.add_argument("--append", action="store_true",
+                         help="append to --out instead of overwriting "
+                              "(JSON lines: one result per run)")
+
     for name in UNPORTED:
         sub.add_parser(name, help=f"not ported (ROADMAP {UNPORTED[name]})")
 
@@ -515,17 +725,19 @@ def main(argv=None) -> int:
         print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
               f"{UNPORTED[argv[0]]})", file=sys.stderr)
         return 2
-    if argv and argv[0] == "serve":
+    refused = {"serve": SERVE_UNPORTED, "serve-bench": BENCH_UNPORTED}
+    if argv and argv[0] in refused:
         for arg in argv[1:]:
             flag = arg.split("=", 1)[0]
-            if flag in SERVE_UNPORTED:
-                print(f"{prog} serve {flag}: not ported yet (ROADMAP "
-                      f"{SERVE_UNPORTED[flag]})", file=sys.stderr)
+            if flag in refused[argv[0]]:
+                print(f"{prog} {argv[0]} {flag}: not ported yet (ROADMAP "
+                      f"{refused[argv[0]][flag]})", file=sys.stderr)
                 return 2
     parser = build_parser()
     args = parser.parse_args(argv)
     run = {"list": cmd_list, "train": cmd_train, "sample": cmd_sample,
-           "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve}[args.cmd]
+           "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve,
+           "serve-bench": cmd_serve_bench}[args.cmd]
     try:
         return run(args)
     except (Refused, NotImplementedError) as e:

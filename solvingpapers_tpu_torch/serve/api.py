@@ -56,6 +56,7 @@ import numpy as np
 
 from solvingpapers_tpu_torch.metrics.writer import PrometheusTextWriter
 from solvingpapers_tpu_torch.serve import openai as oai
+from solvingpapers_tpu_torch.serve.engine import weak_method
 from solvingpapers_tpu_torch.serve.grammar import JsonStepper
 from solvingpapers_tpu_torch.serve.openai import ApiError
 from solvingpapers_tpu_torch.serve.scheduler import ACTIVE
@@ -276,8 +277,10 @@ class ApiServer:
             self._grammar_err = ("json_object mode needs the server "
                                  "constructed with a `decode` callable "
                                  "(token table)")
-        engine.metrics.add_gauge_provider(self._gauges)
-        server = self
+        # weak: the engine's metrics and the HTTP server's handler class
+        # must not keep this server, and with it the engine, alive
+        engine.metrics.add_gauge_provider(weak_method(self._gauges, {}))
+        get, post = weak_method(self._get), weak_method(self._post)
 
         class Handler(BaseHTTPRequestHandler):
             # HTTP/1.0 close-delimited framing: SSE bodies end when the
@@ -286,10 +289,10 @@ class ApiServer:
                 pass
 
             def do_GET(self):  # noqa: N802
-                server._get(self)
+                get(self)
 
             def do_POST(self):  # noqa: N802
-                server._post(self)
+                post(self)
 
         self._httpd = ThreadingHTTPServer((cfg.api_host, cfg.api_port or 0),
                                           Handler)

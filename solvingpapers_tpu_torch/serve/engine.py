@@ -81,11 +81,13 @@ replay, fleet, SLO accounting and tracing.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
 from solvingpapers_tpu_torch.device import resolve_device
+from solvingpapers_tpu_torch.metrics.profile import ProfileWindow, scope
 from solvingpapers_tpu_torch.serve import metrics as smetrics
 from solvingpapers_tpu_torch.serve.grammar import encode_allow
 from solvingpapers_tpu_torch.serve.kv_pool import (
@@ -115,6 +117,21 @@ from solvingpapers_tpu_torch.serve.scheduler import (
     FIFOScheduler,
     Request,
 )
+
+
+def weak_method(method, dead=None):
+    """`method` as a callable that does not keep its engine alive: the
+    metrics' gauge provider and the scheduler's lookups would otherwise
+    form a cycle with the engine, so a dropped engine's device pool would
+    stay allocated until a full collection. Returns `dead` once the
+    engine is gone."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        bound = ref()
+        return dead if bound is None else bound(*args)
+
+    return call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +171,13 @@ class ServeConfig:
     (grammar-constrained slots advance one token per decode block);
     `drain_timeout_s` bounds `ApiServer.close`'s wait for active streams
     before it cancels them.
+
+    Profiler (`profile_dir`): a `torch.profiler` window over engine steps
+    [`profile_steps[0]`, `profile_steps[1]`), written as a Chrome trace
+    under `profile_dir` when it closes (`metrics/profile.py`), with the
+    prefill and decode-block calls labelled ``serve/prefill`` and
+    ``serve/decode_block``. `run()` and `close()` close a window still
+    open; a caller that steps the engine itself calls `stop_profile()`.
     """
 
     n_slots: int = 8
@@ -180,6 +204,9 @@ class ServeConfig:
     api_max_connections: int = 64
     json_mode: bool = True
     drain_timeout_s: float = 10.0
+    # torch.profiler window over engine steps [start, stop)
+    profile_dir: str | None = None
+    profile_steps: tuple[int, int] = (10, 15)
 
 
 _UNSET = object()
@@ -359,7 +386,7 @@ class ServeEngine:
                 )
             self.pool = PagedKVPool(model, cfg.n_slots, cfg.max_len, page,
                                     page_budget=cfg.page_budget)
-            self.metrics.add_gauge_provider(self._page_gauges)
+            self.metrics.add_gauge_provider(weak_method(self._page_gauges, {}))
         else:
             if cfg.page_size is not None or cfg.page_budget is not None:
                 raise ValueError(
@@ -379,8 +406,10 @@ class ServeEngine:
             max_prefills_per_step=cfg.max_prefills_per_step,
             max_wait_steps=cfg.max_wait_steps,
             prefer_cached=cfg.prefix_sched,
-            prefix_lookup=self._match_len if self.prefix_cache else None,
-            can_admit=self._can_admit if cfg.paged else None,
+            prefix_lookup=(weak_method(self._match_len, 0)
+                           if self.prefix_cache else None),
+            can_admit=(weak_method(self._can_admit, False)
+                       if cfg.paged else None),
         )
         self._slot_req: list[Request | None] = [None] * cfg.n_slots
         # host-side numpy mirrors of per-slot decode state, shipped to the
@@ -404,6 +433,8 @@ class ServeEngine:
         # deadline-bearing requests in the waiting queue: step() scans the
         # queue for expiries only while this is nonzero
         self._waiting_deadlines = 0
+        self.profile = (None if cfg.profile_dir is None else ProfileWindow(
+            cfg.profile_dir, cfg.profile_steps, self.device, "serve"))
 
     # ------------------------------------------------------------- submit
 
@@ -541,10 +572,18 @@ class ServeEngine:
 
     def close(self) -> None:
         """Shutdown's last step: `force_drain` whatever is still in flight
-        (the front door's `EngineLoop.close` drains gracefully first).
-        Idempotent; the engine stays usable."""
+        (the front door's `EngineLoop.close` drains gracefully first) and
+        close the profiler window. Idempotent; the engine stays usable."""
         if self.has_work():
             self.force_drain("cancelled")
+        self.stop_profile()
+
+    def stop_profile(self) -> None:
+        """Close a still-open profiler window and write its trace
+        (callers that step the engine themselves and stop before
+        `profile_steps[1]`)."""
+        if self.profile is not None:
+            self.profile.close()
 
     def statusz(self) -> dict:
         """The /statusz document from host-side mirrors only: the engine's
@@ -596,6 +635,8 @@ class ServeEngine:
         return self._step_inner()
 
     def _step_inner(self) -> list[Request]:
+        if self.profile is not None and not self.profile.done:
+            self.profile.tick(self._step_idx)
         finished: list[Request] = []
         now = smetrics.now()
         if self._waiting_deadlines > 0:
@@ -638,6 +679,7 @@ class ServeEngine:
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 return
+        self.stop_profile()
 
     # ------------------------------------------------------------ private
 
@@ -753,14 +795,16 @@ class ServeEngine:
         self._rng_step += 1
         args = (self.model, padded, chunk, matched, self.config.sample_cap)
         sample = (self._packed([slot]), generator, allow, req.params.logprobs)
-        if self._paged:
-            self.pool.phys, first, logprob = _paged_prefill_program(
-                *args, self.pool.phys, ids[:padded], ids[padded:table_end],
-                suffix, *sample)
-        else:
-            self.pool.caches, first, logprob = _prefill_program(
-                *args, self.pool.caches, ids[:padded], slot, suffix, *sample)
-        first = int(first)  # waits for the device: `now` below is device-true
+        with scope(self.profile, "serve/prefill"):
+            if self._paged:
+                self.pool.phys, first, logprob = _paged_prefill_program(
+                    *args, self.pool.phys, ids[:padded], ids[padded:table_end],
+                    suffix, *sample)
+            else:
+                self.pool.caches, first, logprob = _prefill_program(
+                    *args, self.pool.caches, ids[:padded], slot, suffix,
+                    *sample)
+            first = int(first)  # waits for the device: `now` is device-true
         if pc is not None:
             # hand the prefilled span to the tree while [0, length) is
             # pristine: the slot's decode writes land at positions >=
@@ -921,15 +965,16 @@ class ServeEngine:
         allow = state[4 + pages:].T if constrained else None
         ctl = (state[0], state[1], state[2].bool(), state[3],
                self._packed(slice(None)), generators, allow, need_lp)
-        if self._paged:
-            self.pool.phys, out, lps = _paged_decode_program(
-                self.model, block, cap, self.pool.phys,
-                state[4:4 + pages].T, *ctl)
-        else:
-            self.pool.caches, out, lps = _decode_program(
-                self.model, block, cap, self.pool.caches, *ctl)
-        out = out.cpu().numpy()  # (block, n_slots); overshoot truncated below
-        lps = None if lps is None else lps.cpu().numpy()
+        with scope(self.profile, "serve/decode_block"):
+            if self._paged:
+                self.pool.phys, out, lps = _paged_decode_program(
+                    self.model, block, cap, self.pool.phys,
+                    state[4:4 + pages].T, *ctl)
+            else:
+                self.pool.caches, out, lps = _decode_program(
+                    self.model, block, cap, self.pool.caches, *ctl)
+            out = out.cpu().numpy()  # (block, n_slots); overshoot cut below
+            lps = None if lps is None else lps.cpu().numpy()
         now = smetrics.now()
         self.metrics.record_decode_block(now - t0)
         finished: list[Request] = []

@@ -113,6 +113,12 @@ class _SlotBook:
         self._free_mask[slot] = True
 
 
+# device copies made by `KVSlotPool.splice_prefix` and `extract_prefix`,
+# one a call, since the process started: the serving bench reads them
+# around an arm (a paged engine shares prefix pages and makes none)
+PREFIX_COPIES = {"splice": 0, "extract": 0}
+
+
 class KVSlotPool(_SlotBook):
     """`n_slots` cache lanes + free-list bookkeeping.
 
@@ -166,6 +172,7 @@ class KVSlotPool(_SlotBook):
                         "performed"
                     )
                 pool_t[slot:slot + 1, offset:offset + length].copy_(seg_t)
+        PREFIX_COPIES["splice"] += 1
 
     def extract_prefix(self, slot: int, offset: int, length: int) -> list:
         """Lane `slot`'s span [offset, offset + length) as an independent
@@ -178,6 +185,7 @@ class KVSlotPool(_SlotBook):
                 f"extract span [{offset}, {offset + length}) exceeds the "
                 f"lane capacity {self.max_len}"
             )
+        PREFIX_COPIES["extract"] += 1
         return [dataclasses.replace(c, **{
                     name: t[slot:slot + 1, offset:offset + length].clone()
                     for name, t in _tensors(c).items()})

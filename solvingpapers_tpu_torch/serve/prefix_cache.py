@@ -39,6 +39,7 @@ the allocator.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 
@@ -118,10 +119,15 @@ class _Node:
     as bytes), not its first token: matches only ever advance in whole
     pages, so the next page is the exact lookup unit — and siblings that
     diverge mid-page (different pages, same first token) can coexist,
-    which single-token keys would force into collision."""
+    which single-token keys would force into collision.
 
-    __slots__ = ("tokens", "payload", "children", "parent", "refcount",
-                 "stamp", "nbytes")
+    `parent` is held weakly (a node lives while its parent's `children`
+    holds it): parent and child links would otherwise form cycles that
+    keep a dropped tree's device payloads, and for the paged pool the
+    pool itself, allocated until a full collection."""
+
+    __slots__ = ("tokens", "payload", "children", "_parent", "refcount",
+                 "stamp", "nbytes", "__weakref__")
 
     def __init__(self, tokens: np.ndarray, payload, parent: "_Node | None"):
         self.tokens = tokens
@@ -131,6 +137,14 @@ class _Node:
         self.refcount = 0
         self.stamp = 0
         self.nbytes = 0 if payload is None else payload.nbytes
+
+    @property
+    def parent(self) -> "_Node | None":
+        return None if self._parent is None else self._parent()
+
+    @parent.setter
+    def parent(self, node: "_Node | None") -> None:
+        self._parent = None if node is None else weakref.ref(node)
 
     @property
     def length(self) -> int:

@@ -39,6 +39,13 @@ k-th micro-step does, inside a window or at its end.
 multiple of `every` (after eval, outside the timed window), as the
 reference's hooks for sampling during training.
 
+`profile_dir` opens a `torch.profiler` window over the run's steps
+[`profile_steps[0]`, `profile_steps[1]`), counted from the step `fit`
+starts at (a resume's too), and writes its Chrome trace under
+`profile_dir` when it closes, or when `fit` ends or raises inside it
+(`metrics/profile.py`; windows of `scan_steps` open and close at window
+boundaries).
+
 Not ported, and refused when set (they need a mesh, several cards or
 the reference's XLA observatories): `mesh`, `context_parallel`,
 `pipeline_parallel`, `xla_obs`, `mesh_obs`, `trace_path`, `status_port`.
@@ -58,6 +65,7 @@ from solvingpapers_tpu_torch.checkpoint import CheckpointManager
 from solvingpapers_tpu_torch.device import resolve_device
 from solvingpapers_tpu_torch.metrics import ConsoleWriter, MetricsWriter
 from solvingpapers_tpu_torch.metrics.mfu import chip_peak_flops
+from solvingpapers_tpu_torch.metrics.profile import ProfileWindow
 from solvingpapers_tpu_torch.train.optim import OptimizerConfig, make_optimizer
 from solvingpapers_tpu_torch.train.state import TrainState
 
@@ -80,6 +88,8 @@ class TrainConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     tokens_per_step: int | None = None  # enables tokens/sec + MFU metrics
     flops_per_token: float | None = None
+    profile_dir: str | None = None  # torch.profiler Chrome trace output
+    profile_steps: tuple[int, int] = (10, 15)  # [start, stop) steps to trace
     # the reference's mesh, parallelism and observability options; not
     # ported — a Trainer refuses a config that sets one
     mesh: dict | None = None
@@ -241,56 +251,64 @@ class Trainer:
         t_prev = time.perf_counter()
         last_log_step = start_step
         step = start_step
-        while step < cfg.steps:
-            # whole windows on window-aligned steps; single steps to
-            # re-align after a resume and through the ragged tail, so
-            # window ends stay multiples of scan_k
-            kk = 1 if step % scan_k or step + scan_k > cfg.steps else scan_k
-            end = step + kk
-            for _ in range(kk):
-                metrics = self.train_step(state, next(batch_iter))
-            if step == start_step:
-                # fence the first step or window (allocator warm-up,
-                # kernel builds) out of the timed window, which starts here
-                float(metrics["train_loss"])
-                t_prev = time.perf_counter()
-                last_log_step = end
+        window = (None if cfg.profile_dir is None else ProfileWindow(
+            cfg.profile_dir, cfg.profile_steps, self.device, "train"))
+        try:
+            while step < cfg.steps:
+                # whole windows on window-aligned steps; single steps to
+                # re-align after a resume and through the ragged tail, so
+                # window ends stay multiples of scan_k
+                kk = 1 if step % scan_k or step + scan_k > cfg.steps else scan_k
+                end = step + kk
+                if window is not None and not window.done:
+                    window.tick(step - start_step)
+                for _ in range(kk):
+                    metrics = self.train_step(state, next(batch_iter))
+                if step == start_step:
+                    # fence the first step or window (allocator warm-up,
+                    # kernel builds) out of the timed window, which starts here
+                    float(metrics["train_loss"])
+                    t_prev = time.perf_counter()
+                    last_log_step = end
 
-            if cfg.eval_every > 0 and eval_iter_fn and end % cfg.eval_every == 0:
-                float(metrics["train_loss"])  # train time is not eval time
-                t_eval = time.perf_counter()
-                writer.write(end, self.evaluate(state, eval_iter_fn()))
-                t_prev += time.perf_counter() - t_eval
+                if cfg.eval_every > 0 and eval_iter_fn and end % cfg.eval_every == 0:
+                    float(metrics["train_loss"])  # train time is not eval time
+                    t_eval = time.perf_counter()
+                    writer.write(end, self.evaluate(state, eval_iter_fn()))
+                    t_prev += time.perf_counter() - t_eval
 
-            due = [fn for every, fn in callbacks if every > 0 and end % every == 0]
-            if due:
-                float(metrics["train_loss"])  # train time is not callback time
-                t_cb = time.perf_counter()
-                for fn in due:
-                    fn(state, end)
-                t_prev += time.perf_counter() - t_cb
+                due = [fn for every, fn in callbacks if every > 0 and end % every == 0]
+                if due:
+                    float(metrics["train_loss"])  # train time is not callback time
+                    t_cb = time.perf_counter()
+                    for fn in due:
+                        fn(state, end)
+                    t_prev += time.perf_counter() - t_cb
 
-            if end % max(cfg.log_every, 1) == 0 or end == cfg.steps:
-                row = {k: float(v) for k, v in metrics.items()}  # waits
-                if step != start_step:
-                    now = time.perf_counter()
-                    dt = (now - t_prev) / max(end - last_log_step, 1)
-                    t_prev, last_log_step = now, end
-                    row["step_time_s"] = dt
-                    if cfg.tokens_per_step:
-                        row["tokens_per_sec"] = cfg.tokens_per_step / dt
-                        row["tokens"] = end * cfg.tokens_per_step
-                        if math.isfinite(peak):
-                            row["mfu"] = (row["tokens_per_sec"]
-                                          * cfg.flops_per_token / peak)
-                writer.write(end, row)
+                if end % max(cfg.log_every, 1) == 0 or end == cfg.steps:
+                    row = {k: float(v) for k, v in metrics.items()}  # waits
+                    if step != start_step:
+                        now = time.perf_counter()
+                        dt = (now - t_prev) / max(end - last_log_step, 1)
+                        t_prev, last_log_step = now, end
+                        row["step_time_s"] = dt
+                        if cfg.tokens_per_step:
+                            row["tokens_per_sec"] = cfg.tokens_per_step / dt
+                            row["tokens"] = end * cfg.tokens_per_step
+                            if math.isfinite(peak):
+                                row["mfu"] = (row["tokens_per_sec"]
+                                              * cfg.flops_per_token / peak)
+                    writer.write(end, row)
 
-            if ckpt is not None and end % ckpt.save_every == 0:
-                float(metrics["train_loss"])
-                t_save = time.perf_counter()
-                ckpt.maybe_save(end, state.state_dict())
-                t_prev += time.perf_counter() - t_save
-            step = end
+                if ckpt is not None and end % ckpt.save_every == 0:
+                    float(metrics["train_loss"])
+                    t_save = time.perf_counter()
+                    ckpt.maybe_save(end, state.state_dict())
+                    t_prev += time.perf_counter() - t_save
+                step = end
+        finally:
+            if window is not None:
+                window.close()
         if ckpt is not None:
             ckpt.maybe_save(state.step, state.state_dict(), force=True)
         return state

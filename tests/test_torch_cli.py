@@ -188,7 +188,8 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
     (["serve", "--config", "gpt_tiny", "--journal", "j.jsonl"], "A4"),
     (["replay", "--journal", "j.jsonl"], "A4"),
     (["trace-summary", "t.json"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny"], "A5"),
+    (["serve-bench", "--config", "gpt_tiny", "--trace"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny", "--obs"], "A8"),
     (["kernel-bench"], "A5"),
     (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
       "--greedy"], "A5"),

@@ -91,8 +91,11 @@ def _random_bias(moe_state, seed):
 def _jax_model(**kw):
     cfg = JConfig(**{**TINY, **kw})
     model = JDeepSeekV3(cfg)
-    variables = model.init({"params": jax.random.key(0)},
-                           jnp.zeros((1, 8), jnp.int32))
+    # the same parameters and routing state, bit for bit, from the dense
+    # twin: init's forward through the interpret-mode flash kernel takes
+    # 20x as long and only its sown metrics differ
+    variables = JDeepSeekV3(JConfig(**{**TINY, **kw, "use_flash": False})).init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, 8), jnp.int32))
     params = jax.tree.map(np.asarray, variables["params"])
     moe_state = _random_bias(variables["moe_state"], 1)
     return cfg, model, params, moe_state

@@ -80,8 +80,11 @@ def _pair(bias=None, expert_scale=1.0, **kw):
     the routed experts' w1, w2 and w3 times `expert_scale`."""
     cfg = {**TINY, **kw}
     jm = JDeepSeekV3(JConfig(**cfg))
-    variables = jm.init({"params": jax.random.key(0)},
-                        jnp.zeros((1, 8), jnp.int32))
+    # the same parameters and routing state, bit for bit, from the dense
+    # twin: init's forward through the interpret-mode flash kernel takes
+    # 20x as long and only its sown metrics differ
+    variables = JDeepSeekV3(JConfig(**{**cfg, "use_flash": False})).init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, 8), jnp.int32))
 
     def scaled(path, w):
         w = np.asarray(w)

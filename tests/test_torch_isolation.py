@@ -6,9 +6,10 @@ package, and its entry points run on the card unless told otherwise.
 * a fresh interpreter that imports the port's engine has no `jax` in
   `sys.modules`;
 * with no device named and no CUDA available, `Llama`, `DeepSeekV3`,
-  `generate`, `ServeEngine` and `Trainer` raise instead of running
-  quietly on the CPU, and the kernels' wrappers refuse tensors that are
-  neither on the CPU nor on a CUDA device.
+  `generate`, `ServeEngine`, `Trainer` and the serving bench
+  (`build_serve_model`, its workloads, `cli serve-bench`) raise instead
+  of running quietly on the CPU, and the kernels' wrappers refuse
+  tensors that are neither on the CPU nor on a CUDA device.
 """
 
 import ast
@@ -84,6 +85,9 @@ def test_engine_import_loads_no_jax():
             "solvingpapers_tpu_torch.serve.api, "
             "solvingpapers_tpu_torch.serve.grammar, "
             "solvingpapers_tpu_torch.serve.openai, "
+            "solvingpapers_tpu_torch.serve.bench, "
+            "solvingpapers_tpu_torch.buildinfo, "
+            "solvingpapers_tpu_torch.metrics.profile, "
             "solvingpapers_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'solvingpapers_tpu')]; "
@@ -104,6 +108,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ServeEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(model, torch.zeros(1, 4, dtype=torch.long), max_new_tokens=2)
+
+
+def test_the_serving_bench_raises_without_a_card(monkeypatch):
+    from solvingpapers_tpu_torch import cli
+    from solvingpapers_tpu_torch.serve import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.build_serve_model("gpt_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run_serve_bench("gpt_tiny", n_requests=2, max_new=2,
+                              prompt_lens=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve-bench", "--config", "gpt_tiny", "--requests", "2",
+                  "--max-new-tokens", "2", "--http"])
 
 
 def test_trainer_raises_without_a_card(monkeypatch):

@@ -15,10 +15,16 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--checkpoint-dir ckpts] [--slots 8] [--max-len N]
                [--decode-block 8] [--bucket 32] [--sample-cap 64]
                [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
+               [--trace [--trace-out t.json]] [--slo] [--degrade]
+               [--step-deadline S] [--journal j.jsonl [--journal-strict]]
+               [--timeseries-interval 1.0] [--timeseries-capacity 120]
     cli serve-bench --config llama3_shakespeare [--shared-prefix |
-               --sampling | --paged | --http] [--requests N] [--slots 8]
-               [--max-new-tokens N] [--prompt-lens 16 32 48 64]
-               [--skip-sequential] [--out f.jsonl [--append]]
+               --sampling | --paged | --http | --slo] [--requests N]
+               [--slots 8] [--max-new-tokens N] [--prompt-lens 16 32 48 64]
+               [--skip-sequential] [--trace [--trace-out t.json]
+               [--trace-dump d.jsonl]] [--status-port 0 [--status-hold-s S]]
+               [--out f.jsonl [--append]]
+    cli trace-summary t.json [--top 5]
 
 Every command runs on ``--device cuda`` (the default; it raises when
 there is no card) or ``--device cpu``; the reference's `--platform` and
@@ -38,25 +44,40 @@ reference exports the parameters alone.
 from one `ServeEngine`; the model comes from `_serve_model`: the run's
 tokenizer (a BPE config trains its byte BPE through the native library
 at startup), weights from `--checkpoint-dir` or random from `--seed`,
-and a token table over the full vocab. SIGINT / SIGTERM shut it down in
-order: drain streams, close the engine, stop the HTTP threads.
+and a token table over the full vocab. `--journal PATH` journals every
+stream (serve/journal.py); an existing file is replayed at startup
+(`ServeEngine.recover`), before the front door opens, so a killed
+server's in-flight streams resume and SSE clients reconnect with
+Last-Event-ID. `--trace` turns the flight recorder on and `--trace-out`
+writes its Chrome trace at shutdown; `--slo` accounts requests under
+`DEFAULT_SLO_TARGETS`; `--degrade` arms the degradation ladder;
+`--step-deadline` the step watchdog; `--timeseries-interval 0` turns the
+time series off. SIGINT / SIGTERM shut it down in order: drain streams,
+close the engine, stop the HTTP threads.
 
 `serve-bench` runs one workload of `serve/bench.py` a run — Poisson
 (engine against sequential `generate`, the default), `--shared-prefix`,
-`--sampling`, `--paged` or `--http` — on random weights, and prints one
-JSON line with a provenance stamp (written to `--out` too when given).
-Beyond the reference's flags it takes `--max-seq-len` (the model's
-position budget, which the prefix stems stretch to) and `--reps` (the
-paged and HTTP workloads' ABBA pairs); without `--prompt-lens`, the
-default cycle 16 32 48 64 keeps the lengths that fit the model's
-positions with the new tokens (gpt_tiny's 64 at 4 new tokens: 16 32 48).
+`--sampling`, `--paged`, `--http` or `--slo` — on random weights, and
+prints one JSON line with a provenance stamp (written to `--out` too when
+given). Beyond the reference's flags it takes `--max-seq-len` (the
+model's position budget, which the prefix stems stretch to) and `--reps`
+(the paged, HTTP and SLO workloads' ABBA pairs); without
+`--prompt-lens`, the default cycle 16 32 48 64 keeps the lengths that
+fit the model's positions with the new tokens (gpt_tiny's 64 at 4 new
+tokens: 16 32 48). `--trace` adds a traced arm to the Poisson, prefix
+and sampling workloads (`trace_overhead_pct`); `--status-port` keeps a
+status endpoint up for the run (`--status-hold-s` past its end).
 
-Not ported, refused with their ROADMAP items: `replay` and
-`trace-summary` (A4), `kernel-bench` and `sample --speculative` (A5),
-the `serve` and `serve-bench` flags of the journal, fleet, tracing, SLO,
-status and fault ladders (A4), of the quantized pool and speculative
-decoding (A5) and of the compile observatory (A8); image, KD and Gemma
-configs (A6) and pipeline ones (A7) are not registered.
+`trace-summary` rebuilds per-request timelines from a flight-recorder
+export (`metrics/trace.py`).
+
+Not ported, refused with their ROADMAP items: `replay`, `trace-summary
+--fleet`, `serve --replicas` and the serve-bench workloads `--chaos`,
+`--journal`, `--replay` and `--fleet` (A4, the replay harness and the
+fleet router), `kernel-bench`, `sample --speculative` and the flags of
+the quantized pool and speculative decoding (A5), and the compile
+observatory's (A8); image, KD and Gemma configs (A6) and pipeline ones
+(A7) are not registered.
 """
 
 from __future__ import annotations
@@ -73,8 +94,7 @@ import torch
 # the reference's commands the port refuses, with the ROADMAP item that
 # brings each
 UNPORTED = {
-    "replay": "A4 (serve/replay.py)",
-    "trace-summary": "A4 (metrics/trace.py)",
+    "replay": "A4 (the replay harness, serve/replay.py)",
     "kernel-bench": "A5 (serve/kernel_bench.py)",
 }
 
@@ -294,6 +314,7 @@ def _serve_config(args, model):
     """The `ServeConfig` of `cli serve`'s flags for `model` (max_len
     defaults to min(512, the model's max positions))."""
     from solvingpapers_tpu_torch.serve import ServeConfig
+    from solvingpapers_tpu_torch.serve.slo import DEFAULT_SLO_TARGETS
 
     limit = getattr(model, "max_positions", None) or 512
     max_len = args.max_len or min(512, limit)
@@ -303,7 +324,14 @@ def _serve_config(args, model):
         paged=args.paged, api_port=args.port, api_host=args.host,
         api_max_connections=args.max_connections,
         json_mode=not args.no_json_mode,
-        drain_timeout_s=args.drain_timeout, max_waiting=args.max_waiting)
+        drain_timeout_s=args.drain_timeout, max_waiting=args.max_waiting,
+        trace=args.trace,
+        slo_targets=DEFAULT_SLO_TARGETS if args.slo else None,
+        degrade=args.degrade, fault_step_deadline_s=args.step_deadline,
+        journal_path=args.journal, journal_strict=args.journal_strict,
+        timeseries=args.timeseries_interval > 0,
+        timeseries_interval_s=args.timeseries_interval or 1.0,
+        timeseries_capacity=args.timeseries_capacity)
 
 
 # `serve` flags of the reference that the port refuses, with their items
@@ -314,16 +342,7 @@ SERVE_UNPORTED = {
     "--speculative": "A5 (speculative decoding)",
     "--spec-k": "A5 (speculative decoding)",
     "--spec-rounds": "A5 (speculative decoding)",
-    "--slo": "A4 (SLO accounting)",
-    "--degrade": "A4 (the degradation ladder)",
-    "--step-deadline": "A4 (the step watchdog)",
-    "--journal": "A4 (the request journal)",
-    "--journal-strict": "A4 (the request journal)",
-    "--replicas": "A4 (fleet routing)",
-    "--trace": "A4 (request tracing)",
-    "--trace-out": "A4 (request tracing)",
-    "--timeseries-interval": "A4 (the time-series store)",
-    "--timeseries-capacity": "A4 (the time-series store)",
+    "--replicas": "A4 (the fleet router, serve/fleet.py)",
 }
 
 
@@ -345,13 +364,21 @@ def cmd_serve(args) -> int:
         return built
     cfg, model, _, table, encode, decode, info = built
     print("[serve] tokenizer " + json.dumps(info), file=sys.stderr, flush=True)
-    engine = ServeEngine(model, _serve_config(args, model), device=device,
-                         detokenize=decode)
+    serve_cfg = _serve_config(args, model)
+    engine = ServeEngine(model, serve_cfg, device=device, detokenize=decode)
+    if serve_cfg.journal_path:
+        # crash-safe warm restart: the journal's unfinished entries are
+        # requeued BEFORE the front door starts stepping
+        resumed = engine.recover()
+        print(f"[serve] journal {serve_cfg.journal_path}: recovered "
+              f"{len(resumed)} in-flight request(s)", file=sys.stderr,
+              flush=True)
     server = ApiServer(engine, encode=encode, decode=decode, token_table=table,
                        model_name=args.config)
     print(f"[serve] {args.config} on http://{server.host}:{server.port} — "
           "POST /v1/completions /v1/chat/completions, GET /v1/models "
-          "/healthz /metrics /statusz", file=sys.stderr, flush=True)
+          "/v1/requests/<id> /healthz /metrics /statusz /timeseriesz",
+          file=sys.stderr, flush=True)
     stop = threading.Event()
 
     def _sig(signum, frame):
@@ -366,6 +393,14 @@ def cmd_serve(args) -> int:
         print("[serve] shutting down: draining streams, closing engine",
               file=sys.stderr, flush=True)
         server.close()
+        if args.trace_out:
+            # written after close, so the drain's spans are in the file
+            if engine.trace is None:
+                print("[serve] --trace-out skipped: tracing is off (pass "
+                      "--trace)", file=sys.stderr)
+            else:
+                engine.trace.export_chrome(args.trace_out)
+                print(f"[serve] trace -> {args.trace_out}", file=sys.stderr)
     return 0
 
 
@@ -379,22 +414,22 @@ BENCH_UNPORTED = {
     "--kv-quant": "A5 (the quantized KV pool)",
     "--kv-quant-block": "A5 (the quantized KV pool)",
     "--quant-train-steps": "A5 (the quantized KV pool)",
-    "--slo": "A4 (SLO accounting)",
-    "--chaos": "A4 (the fault ladder)",
-    "--chaos-stall": "A4 (the fault ladder)",
-    "--journal": "A4 (the request journal)",
-    "--journal-kill-step": "A4 (the request journal)",
-    "--replay": "A4 (serve/replay.py)",
-    "--replay-train-steps": "A4 (serve/replay.py)",
-    "--fleet": "A4 (fleet routing)",
-    "--fleet-replicas": "A4 (fleet routing)",
-    "--trace": "A4 (request tracing)",
-    "--trace-out": "A4 (request tracing)",
-    "--trace-dump": "A4 (request tracing)",
-    "--status-port": "A4 (the status endpoint)",
-    "--status-hold-s": "A4 (the status endpoint)",
+    "--chaos": "A4 (the chaos workload, with the fleet router and replay)",
+    "--chaos-stall": "A4 (the chaos workload, with the fleet router and replay)",
+    "--journal": "A4 (the journal workload, with the fleet router and replay)",
+    "--journal-kill-step": "A4 (the journal workload, with the fleet router "
+                           "and replay)",
+    "--replay": "A4 (the replay harness, serve/replay.py)",
+    "--replay-train-steps": "A4 (the replay harness, serve/replay.py)",
+    "--fleet": "A4 (the fleet router, serve/fleet.py)",
+    "--fleet-replicas": "A4 (the fleet router, serve/fleet.py)",
     "--obs": "A8 (the compile and memory observatory)",
     "--obs-hlo-dir": "A8 (the compile and memory observatory)",
+}
+
+# `trace-summary` flags the port refuses
+TRACE_SUMMARY_UNPORTED = {
+    "--fleet": "A4 (the fleet export, serve/fleet.py)",
 }
 
 
@@ -425,9 +460,10 @@ def cmd_serve_bench(args) -> int:
               "params; --checkpoint-dir/--data-path are not consumed",
               file=sys.stderr)
         return 2
-    if sum((args.shared_prefix, args.sampling, args.paged, args.http)) > 1:
-        print("--shared-prefix, --sampling, --paged and --http are separate "
-              "workloads; pick one per run", file=sys.stderr)
+    if sum((args.shared_prefix, args.sampling, args.paged, args.http,
+            args.slo)) > 1:
+        print("--shared-prefix, --sampling, --paged, --http and --slo are "
+              "separate workloads; pick one per run", file=sys.stderr)
         return 2
     from solvingpapers_tpu_torch.serve.bench import (
         bench_provenance,
@@ -436,6 +472,7 @@ def cmd_serve_bench(args) -> int:
         run_prefix_bench,
         run_sampling_bench,
         run_serve_bench,
+        run_slo_bench,
     )
 
     device = _device(args)
@@ -470,23 +507,33 @@ def cmd_serve_bench(args) -> int:
             return 2
     prompt_lens = tuple(prompt_lens)
     reps = {} if args.reps is None else {"reps": args.reps}
+    common.update(status_port=args.status_port,
+                  status_hold_s=args.status_hold_s)
+    # the traced arm rides the Poisson, prefix and sampling workloads
+    traced = dict(trace=args.trace,
+                  trace_out=args.trace_out if args.trace else None,
+                  trace_dump=args.trace_dump if args.trace else None)
     if args.http:
         result = run_http_bench(prompt_lens=prompt_lens, **reps, **common)
+    elif args.slo:
+        result = run_slo_bench(prompt_lens=prompt_lens, **reps, **common)
     elif args.paged:
         result = run_paged_bench(
             prompt_lens=prompt_lens, n_prefixes=args.n_prefixes,
             prefix_requests=args.prefix_requests, suffix_len=args.suffix_len,
             page_size=args.page_size, **reps, **common)
     elif args.sampling:
-        result = run_sampling_bench(prompt_lens=prompt_lens, **common)
+        result = run_sampling_bench(prompt_lens=prompt_lens, **traced,
+                                    **common)
     elif args.shared_prefix:
         result = run_prefix_bench(
             n_prefixes=args.n_prefixes, prefix_len=args.prefix_len,
             suffix_len=args.suffix_len, prefix_page=args.prefix_page,
-            **common)
+            **traced, **common)
     else:
         result = run_serve_bench(prompt_lens=prompt_lens,
-                                 skip_sequential=args.skip_sequential, **common)
+                                 skip_sequential=args.skip_sequential,
+                                 **traced, **common)
     # one clock reading per run, stamped here, the one place results are
     # written
     import time
@@ -500,6 +547,46 @@ def cmd_serve_bench(args) -> int:
         verb = "appended to" if args.append else "wrote"
         print(f"[serve-bench] {verb} {args.out}", file=sys.stderr)
     return 0
+
+
+def cmd_trace_summary(args) -> int:
+    """Rebuild per-request timelines from a Chrome trace-event JSON the
+    flight recorder exported (`serve --trace --trace-out`, `serve-bench
+    --trace`, `engine.trace.export_chrome`) and print the phase breakdown
+    and the slowest requests (metrics/trace.py)."""
+    import os
+
+    from solvingpapers_tpu_torch.metrics.trace import (
+        format_summary,
+        summarize_trace,
+    )
+
+    if not os.path.exists(args.trace):
+        print(f"no trace file at {args.trace}", file=sys.stderr)
+        return 2
+    try:
+        summary = summarize_trace(args.trace)
+    except json.JSONDecodeError as e:
+        # a truncated export (a run killed mid-write) or a non-JSON file
+        # is an input error, not a traceback: say what and where
+        print(f"{args.trace} is not valid JSON (truncated export?): {e.msg} "
+              f"at line {e.lineno} column {e.colno}", file=sys.stderr)
+        return 2
+    except (ValueError, TypeError, AttributeError, KeyError) as e:
+        print(f"{args.trace} does not parse as a Chrome trace-event JSON "
+              f"({type(e).__name__}: {e}) — expected the flight recorder's "
+              "export format", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"cannot read {args.trace}: {e}", file=sys.stderr)
+        return 2
+    if summary["n_requests"] or summary["rejected"]:
+        print(format_summary(summary, top=args.top))
+        return 0
+    print(f"{args.trace} holds no request lifecycle events "
+          "(ServeConfig(trace=True)) — was it exported by the flight "
+          "recorder?", file=sys.stderr)
+    return 1
 
 
 def cmd_sample(args) -> int:
@@ -647,6 +734,44 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--seed", type=int, default=0,
                        help="random weights from this seed when no "
                             "--checkpoint-dir is given")
+    p_srv.add_argument("--slo", action="store_true",
+                       help="account every request under an SLO class "
+                            "(serve/slo.py DEFAULT_SLO_TARGETS: interactive, "
+                            "standard, batch; a request tags one with the "
+                            "'slo' body field, default standard): "
+                            "attainment, burn rate and goodput on /metrics "
+                            "and /statusz")
+    p_srv.add_argument("--degrade", action="store_true",
+                       help="arm the degradation ladder (serve/faults.py): "
+                            "under page exhaustion or SLO burn the engine "
+                            "sheds prefix-cache leaves, then admissions by "
+                            "class (batch first) with a jittered "
+                            "Retry-After; pair with --slo for the burn "
+                            "signal")
+    p_srv.add_argument("--step-deadline", type=float, default=None,
+                       help="watchdog: count engine steps over this many "
+                            "seconds (serve/watchdog_stalls)")
+    p_srv.add_argument("--journal", default=None, metavar="PATH",
+                       help="request write-ahead journal "
+                            "(ServeConfig.journal_path): an existing file is "
+                            "replayed at startup, so a killed server's "
+                            "in-flight streams resume and SSE clients "
+                            "reconnect with Last-Event-ID")
+    p_srv.add_argument("--journal-strict", action="store_true",
+                       help="[--journal] a journal I/O failure stops "
+                            "serving instead of degrading to journal-off")
+    p_srv.add_argument("--trace", action="store_true",
+                       help="flight recorder on (ServeConfig.trace): HTTP "
+                            "spans join the engine's lifecycle spans per "
+                            "request")
+    p_srv.add_argument("--trace-out", default=None, metavar="PATH",
+                       help="[--trace] write the Chrome trace-event JSON "
+                            "here at shutdown (feed `cli trace-summary`)")
+    p_srv.add_argument("--timeseries-interval", type=float, default=1.0,
+                       help="time-series sample interval in seconds (0 "
+                            "turns the store and /timeseriesz off)")
+    p_srv.add_argument("--timeseries-capacity", type=int, default=120,
+                       help="time-series ring capacity in windows")
 
     p_bench = sub.add_parser("serve-bench")
     _add_common(p_bench)
@@ -705,12 +830,42 @@ def build_parser() -> argparse.ArgumentParser:
                          help="cut the model's position budget to this many "
                               "positions (the prefix stems stretch to it)")
     p_bench.add_argument("--reps", type=int, default=None,
-                         help="[--paged, --http] ABBA pairs (default 2)")
+                         help="[--paged, --http, --slo] ABBA pairs (default "
+                              "2)")
+    p_bench.add_argument("--slo", action="store_true",
+                         help="SLO workload instead: the Poisson trace with "
+                              "requests tagged interactive / standard / "
+                              "batch through an slo_targets engine, "
+                              "ABBA-paired against the plain engine "
+                              "(run_slo_bench)")
+    p_bench.add_argument("--trace", action="store_true",
+                         help="[Poisson, --shared-prefix, --sampling] add a "
+                              "traced arm, ABBA-paired against the untraced "
+                              "one (trace_overhead_pct)")
+    p_bench.add_argument("--trace-out", default="serve_trace.json",
+                         help="[--trace] write the traced arm's Chrome trace "
+                              "here (feed `cli trace-summary`)")
+    p_bench.add_argument("--trace-dump", default=None,
+                         help="[--trace] anomaly-dump JSONL path "
+                              "(ServeConfig.trace_dump_path)")
+    p_bench.add_argument("--status-port", type=int, default=None,
+                         help="serve /healthz /metrics /statusz "
+                              "/timeseriesz from the probe engine for the "
+                              "run (0 = ephemeral, printed to stderr)")
+    p_bench.add_argument("--status-hold-s", type=float, default=0.0,
+                         help="[--status-port] keep the endpoint up this "
+                              "many seconds after the arms finish")
     p_bench.add_argument("--out", default=None,
                          help="also write the JSON result here")
     p_bench.add_argument("--append", action="store_true",
                          help="append to --out instead of overwriting "
                               "(JSON lines: one result per run)")
+
+    p_tsum = sub.add_parser("trace-summary")
+    p_tsum.add_argument("trace", help="Chrome trace-event JSON exported by "
+                                      "the flight recorder")
+    p_tsum.add_argument("--top", type=int, default=5,
+                        help="how many slowest requests to print")
 
     for name in UNPORTED:
         sub.add_parser(name, help=f"not ported (ROADMAP {UNPORTED[name]})")
@@ -725,7 +880,8 @@ def main(argv=None) -> int:
         print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
               f"{UNPORTED[argv[0]]})", file=sys.stderr)
         return 2
-    refused = {"serve": SERVE_UNPORTED, "serve-bench": BENCH_UNPORTED}
+    refused = {"serve": SERVE_UNPORTED, "serve-bench": BENCH_UNPORTED,
+               "trace-summary": TRACE_SUMMARY_UNPORTED}
     if argv and argv[0] in refused:
         for arg in argv[1:]:
             flag = arg.split("=", 1)[0]
@@ -737,7 +893,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     run = {"list": cmd_list, "train": cmd_train, "sample": cmd_sample,
            "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve,
-           "serve-bench": cmd_serve_bench}[args.cmd]
+           "serve-bench": cmd_serve_bench,
+           "trace-summary": cmd_trace_summary}[args.cmd]
     try:
         return run(args)
     except (Refused, NotImplementedError) as e:

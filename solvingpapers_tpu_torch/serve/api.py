@@ -1,6 +1,6 @@
 """OpenAI-compatible HTTP front door over a live `ServeEngine` (port of
-`solvingpapers_tpu/serve/api.py`, without its journal, stream
-resumption, replay, fleet routing and request timelines).
+`solvingpapers_tpu/serve/api.py`, without its replay endpoint and fleet
+routing).
 
 One stdlib `ThreadingHTTPServer` on a daemon thread (no dependencies)
 exposes:
@@ -9,8 +9,10 @@ exposes:
                                 prompts, SSE streaming (`stream: true`)
     POST /v1/chat/completions   chat messages through a minimal template
     GET  /v1/models             the one hosted model
-    GET  /healthz /metrics /statusz   the inspection surface, on the same
-                                listener
+    GET  /v1/requests/<id>      one request's end-to-end timeline, or its
+                                write-ahead journal record
+    GET  /healthz /metrics /statusz /timeseriesz   the inspection surface,
+                                on the same listener
 
 Concurrency: the engine stays single-threaded. `EngineLoop` owns the
 only thread that calls `engine.step()` and serializes `submit` /
@@ -26,11 +28,33 @@ Cancellation is disconnect-driven: a broken pipe, or a half-closed
 socket probed between events, maps to `engine.cancel`, freeing the slot
 (and its pages) at the next block boundary; `timeout_s` maps to
 `submit(deadline_s=)`. Admission pressure maps to HTTP: a full waiting
-queue, or too many open streams, answers 503 with a jittered
-Retry-After; an invalid request answers 400 with the OpenAI error
-envelope (`serve/openai.py`), never a traceback over a socket. The
-client's `X-Request-Id` is echoed (a fresh one is minted when it is
-absent or malformed).
+queue, too many open streams, an unhealthy engine or a degradation rung
+that sheds the request's SLO class answers 503 with a jittered
+Retry-After (its base grows with the rung, given in
+X-Degradation-Rung); an invalid request answers 400 with the OpenAI
+error envelope (`serve/openai.py`), never a traceback over a socket.
+/healthz answers 200 "ok", 200 "degraded" on a ladder rung, and 503
+"unhealthy" while the engine drains after persistent failures or when
+its loop has died.
+
+Stream resumption (serve/journal.py): every SSE chunk carries an
+``id: <request id>:<token offset>`` field; a client that lost its
+connection POSTs again with ``Last-Event-ID`` set to the last id it
+saw, and the server replays the committed tokens past that offset and
+re-attaches the connection to the live tail — from the in-process
+registry, from the engine's recovered set after a crash and restart
+(`ServeEngine.recover`), or from the journal's record of a finished
+stream. The client's `X-Request-Id` (honored when sane, else minted) is
+the journal id, echoed on the response.
+
+Request tracing: with the engine's flight recorder on, the front door
+records its phases on an "http" track — `accept` (headers -> body
+read), `parse` (body -> validated), `queue_handoff` (validated ->
+engine submit), `sse_drain` (engine finish -> last byte written) and
+`disconnect` instants — contiguous stamps on the engine's clock, so
+with the engine's queue + prefill + decode they partition the
+server-observed wall. `GET /v1/requests/<id>` assembles the same
+timeline from a bounded registry, with or without the recorder.
 
 Shutdown (`ApiServer.close`, idempotent): refuse new work (503), drain
 active streams up to `drain_timeout_s` then cancel the rest, stop the
@@ -50,11 +74,14 @@ import threading
 import time
 import traceback
 import uuid
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from solvingpapers_tpu_torch.metrics.http import healthz_response
 from solvingpapers_tpu_torch.metrics.writer import PrometheusTextWriter
+from solvingpapers_tpu_torch.serve import metrics as smetrics
 from solvingpapers_tpu_torch.serve import openai as oai
 from solvingpapers_tpu_torch.serve.engine import weak_method
 from solvingpapers_tpu_torch.serve.grammar import JsonStepper
@@ -233,6 +260,11 @@ class ApiServer:
     `EngineLoop`; by default the server owns one.
     """
 
+    # request timelines kept for GET /v1/requests/<id>: a debug surface,
+    # so bounded and evict-oldest; a client re-using an id overwrites
+    # the older entry (last wins)
+    timeline_cap = 1024
+
     def __init__(self, engine, *, encode=None, decode=None, token_table=None,
                  model_name: str = "solvingpapers", loop=None):
         cfg = engine.config
@@ -251,6 +283,8 @@ class ApiServer:
         # client back in one burst (seeded for reproducible tests)
         self._retry_rng = random.Random(0xFA17)
         self._retry_lock = threading.Lock()
+        self._timelines: OrderedDict[str, dict] = OrderedDict()
+        self._timeline_lock = threading.Lock()
         self.vocab_size = engine.model.cfg.vocab_size
         # token table for grammar mode: caller-supplied, or derived by
         # decoding each id once (None = outside the detokenizer's range)
@@ -345,10 +379,24 @@ class ApiServer:
                    headers)
 
     def _retry_headers(self) -> dict:
-        """A jittered Retry-After (integer seconds) for every 503."""
+        """Backpressure headers for every 503: a JITTERED Retry-After
+        (integer seconds, its base growing with the degradation rung) and
+        the rung itself."""
+        rung = self.engine.degradation_rung
         with self._retry_lock:
-            retry = self._retry_rng.randint(1, 4)
-        return {"Retry-After": str(retry)}
+            retry = self._retry_rng.randint(1 + rung, 4 + rung)
+        return {"Retry-After": str(retry), "X-Degradation-Rung": str(rung)}
+
+    def _find_recovered(self, rid: str):
+        """The engine's recovered Request for `rid` (after a restart's
+        `recover()`), or None."""
+        return self.engine._recovered.get(rid)
+
+    def _journal_lookup(self, rid: str):
+        """The journal's live or recently finished entry for `rid`, or
+        None (no journal, or aged out)."""
+        journal = self.engine.journal
+        return None if journal is None else journal.lookup(rid)
 
     def _send_error(self, h, err: ApiError, headers: dict | None = None) -> None:
         self._bump("rejected" if err.status == 503 else "client_errors")
@@ -366,11 +414,12 @@ class ApiServer:
         path = h.path.split("?", 1)[0]
         try:
             if path == "/healthz":
-                # a dead engine loop is unhealthy: the balancer must drop it
-                if self.loop.error is not None:
-                    self._send(h, 503, "unhealthy\n", "text/plain")
-                else:
-                    self._send(h, 200, "ok\n", "text/plain")
+                # the engine's health state machine through the status
+                # endpoint's own mapping; a dead loop is unhealthy
+                state = ("unhealthy" if self.loop.error is not None
+                         else self.engine.health)
+                code, body = healthz_response(state)
+                self._send(h, code, body, "text/plain")
             elif path == "/metrics":
                 with self.loop.lock:
                     step, snap = (self.engine._step_idx,
@@ -381,12 +430,20 @@ class ApiServer:
                 with self.loop.lock:
                     doc = self.engine.statusz()
                 self._send_json(h, 200, doc)
+            elif path == "/timeseriesz":
+                if self.engine.timeseries is not None:
+                    self._send_json(h, 200, self.engine.timeseries.doc())
+                else:
+                    self._send(h, 404, "no time-series store (run with "
+                               "timeseries enabled)\n", "text/plain")
             elif path == "/v1/models":
                 self._send_json(h, 200, {
                     "object": "list",
                     "data": [{"id": self.model_name, "object": "model",
                               "owned_by": "local"}],
                 })
+            elif path.startswith("/v1/requests/"):
+                self._request_status(h, path[len("/v1/requests/"):])
             else:
                 self._send(h, 404, "not found\n", "text/plain")
         except (BrokenPipeError, ConnectionResetError):
@@ -397,20 +454,152 @@ class ApiServer:
             except (BrokenPipeError, ConnectionResetError):
                 pass
 
+    def _request_status(self, h, rid: str) -> None:
+        """GET /v1/requests/<id>: the request's end-to-end timeline (HTTP
+        phases and engine lifecycle phases, which partition the
+        server-observed wall) and its SLO verdict; past the registry, or
+        for a request of an earlier process, the journal's record."""
+        with self._timeline_lock:
+            rec = self._timelines.get(rid)
+        if rec is None:
+            doc = self._journal_timeline(rid)
+            if doc is not None:
+                self._send_json(h, 200, doc, {"X-Request-Id": rid})
+                return
+            self._send_json(h, 404, {"error": {
+                "message": f"no timeline for request id {rid!r} (unknown, "
+                           f"evicted past the last {self.timeline_cap} "
+                           "requests with no journal record, or aged out of "
+                           "the journal's finished window)",
+                "type": "invalid_request_error", "param": None,
+                "code": "request_not_found",
+            }})
+            return
+        self._send_json(h, 200, self._assemble_timeline(rec),
+                        {"X-Request-Id": rid})
+
+    def _journal_timeline(self, rid: str) -> dict | None:
+        """`GET /v1/requests/<id>` from the journal alone, marked
+        ``source: "journal"``: no HTTP phases (the connection may predate
+        this process), but the durable facts — sizes, the committed token
+        ids, outcome, usage."""
+        entry = self._journal_lookup(rid)
+        if entry is None:
+            return None
+        recovered = self._find_recovered(rid) is not None
+        if entry.finished:
+            state = "finished"
+        elif recovered:
+            state = "active"
+        else:
+            state = "journaled"
+        return {
+            "request_id": rid,
+            "source": "journal",
+            "state": state,
+            "recovered": recovered,
+            "finish_reason": entry.finish_reason,
+            "tokens": list(entry.tokens),
+            "usage": entry.usage,
+            "facts": {
+                "prompt_tokens": len(entry.prompt),
+                "completion_tokens": len(entry.tokens),
+                "grammar": entry.grammar,
+            },
+        }
+
+    def _assemble_timeline(self, rec: dict) -> dict:
+        """One JSON timeline from the HTTP record and the Request's own
+        timestamps. The phases are adjacent intervals — accept -> parse
+        -> queue_handoff -> queue -> prefill -> decode -> sse_drain — so
+        their sum equals the server-observed wall to the clock's
+        resolution; an in-flight request reports the phases it has
+        reached."""
+        req = rec["req"]
+        cfg = self.engine.config
+        phases: dict[str, float] = {
+            "accept": rec["t_body"] - rec["t_accept"],
+            "parse": rec["t_parsed"] - rec["t_body"],
+            "queue_handoff": max(req.submit_time - rec["t_parsed"], 0.0),
+        }
+        if req.admit_time is not None:
+            phases["queue"] = req.admit_time - req.submit_time
+            if req.first_token_time is not None:
+                phases["prefill"] = req.first_token_time - req.admit_time
+                if req.finish_time is not None:
+                    phases["decode"] = req.finish_time - req.first_token_time
+        elif req.finish_time is not None:
+            # never admitted: its whole engine life was queue time
+            phases["queue"] = req.finish_time - req.submit_time
+        if rec["t_done"] is not None and req.finish_time is not None:
+            phases["sse_drain"] = max(rec["t_done"] - req.finish_time, 0.0)
+        phases = {k: round(v, 6) for k, v in phases.items()}
+        facts: dict = {"prompt_tokens": int(req.prompt.size),
+                       "completion_tokens": len(req.tokens)}
+        if cfg.paged:
+            facts["pages_held"] = req.pages_held
+            facts["page_size"] = self.engine.pool.page_size
+        doc = {
+            "request_id": rec["trace_id"],
+            "engine_req": req.id,
+            "kind": "chat" if rec["chat"] else "completion",
+            "stream": rec["stream"],
+            "state": req.state,
+            "finish_reason": req.finish_reason,
+            "disconnected": rec["disconnected"],
+            "phases": phases,
+            "phase_sum_s": round(sum(phases.values()), 6),
+            "e2e_s": (round(rec["t_done"] - rec["t_accept"], 6)
+                      if rec["t_done"] is not None else None),
+            "facts": facts,
+        }
+        if req.slo_result is not None:
+            doc["slo"] = req.slo_result
+        elif cfg.slo_targets is not None:
+            # in flight (or an excluded finish): class known, no verdict
+            doc["slo"] = {"class": self.engine._slo.classify(req),
+                          "attained": None}
+        return doc
+
     def _post(self, h) -> None:
+        # the accept boundary: first stamp after the request line and the
+        # headers were parsed
+        t_accept = smetrics.now()
         path = h.path.split("?", 1)[0]
         chat = path == "/v1/chat/completions"
         if not chat and path != "/v1/completions":
             self._send(h, 404, "not found\n", "text/plain")
             return
         self._bump("requests")
+        # a reconnect presents the last SSE event id it saw instead of a
+        # new job: replay the committed tokens past it and re-attach
+        lei = (h.headers.get("Last-Event-ID") or "").strip()
+        if lei:
+            try:
+                self._drain_body(h)
+                self._resume_stream(h, lei, chat)
+            except ApiError as e:
+                self._send_error(h, e)
+            except (BrokenPipeError, ConnectionResetError):
+                self._bump("disconnects")
+            except Exception as e:  # noqa: BLE001
+                try:
+                    self._send_json(h, 500, {"error": {
+                        "message": f"{type(e).__name__}: {e}",
+                        "type": "internal_error", "param": None, "code": None,
+                    }})
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+            return
         # honor the client's X-Request-Id (sane values only), else mint one
         rid_in = (h.headers.get("X-Request-Id") or "").strip()
         trace_id = rid_in if _RID_RE.match(rid_in) else uuid.uuid4().hex
         rid_headers = {"X-Request-Id": trace_id}
         try:
             body = self._read_body(h)
-            self._serve_completion(h, body, chat=chat, trace_id=trace_id)
+            t_body = smetrics.now()
+            self._serve_completion(h, body, chat=chat, trace_id=trace_id,
+                                   t_accept=t_accept, t_body=t_body)
         except ApiError as e:
             self._send_error(h, e, headers=rid_headers)
         except (BrokenPipeError, ConnectionResetError):
@@ -423,6 +612,155 @@ class ApiServer:
                 }}, rid_headers)
             except (BrokenPipeError, ConnectionResetError):
                 pass
+
+    @staticmethod
+    def _check_resume_offset(offset: int, committed: int, rid: str) -> None:
+        """A resume offset past the committed prefix is a 409, not a
+        clamp: fsync batches a step, so after a hard crash a client can
+        hold tokens the journal never made durable, and replaying from a
+        clamp would hand it that span twice with no signal."""
+        if offset > committed:
+            raise ApiError(
+                f"Last-Event-ID offset {offset} exceeds the {committed} "
+                f"committed token(s) recoverable for request {rid!r}: the "
+                "tail past the last durable commit was lost with the crash; "
+                "resume from within the committed prefix or restart the "
+                "stream", status=409, code="resume_offset_beyond_committed")
+
+    def _sse_open(self, h, trace_id: str):
+        """Send the SSE response headers and return THE event writer (one
+        framing for live streams, re-attached resumes and journal-only
+        replays): each event is an optional ``id: <trace_id>:<offset>``
+        resume cursor and a ``data:`` line, and the fault plane's
+        ``sse_write`` site pokes once an event."""
+        h.send_response(200)
+        h.send_header("Content-Type", "text/event-stream")
+        h.send_header("Cache-Control", "no-cache")
+        h.send_header("X-Request-Id", trace_id)
+        h.end_headers()
+        engine = self.engine
+
+        def event(obj, eid: int | None = None) -> None:
+            faults = engine._faults
+            if faults is not None:
+                for spec in faults.poke("sse_write"):
+                    engine.metrics.record_fault_injected()
+                    if engine.trace is not None:
+                        engine.trace.instant("fault_injected", "engine",
+                                             "http", site="sse_write",
+                                             kind=spec.kind, slot=spec.slot)
+                    if spec.kind == "socket_reset":
+                        raise ConnectionResetError(
+                            "injected socket reset at sse_write")
+                    if spec.kind == "stall":
+                        time.sleep(spec.stall_s)
+            payload = b""
+            if eid is not None:
+                payload += f"id: {trace_id}:{eid}\n".encode()
+            payload += b"data: " + json.dumps(obj).encode() + b"\n\n"
+            h.wfile.write(payload)
+            h.wfile.flush()
+
+        return event
+
+    @staticmethod
+    def _drain_body(h) -> None:
+        """Read and discard a resume's request body (it needs only the
+        Last-Event-ID header, but the bytes must leave the socket)."""
+        try:
+            n = int(h.headers.get("Content-Length", 0))
+        except ValueError:
+            n = 0
+        if 0 < n <= (8 << 20):
+            h.rfile.read(n)
+
+    def _resume_stream(self, h, lei: str, chat: bool) -> None:
+        """Resume a stream from its last delivered SSE event id,
+        ``<request id>:<token offset>``. Sources, in order: the live
+        registry, the engine's recovered set (after `recover()`), then the
+        journal's record of a finished stream. Committed tokens past the
+        offset replay at once; a live request re-attaches this connection
+        to its tail (the previous connection's bridge is abandoned: the
+        last reconnect wins)."""
+        rid, _, off_s = lei.rpartition(":")
+        # ASCII digits only: str.isdigit() takes Unicode digits int() refuses
+        if not rid or not (off_s.isascii() and off_s.isdigit()):
+            raise ApiError(
+                f"malformed Last-Event-ID {lei!r}: expected \"<request "
+                "id>:<token offset>\" as stamped on the stream's id: fields",
+                param="Last-Event-ID")
+        offset = int(off_s)
+        with self._timeline_lock:
+            rec = self._timelines.get(rid)
+        req = rec["req"] if rec is not None else None
+        if req is None:
+            req = self._find_recovered(rid)
+        if req is not None:
+            self._check_resume_offset(offset, len(req.tokens), rid)
+            now = smetrics.now()
+            new_rec = {"trace_id": rid, "req": req, "chat": chat,
+                       "stream": True, "t_accept": now, "t_body": now,
+                       "t_parsed": now, "t_done": None, "disconnected": False}
+            bridge = _Stream()
+            if not req.done:
+                # the engine reads stream_cb at each notify: one reference
+                # write re-attaches; a racing notify is absorbed by the
+                # drain loop's req.done and token-count polling
+                req.stream_cb = bridge
+            bridge(req, 0, req.done)  # replay without waiting out a poll
+            self._bump("streams")
+            rid_out = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
+            self._stream_response(h, req, bridge, rid_out, chat, new_rec,
+                                  start=offset)
+            return
+        entry = self._journal_lookup(rid)
+        if entry is None:
+            raise ApiError(
+                f"no resumable stream for request id {rid!r} (unknown, or "
+                "aged out of the journal's finished window)", status=404,
+                code="request_not_found")
+        # journal-only replay: no live engine object (finished, or a
+        # restart that never ran recover()): replay the record, close it
+        self._check_resume_offset(offset, len(entry.tokens), rid)
+        self._bump("streams")
+        rid_out = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
+        event = self._sse_open(h, rid)
+        rendered = ""
+        if offset:
+            _, rendered = self._delta(entry.tokens, offset, "")
+        delta, _ = self._delta(entry.tokens, len(entry.tokens), rendered)
+        upto = len(entry.tokens)
+        if chat:
+            event(oai.chat_chunk(rid_out, self.model_name, None, role=True),
+                  eid=offset)
+            if delta:
+                event(oai.chat_chunk(rid_out, self.model_name, delta), eid=upto)
+        elif delta:
+            # the ids ride the logprobs block (logprobs null: the journal
+            # keeps ids only), so a client can join the pieces by id
+            span = entry.tokens[offset:upto]
+            event(oai.completion_chunk(
+                rid_out, self.model_name, delta,
+                logprobs=oai.logprobs_block(span, [None] * len(span))),
+                eid=upto)
+        reason = entry.finish_reason if entry.finished else "error"
+        if not entry.finished:
+            event(oai.error_event(
+                "stream is not live on this server (it was journaled but not "
+                "recovered): committed tokens above are complete as "
+                "delivered"))
+        usage = entry.usage or {"prompt_tokens": len(entry.prompt),
+                                "completion_tokens": len(entry.tokens)}
+        usage = {**usage, "total_tokens": usage.get("prompt_tokens", 0)
+                 + usage.get("completion_tokens", 0)}
+        if chat:
+            event(oai.chat_chunk(rid_out, self.model_name, None, reason=reason,
+                                 usage=usage), eid=upto)
+        else:
+            event(oai.completion_chunk(rid_out, self.model_name, "",
+                                       reason=reason, usage=usage), eid=upto)
+        h.wfile.write(b"data: [DONE]\n\n")
+        h.wfile.flush()
 
     @staticmethod
     def _read_body(h) -> dict:
@@ -444,8 +782,8 @@ class ApiServer:
 
     # -------------------------------------------------------- completion
 
-    def _serve_completion(self, h, body: dict, chat: bool,
-                          trace_id: str) -> None:
+    def _serve_completion(self, h, body: dict, chat: bool, trace_id: str,
+                          t_accept: float, t_body: float) -> None:
         cfg = self.engine.config
         if self.closing.is_set():
             raise ApiError("server is shutting down", status=503,
@@ -454,7 +792,8 @@ class ApiServer:
             raise ApiError("engine loop failed — the server needs a restart "
                            f"({type(self.loop.error).__name__})", status=503,
                            err_type="server_error", code="engine_failed")
-        params, max_tokens, timeout_s = oai.parse_sampling(body)
+        params, max_tokens, timeout_s = oai.parse_sampling(
+            body, slo_classes=set(cfg.slo_targets) if cfg.slo_targets else None)
         stream = bool(body.get("stream", False))
         json_mode = oai.wants_json(body, cfg.json_mode)
         if json_mode and self._grammar_err:
@@ -475,25 +814,70 @@ class ApiServer:
         grammar = (JsonStepper(self.token_table, cache=self._grammar_cache)
                    if json_mode else None)
         bridge = _Stream()
+        # the parse boundary: the next stamp is the request's own
+        # submit_time inside the locked engine call, so the gap is the
+        # submit-lock handoff
+        t_parsed = smetrics.now()
         try:
             req = self.loop.submit(
                 np.asarray(prompt_ids, np.int64), max_new_tokens=max_tokens,
                 params=params, deadline_s=timeout_s, grammar=grammar,
-                stream_cb=bridge)
+                stream_cb=bridge, trace_id=trace_id)
         except ValueError as e:
             code = ("context_length_exceeded"
                     if "exceeds the engine capacity" in str(e) else None)
             raise ApiError(str(e), code=code) from None
+        if req.trace_id is not None and req.trace_id != trace_id:
+            # the engine re-keyed a still-live duplicate id to protect the
+            # journal: the client is told the id its stream answers to
+            trace_id = req.trace_id
+        rec = {"trace_id": trace_id, "req": req, "chat": chat,
+               "stream": stream, "t_accept": t_accept, "t_body": t_body,
+               "t_parsed": t_parsed, "t_done": None, "disconnected": False}
+        with self._timeline_lock:
+            self._timelines[trace_id] = rec
+            self._timelines.move_to_end(trace_id)
+            while len(self._timelines) > self.timeline_cap:
+                self._timelines.popitem(last=False)
+        tr = self.engine.trace
+        if tr is not None:
+            # contiguous boundaries (t_accept -> t_body -> t_parsed ->
+            # submit_time) extend the engine's partition across the door
+            tr.complete("accept", "http", "http", ts=t_accept,
+                        dur=t_body - t_accept, req=req.id, trace_id=trace_id)
+            tr.complete("parse", "http", "http", ts=t_body,
+                        dur=t_parsed - t_body, req=req.id)
+            tr.complete("queue_handoff", "http", "http", ts=t_parsed,
+                        dur=max(req.submit_time - t_parsed, 0.0), req=req.id)
         if req.state == "rejected":
-            # the queue filled between the probe above and the submit
-            raise ApiError("waiting queue is full — retry shortly", status=503,
-                           err_type="server_error", code="overloaded")
+            self._bump("rejected")
+            rec["t_done"] = smetrics.now()
+            why = req.reject_reason or ""
+            if why == "unhealthy":
+                err = ApiError("engine is unhealthy and draining — retry "
+                               "shortly", status=503, err_type="server_error",
+                               code="engine_unhealthy")
+            elif why.startswith("shed:"):
+                err = ApiError(
+                    f"admissions for SLO class {why[5:]!r} are being "
+                    f"load-shed (degradation rung "
+                    f"{self.engine.degradation_rung}) — retry after the "
+                    "hinted delay", status=503, err_type="server_error",
+                    code="overloaded")
+            else:
+                # the queue filled between the probe above and the submit
+                err = ApiError("waiting queue is full — retry shortly",
+                               status=503, err_type="server_error",
+                               code="overloaded")
+            self._send_json(h, 503, err.body(),
+                            {**self._retry_headers(), "X-Request-Id": trace_id})
+            return
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         if stream:
             self._bump("streams")
-            self._stream_response(h, req, bridge, rid, chat, trace_id)
+            self._stream_response(h, req, bridge, rid, chat, rec)
         else:
-            self._blocking_response(h, req, bridge, rid, chat, trace_id)
+            self._blocking_response(h, req, bridge, rid, chat, rec)
 
     def _delta(self, tokens, upto: int, rendered: str) -> tuple[str, str]:
         """Text delta for tokens[:upto] given what was already rendered.
@@ -519,28 +903,48 @@ class ApiServer:
             return True
         return False
 
+    def _mark_disconnect(self, req, rec) -> None:
+        rec["disconnected"] = True
+        rec["t_done"] = smetrics.now()
+        self._bump("disconnects")
+        tr = self.engine.trace
+        if tr is not None:
+            tr.instant("disconnect", "http", "http", req=req.id)
+
+    def _mark_done(self, req, rec, events: int = 0) -> None:
+        """Stamp the drain boundary: engine finish -> last response byte
+        flushed (event rendering, detokenize, socket writes)."""
+        t_done = smetrics.now()
+        rec["t_done"] = t_done
+        tr = self.engine.trace
+        if tr is not None and req.finish_time is not None:
+            tr.complete("sse_drain", "http", "http", ts=req.finish_time,
+                        dur=max(t_done - req.finish_time, 0.0), req=req.id,
+                        events=events)
+
     def _stream_response(self, h, req, bridge, rid: str, chat: bool,
-                         trace_id: str) -> None:
-        h.send_response(200)
-        h.send_header("Content-Type", "text/event-stream")
-        h.send_header("Cache-Control", "no-cache")
-        h.send_header("X-Request-Id", trace_id)
-        h.end_headers()
-
-        def event(obj) -> None:
-            h.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
-            h.wfile.flush()
-
-        def cancel() -> None:
-            self.loop.cancel(req)
-            self._bump("disconnects")
-
+                         rec: dict, start: int = 0) -> None:
+        """`start` > 0 is a Last-Event-ID reconnect: tokens[:start] were
+        delivered already, and the stream resumes from there (the prefix
+        is re-rendered so text deltas stay exact)."""
+        event = self._sse_open(h, rec["trace_id"])
         self._bump_active(1)
-        emitted = 0
+        emitted = start
+        events = 0
         rendered = ""
+        if start > 0:
+            _, rendered = self._delta(req.tokens, start, "")
+
+        def cancel_if_mine() -> None:
+            # the last reconnect wins: an abandoned connection noticing its
+            # dead socket after a re-attach must not cancel the stream
+            if not req.done and req.stream_cb is bridge:
+                self.loop.cancel(req)
+
         try:
             if chat:
-                event(oai.chat_chunk(rid, self.model_name, None, role=True))
+                event(oai.chat_chunk(rid, self.model_name, None, role=True),
+                      eid=emitted)
             while True:
                 try:
                     _, finished = bridge.q.get(timeout=0.5)
@@ -548,7 +952,8 @@ class ApiServer:
                     if req.done:
                         finished = True  # the callback raced the queue
                     elif self._disconnected(h):
-                        cancel()
+                        cancel_if_mine()
+                        self._mark_disconnect(req, rec)
                         return
                     else:
                         # SSE comment heartbeat: keeps proxies from timing
@@ -561,22 +966,27 @@ class ApiServer:
                 # arrives long before a write raises (small SSE events
                 # vanish into the send buffer)
                 if self._disconnected(h):
-                    cancel()
+                    cancel_if_mine()
+                    self._mark_disconnect(req, rec)
                     return
                 upto = len(req.tokens)
                 if upto > emitted:
                     delta, rendered = self._delta(req.tokens, upto, rendered)
                     if chat:
-                        event(oai.chat_chunk(rid, self.model_name, delta))
+                        event(oai.chat_chunk(rid, self.model_name, delta),
+                              eid=upto)
                     else:
                         lps = (oai.logprobs_block(req.tokens[emitted:upto],
                                                   req.logprobs[emitted:upto])
                                if req.params.logprobs else None)
                         event(oai.completion_chunk(rid, self.model_name, delta,
-                                                   logprobs=lps))
+                                                   logprobs=lps), eid=upto)
                     emitted = upto
+                    events += 1
                 if finished:
                     if req.finish_reason == "error":
+                        # a quarantined or engine-failed stream ends with a
+                        # structured error event before its terminal chunk
                         event(oai.error_event(
                             "the request failed in the engine (finish_reason "
                             "error) — partial output above is complete as "
@@ -585,39 +995,44 @@ class ApiServer:
                     if chat:
                         event(oai.chat_chunk(rid, self.model_name, None,
                                              reason=req.finish_reason,
-                                             usage=usage))
+                                             usage=usage), eid=emitted)
                     else:
                         event(oai.completion_chunk(rid, self.model_name, "",
                                                    reason=req.finish_reason,
-                                                   usage=usage))
+                                                   usage=usage), eid=emitted)
                     h.wfile.write(b"data: [DONE]\n\n")
                     h.wfile.flush()
+                    self._mark_done(req, rec, events=events + 1)
                     return
         except (BrokenPipeError, ConnectionResetError, OSError):
             # the client went away mid-stream: free the slot at the next
             # block boundary
-            cancel()
+            cancel_if_mine()
+            self._mark_disconnect(req, rec)
         except Exception as e:  # noqa: BLE001 — a server-side failure
             # after the 200 and the SSE headers went out: send the error
             # event, a terminal chunk with finish_reason "error" and
             # [DONE] (best effort), then release the engine side
-            self.loop.cancel(req)
+            cancel_if_mine()
             try:
                 term = (oai.chat_chunk(rid, self.model_name, None,
                                        reason="error") if chat
                         else oai.completion_chunk(rid, self.model_name, "",
                                                   reason="error"))
-                event(oai.error_event(f"{type(e).__name__}: {e}"))
-                event(term)
-                h.wfile.write(b"data: [DONE]\n\n")
+                payload = (b"data: " + json.dumps(oai.error_event(
+                    f"{type(e).__name__}: {e}")).encode() + b"\n\n"
+                    + b"data: " + json.dumps(term).encode()
+                    + b"\n\ndata: [DONE]\n\n")
+                h.wfile.write(payload)
                 h.wfile.flush()
             except OSError:
                 pass
+            self._mark_done(req, rec, events=events + 2)
         finally:
             self._bump_active(-1)
 
     def _blocking_response(self, h, req, bridge, rid: str, chat: bool,
-                           trace_id: str) -> None:
+                           rec: dict) -> None:
         self._bump_active(1)
         try:
             while not req.done:
@@ -628,22 +1043,24 @@ class ApiServer:
                 except queue.Empty:
                     if self._disconnected(h):
                         self.loop.cancel(req)
-                        self._bump("disconnects")
+                        self._mark_disconnect(req, rec)
                         return
             if self.decode is not None:
                 text = self.decode(list(req.tokens))
             else:
                 text = "".join(str(t) + " " for t in req.tokens)
-            headers = {"X-Request-Id": trace_id}
+            headers = {"X-Request-Id": rec["trace_id"]}
             if req.finish_reason == "error":
                 # no bytes went out yet: the honest status is a 500
                 self._send_json(h, 500, oai.error_event(
                     "the request failed in the engine (finish_reason error)"),
                     headers)
+                self._mark_done(req, rec, events=1)
                 return
             make = oai.chat_response if chat else oai.completion_response
             self._send_json(h, 200, make(rid, self.model_name, req, text),
                             headers)
+            self._mark_done(req, rec, events=1)
         finally:
             self._bump_active(-1)
 

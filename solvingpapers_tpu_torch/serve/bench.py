@@ -1,5 +1,7 @@
 """Serving benchmark on the port (port of the Poisson, shared-prefix,
-paged, sampling and HTTP workloads of `solvingpapers_tpu/serve/bench.py`).
+paged, sampling, HTTP and SLO workloads of
+`solvingpapers_tpu/serve/bench.py`, with its traced arm and status
+endpoint).
 
 Synthetic open-loop traffic: request arrivals are a Poisson process
 (exponential interarrivals, seeded), prompts are slices of the
@@ -24,6 +26,17 @@ reference's requests element for element.
 * `run_http_bench` — the trace as concurrent SSE clients through the
   OpenAI front door (`serve/api.py`) against direct `submit`, with every
   streamed id sequence checked against the direct arm's.
+* `run_slo_bench` — the trace through an engine with SLO classes
+  (requests tagged interactive / standard / batch in turn) against the
+  plain engine: the accounting's cost, per-class attainment and burn,
+  and goodput.
+
+`trace=True` (Poisson, prefix and sampling workloads) adds an ABBA-paired
+traced arm and records `trace_overhead_pct`, the traced req/s and the
+event count (`_traced_arm_fields`), exporting the last traced run's
+Chrome trace to `trace_out`. `status_port` keeps the probe engine open,
+serving /healthz /metrics /statusz /timeseriesz for the run
+(`status_hold_s` past its end).
 
 Every workload warms the engine on one request per prompt length before
 its timed arms, and runs a probe first: the warm trace once, recording
@@ -56,6 +69,7 @@ two tokens.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -347,16 +361,80 @@ def _run_sequential_arm(model, requests, max_new):
 
 
 def _obs_probe(model, warm_requests, serve_cfg, max_new, params_for=None,
-               arms: _Arms | None = None) -> dict:
+               arms: _Arms | None = None, status_port: int | None = None):
     """The warm trace once through an engine of `serve_cfg`, before the
     plain warmup: on the card, its measured peak allocation
-    (`peak_hbm_bytes`); on the CPU, no field. The engine is dropped
-    before the timed arms allocate theirs."""
+    (`peak_hbm_bytes`); on the CPU, no field. Returns (fields, engine).
+    The engine is dropped before the timed arms allocate theirs (engine
+    None), unless `status_port` is given: then it serves /healthz
+    /metrics /statusz /timeseriesz for the rest of the run (its port in
+    `status_port`), and the caller closes it with `_release_probe`."""
+    import sys
+
     arms = arms or _Arms(model.device)
-    arms.run("probe", _engine_arm_stats, model, warm_requests, serve_cfg,
-             max_new, params_for=params_for)
+    if status_port is None:
+        arms.run("probe", _engine_arm_stats, model, warm_requests, serve_cfg,
+                 max_new, params_for=params_for)
+        eng = None
+    else:
+        cfg = dataclasses.replace(serve_cfg, status_port=status_port)
+        eng, _, _ = arms.run("probe", _run_engine_arm, model, warm_requests,
+                             cfg, max_new, params_for=params_for)
     peak = arms.log["probe"].get("peak_bytes")
-    return {} if peak is None else {"peak_hbm_bytes": peak}
+    fields = {} if peak is None else {"peak_hbm_bytes": peak}
+    if eng is not None:
+        fields["status_port"] = eng.status.port
+        print(f"[serve-bench] status endpoint live at "
+              f"http://{eng.status.host}:{eng.status.port} (/healthz /metrics "
+              "/statusz /timeseriesz)", file=sys.stderr, flush=True)
+    return fields, eng
+
+
+def _release_probe(eng, hold_s: float = 0.0) -> None:
+    """Hold a status-serving probe engine `hold_s` seconds past the arms
+    (a curl window), then close it."""
+    if eng is None:
+        return
+    if hold_s > 0:
+        time.sleep(hold_s)
+    eng.close()
+
+
+def _traced_arm_fields(model, requests, serve_cfg, max_new,
+                       trace_out: str | None, trace_dump: str | None,
+                       params_for=None, reps: int = 2,
+                       arms: _Arms | None = None) -> dict:
+    """The flight recorder's throughput cost: `trace_overhead_pct` = (1 -
+    traced / untraced req/s) x 100 over ABBA-paired runs of the arrival
+    trace, the traced arm's req/s and its recorded event count. Exports
+    the last traced run's Chrome trace to `trace_out`; `trace_dump` arms
+    the anomaly dumper."""
+    tcfg = dataclasses.replace(serve_cfg, trace=True, trace_dump_path=trace_dump)
+    arms = arms or _Arms(model.device)
+    mk = {"traced": [], "untraced": []}
+    recorder = None
+    for rep in range(reps):
+        order = ("traced", "untraced") if rep % 2 == 0 else ("untraced", "traced")
+        for arm in order:
+            eng, _, span = arms.run(f"{arm}[{rep}]", _run_engine_arm, model,
+                                    requests, tcfg if arm == "traced"
+                                    else serve_cfg, max_new,
+                                    params_for=params_for)
+            mk[arm].append(span)
+            if arm == "traced":
+                recorder = eng.trace  # the ring outlives its engine
+            del eng
+    traced_rps = len(requests) / (sum(mk["traced"]) / len(mk["traced"]))
+    untraced_rps = len(requests) / (sum(mk["untraced"]) / len(mk["untraced"]))
+    fields = {
+        "trace_overhead_pct": round((1.0 - traced_rps / untraced_rps) * 100.0, 2),
+        "traced_requests_per_sec": round(traced_rps, 2),
+        "trace_events": recorder.total_recorded,
+    }
+    if trace_out:
+        recorder.export_chrome(trace_out)
+        fields["trace_out"] = trace_out
+    return fields
 
 
 def _paired_arm_stats(model, requests, on_cfg, off_cfg, max_new,
@@ -438,10 +516,17 @@ def run_serve_bench(
     mean_interarrival_s: float = 0.001,
     seed: int = 0,
     skip_sequential: bool = False,
+    trace: bool = False,
+    trace_out: str | None = None,
+    trace_dump: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
     device=None,
 ) -> dict:
     """The engine arm against the sequential arm; returns the result
-    dict (`vs_baseline`: engine req/s over sequential req/s)."""
+    dict (`vs_baseline`: engine req/s over sequential req/s). `trace`
+    adds the traced arm (`_traced_arm_fields`); `status_port` keeps the
+    probe engine serving its status endpoint for the run."""
     model, vocab = build_serve_model(config, device)
     arms = _Arms(model.device)
     requests = synthetic_requests(
@@ -451,7 +536,8 @@ def run_serve_bench(
     serve_cfg = poisson_serve_config(requests, n_slots, max_new,
                                      decode_block, seed)
     warm = _warm_trace(requests)
-    probe_fields = _obs_probe(model, warm, serve_cfg, max_new, arms=arms)
+    probe_fields, probe_eng = _obs_probe(model, warm, serve_cfg, max_new,
+                                         arms=arms, status_port=status_port)
     _run_engine_arm(model, warm, serve_cfg, max_new)
     if not skip_sequential:
         _run_sequential_arm(model, warm, max_new)
@@ -498,7 +584,11 @@ def run_serve_bench(
         detail["sequential_requests_per_sec"] = round(seq_rps, 2)
         detail["sequential_mean_ttft_s"] = round(seq_ttft, 4)
         result["vs_baseline"] = round(rps / seq_rps, 2)
+    if trace:
+        detail.update(_traced_arm_fields(model, requests, serve_cfg, max_new,
+                                         trace_out, trace_dump, arms=arms))
     detail["arms"] = arms.log
+    _release_probe(probe_eng, status_hold_s)
     return result
 
 
@@ -515,6 +605,11 @@ def run_prefix_bench(
     prefix_page: int = 16,
     prefix_cache_bytes: int = 64 << 20,
     seed: int = 0,
+    trace: bool = False,
+    trace_out: str | None = None,
+    trace_dump: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
     device=None,
 ) -> dict:
     """Shared-prefix workload, prefix cache ON against OFF — same engine
@@ -568,7 +663,8 @@ def run_prefix_bench(
         prefix_len=prefix_len, suffix_len=suffix_len,
         mean_interarrival_s=0.0, seed=seed + 1,
     )
-    probe_fields = _obs_probe(model, warm, cfg(True), max_new, arms=arms)
+    probe_fields, probe_eng = _obs_probe(model, warm, cfg(True), max_new,
+                                         arms=arms, status_port=status_port)
     arms_out = {}
     raw_ttft = {}
     kv = None
@@ -593,6 +689,11 @@ def run_prefix_bench(
             ),
             "prefix_hbm_bytes": int(snap.get("serve/prefix_hbm_bytes", 0.0)),
         }
+    # the traced arm mirrors the headline (cache-on) arm
+    trace_fields = (_traced_arm_fields(model, requests, cfg(True), max_new,
+                                       trace_out, trace_dump, arms=arms)
+                    if trace else {})
+    _release_probe(probe_eng, status_hold_s)
     # ratio of the UNROUNDED means
     speedup = raw_ttft["cache_off"] / raw_ttft["cache_on"]
     return {
@@ -616,6 +717,7 @@ def run_prefix_bench(
                for k, v in d.items()},
             **kv,
             **probe_fields,
+            **trace_fields,
             "arms": arms.log,
         },
     }
@@ -635,6 +737,8 @@ def run_paged_bench(
     page_size: int = 16,
     seed: int = 0,
     reps: int = 2,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
     device=None,
 ) -> dict:
     """Paged KV pool against the lane pool — three sub-workloads, one
@@ -674,7 +778,8 @@ def run_paged_bench(
     lane_cfg = ServeConfig(**base)
     paged_cfg = ServeConfig(**base, paged=True, page_size=page_size)
     warm = _warm_trace(requests)
-    probe_fields = _obs_probe(model, warm, paged_cfg, max_new, arms=arms)
+    probe_fields, probe_eng = _obs_probe(model, warm, paged_cfg, max_new,
+                                         arms=arms, status_port=status_port)
 
     # ---- 1. Poisson: paged vs lane at the same slots + pool bytes ----
     _run_engine_arm(model, warm, lane_cfg, max_new)
@@ -807,6 +912,7 @@ def run_paged_bench(
         "splice_programs_dispatched": splices,
         "arms": arms.log,
     })
+    _release_probe(probe_eng, status_hold_s)
     return {
         "metric": "serve_paged_slots_at_equal_hbm",
         "value": detail["capacity_peak_active_slots"],
@@ -825,6 +931,11 @@ def run_sampling_bench(
     prompt_lens=(16, 32, 48, 64),
     mean_interarrival_s: float = 0.001,
     seed: int = 0,
+    trace: bool = False,
+    trace_out: str | None = None,
+    trace_dump: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
     device=None,
 ) -> dict:
     """Sampled against greedy decode on the same Poisson trace: the same
@@ -843,8 +954,9 @@ def run_sampling_bench(
                                      decode_block, seed)
     warm = _warm_trace(requests)
     # the probe mirrors the headline (sampled-mix) arm
-    probe_fields = _obs_probe(model, warm, serve_cfg, max_new,
-                              params_for=sampling_params_mix, arms=arms)
+    probe_fields, probe_eng = _obs_probe(model, warm, serve_cfg, max_new,
+                                         params_for=sampling_params_mix,
+                                         arms=arms, status_port=status_port)
     _run_engine_arm(model, warm, serve_cfg, max_new)
     _run_engine_arm(model, warm, serve_cfg, max_new,
                     params_for=sampling_params_mix)
@@ -862,6 +974,13 @@ def run_sampling_bench(
             **_round_if_present(snap, "serve/ttft_s_mean", "mean_ttft_s", 4),
             **_round_if_present(snap, "serve/itl_s_p95", "itl_p95_s", 5),
         }
+    # the traced arm mirrors the headline (sampled-mix) arm
+    trace_fields = (_traced_arm_fields(model, requests, serve_cfg, max_new,
+                                       trace_out, trace_dump,
+                                       params_for=sampling_params_mix,
+                                       arms=arms)
+                    if trace else {})
+    _release_probe(probe_eng, status_hold_s)
     ratio = (arms_out["sampled"]["requests_per_sec"]
              / arms_out["greedy"]["requests_per_sec"])
     return {
@@ -884,6 +1003,7 @@ def run_sampling_bench(
                for arm, d in arms_out.items() for k, v in d.items()},
             **kv,
             **probe_fields,
+            **trace_fields,
             "arms": arms.log,
         },
     }
@@ -999,6 +1119,8 @@ def run_http_bench(
     mean_interarrival_s: float = 0.001,
     seed: int = 0,
     reps: int = 2,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
     device=None,
 ) -> dict:
     """The concurrent-SSE-connection soak: the Poisson trace ABBA-paired
@@ -1021,7 +1143,8 @@ def run_http_bench(
                                      decode_block, seed,
                                      api_max_connections=max(64, n_requests))
     warm = _warm_trace(requests)
-    probe_fields = _obs_probe(model, warm, serve_cfg, max_new, arms=arms)
+    probe_fields, probe_eng = _obs_probe(model, warm, serve_cfg, max_new,
+                                         arms=arms, status_port=status_port)
     _run_engine_arm(model, warm, serve_cfg, max_new)
 
     http_mk: list[float] = []
@@ -1072,6 +1195,7 @@ def run_http_bench(
     }
     if diff is not None:
         detail["stream_first_diff"] = diff
+    _release_probe(probe_eng, status_hold_s)
     return {
         "metric": "serve_http_stream_requests_per_sec",
         "value": round(http_rps, 2),
@@ -1079,6 +1203,119 @@ def run_http_bench(
         # ~1.0 = the front door is free
         "vs_baseline": round(http_rps / direct_rps, 3),
         "detail": detail,
+    }
+
+
+# the SLO workload's class cycle, one class a request in arrival order
+SLO_CLASS_CYCLE = ("interactive", "standard", "batch")
+
+
+def run_slo_bench(
+    config="llama3_shakespeare",
+    n_requests: int = 32,
+    n_slots: int = 8,
+    max_new: int = 64,
+    decode_block: int = 16,
+    prompt_lens=(16, 32, 48, 64),
+    mean_interarrival_s: float = 0.001,
+    seed: int = 0,
+    reps: int = 2,
+    slo_targets: dict | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --slo`: the Poisson trace ABBA-paired through (A)
+    an engine with `slo_targets` set and every request tagged with a
+    class cycling interactive / standard / batch, and (B) the plain
+    engine. Both decode greedily and run the same programs (SLO
+    accounting is host-side finish-path bookkeeping), so
+    `slo_overhead_pct` is the accounting's cost. The result records
+    per-class attainment, burn and `goodput_tokens_per_s` (tokens of
+    SLO-attained requests only) of the last SLO-on run."""
+    from solvingpapers_tpu_torch.serve.slo import DEFAULT_SLO_TARGETS
+
+    targets = slo_targets or DEFAULT_SLO_TARGETS
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    requests = synthetic_requests(
+        n_requests, vocab, prompt_lens=prompt_lens,
+        mean_interarrival_s=mean_interarrival_s, seed=seed,
+    )
+    base_cfg = poisson_serve_config(requests, n_slots, max_new, decode_block,
+                                    seed)
+    slo_cfg = dataclasses.replace(base_cfg, slo_targets=targets)
+
+    def params_for(i: int) -> SamplingParams:
+        # greedy everywhere: only the class tag differs between the arms
+        return SamplingParams(slo=SLO_CLASS_CYCLE[i % len(SLO_CLASS_CYCLE)])
+
+    warm = _warm_trace(requests)
+    probe_fields, probe_eng = _obs_probe(model, warm, slo_cfg, max_new,
+                                         params_for=params_for, arms=arms,
+                                         status_port=status_port)
+    _run_engine_arm(model, warm, base_cfg, max_new)
+    # ABBA with per-arm request params: the plain arm stays untagged (its
+    # engine refuses a class)
+    mk = {"slo": [], "plain": []}
+    snap = slo_doc = kv = None
+    for rep in range(reps):
+        order = ("slo", "plain") if rep % 2 == 0 else ("plain", "slo")
+        for arm in order:
+            on = arm == "slo"
+            eng, _, span = arms.run(f"{arm}[{rep}]", _run_engine_arm, model,
+                                    requests, slo_cfg if on else base_cfg,
+                                    max_new, params_for=params_for if on else None)
+            mk[arm].append(span)
+            if on:
+                snap = eng.metrics.snapshot()
+                slo_doc = eng.statusz()["slo"]
+                kv = _kv_entry_fields(eng)
+            del eng
+    slo_rps = n_requests / (sum(mk["slo"]) / len(mk["slo"]))
+    plain_rps = n_requests / (sum(mk["plain"]) / len(mk["plain"]))
+    per_class = {
+        cls: {"finished": d["finished"], "attainment": d["attainment"],
+              "burn_rate": d["burn_rate"], "violations": d["violations"]}
+        for cls, d in slo_doc["classes"].items()
+    }
+    tokens_per_s = snap.get("serve/tokens_per_sec", 0.0)
+    goodput_per_s = snap.get("serve/goodput_tokens_per_s", 0.0)
+    _release_probe(probe_eng, status_hold_s)
+    return {
+        "metric": "serve_slo_goodput_tokens_per_s",
+        "value": round(goodput_per_s, 2),
+        "unit": "tok/s from SLO-attained requests (last slo-on rep)",
+        # goodput / raw throughput: 1.0 = every token within its targets
+        "vs_baseline": (round(goodput_per_s / tokens_per_s, 3)
+                        if tokens_per_s else 0.0),
+        "detail": {
+            "config": _config_name(config),
+            "workload": "slo-observatory",
+            "n_requests": n_requests,
+            "n_slots": n_slots,
+            "max_new_tokens": max_new,
+            "decode_block": decode_block,
+            "prompt_lens": list(prompt_lens),
+            "mean_interarrival_s": mean_interarrival_s,
+            "reps": reps,
+            "class_cycle": list(SLO_CLASS_CYCLE),
+            "slo_targets": {cls: dict(spec) for cls, spec in targets.items()},
+            "slo_overhead_pct": round((1.0 - slo_rps / plain_rps) * 100.0, 2),
+            "slo_requests_per_sec": round(slo_rps, 2),
+            "plain_requests_per_sec": round(plain_rps, 2),
+            "goodput_tokens_per_s": round(goodput_per_s, 2),
+            "tokens_per_sec": round(tokens_per_s, 2),
+            "goodput_ratio": (round(goodput_per_s / tokens_per_s, 4)
+                              if tokens_per_s else 0.0),
+            "attainment_by_class": per_class,
+            "goodput_tokens": int(slo_doc["goodput_tokens"]),
+            **_round_if_present(snap, "serve/ttft_s_p95", "ttft_p95_s", 4),
+            **_round_if_present(snap, "serve/itl_s_p95", "itl_p95_s", 5),
+            **kv,
+            **probe_fields,
+            "arms": arms.log,
+        },
     }
 
 
@@ -1092,6 +1329,7 @@ __all__ = [
     "run_prefix_bench",
     "run_sampling_bench",
     "run_serve_bench",
+    "run_slo_bench",
     "sampling_params_mix",
     "shared_prefix_requests",
     "synthetic_requests",

@@ -73,14 +73,31 @@ the queue and at block boundaries ("timeout"). `stream_cb(req, n_new,
 finished)` fires on the engine's thread after every append and at
 finish.
 
+The durability and observability planes (see `ServeConfig`): the
+supervised step boundary with its finite-logits guard, quarantine, pool
+rebuild, unhealthy drain, watchdog, seeded fault injection and
+degradation ladder (serve/faults.py); the write-ahead journal with
+`recover()` (serve/journal.py); SLO accounting (serve/slo.py); the
+flight recorder and anomaly dumps (metrics/trace.py); the rolling time
+series (metrics/timeseries.py) and the status endpoint
+(metrics/http.py). The finite guard and the fault row ride the control
+and output copies the engine makes anyway: with the fault plane, the
+journal and tracing off, a decode block makes the same host-device
+copies as without the planes.
+
 Not in this slice (kept by the reference, listed in ROADMAP.md): the
-quantized pools, speculative decoding, the fault boundary, journal,
-replay, fleet, SLO accounting and tracing.
+quantized pools, speculative decoding, `replay_submit` and `adopt` (the
+replay harness and the fleet router, ROADMAP A4), and the compile
+observatory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import traceback
+import uuid
+import warnings
 import weakref
 
 import numpy as np
@@ -89,8 +106,18 @@ import torch
 from solvingpapers_tpu_torch.device import resolve_device
 from solvingpapers_tpu_torch.metrics.profile import ProfileWindow, scope
 from solvingpapers_tpu_torch.serve import metrics as smetrics
+from solvingpapers_tpu_torch.serve.faults import (
+    FAULT_INF,
+    FAULT_NAN,
+    DegradationLadder,
+    FaultPlan,
+    InjectedFault,
+    classify_failure,
+)
 from solvingpapers_tpu_torch.serve.grammar import encode_allow
+from solvingpapers_tpu_torch.serve.journal import Journal, JournalError
 from solvingpapers_tpu_torch.serve.kv_pool import (
+    TRASH_PAGE,
     KVSlotPool,
     PagedKVPool,
     extract_lane,
@@ -98,6 +125,8 @@ from solvingpapers_tpu_torch.serve.kv_pool import (
     gather_lanes,
     scatter_lane_pages,
     scatter_written_pages,
+    scrub_lane,
+    scrub_pages,
     store_lane,
 )
 from solvingpapers_tpu_torch.serve.metrics import ServeMetrics
@@ -113,10 +142,12 @@ from solvingpapers_tpu_torch.serve.sampling import (
 from solvingpapers_tpu_torch.serve.scheduler import (
     ACTIVE,
     FINISHED,
+    REJECTED,
     WAITING,
     FIFOScheduler,
     Request,
 )
+from solvingpapers_tpu_torch.serve.slo import SloTracker
 
 
 def weak_method(method, dead=None):
@@ -137,7 +168,7 @@ def weak_method(method, dead=None):
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine shape/policy knobs (the reference's, without its quantized,
-    speculative, fault, tracing and SLO knobs).
+    speculative and compile-observatory knobs).
 
     `decode_block` amortizes host work: each decode call advances all
     slots `block` tokens before the host looks at the streams again.
@@ -178,6 +209,75 @@ class ServeConfig:
     prefill and decode-block calls labelled ``serve/prefill`` and
     ``serve/decode_block``. `run()` and `close()` close a window still
     open; a caller that steps the engine itself calls `stop_profile()`.
+
+    Flight recorder (`trace`, metrics/trace.py): per-request lifecycle
+    spans (queue / prefill / decode, one track per slot, one flow per
+    request), per-step composition (prefills, decode slots, control
+    transfers, the programs' device-waited time), scheduler and
+    prefix-cache events, in a bounded ring of `trace_capacity` events.
+    Spans are stamped from the host clock readings the latency metrics
+    use, taken after each program's host read (which waits for the
+    device), so tracing adds no synchronisation. Export with
+    `engine.trace.export_chrome(path)`; `cli trace-summary` rebuilds the
+    timelines. `trace_dump_path` arms the anomaly dumper (timeout and
+    cancelled finishes, `trace_reject_burst` consecutive rejections, a
+    step over `trace_slow_step_factor` x the rolling median, quarantines,
+    engine faults, watchdog stalls), each dump holding the last
+    `trace_dump_events` events, a metrics snapshot and the time series.
+    Off, the engine holds None and each hook is one branch.
+
+    Time series (`timeseries`, metrics/timeseries.py, on by default): a
+    ring of `timeseries_capacity` windows of load gauges and per-window
+    counter deltas, sampled from `step()` every `timeseries_interval_s`
+    (no timer thread), served as /timeseriesz and as /statusz
+    sparklines. `status_port` (0 = ephemeral, published as
+    `engine.status.port`; None = no server) serves /healthz /metrics
+    /statusz /timeseriesz on `status_host` (metrics/http.py); `close()`
+    stops it.
+
+    SLO accounting (`slo_targets`, serve/slo.py; None = off, and then a
+    request that names a class is refused): {class: {"ttft_s" / "itl_s"
+    / "e2e_s": seconds, "objective": fraction}} — pass
+    `serve.slo.DEFAULT_SLO_TARGETS` for the interactive / standard /
+    batch tiers. Every finish is accounted under its request's
+    `SamplingParams.slo` ("standard" when untagged): attainment, burn
+    rate over the last `slo_burn_window` finishes, and goodput, as slo/*
+    and serve/goodput_tokens[_per_s] gauges and a /statusz section.
+
+    Fault boundary (serve/faults.py, always armed): `step()` quarantines
+    a slot whose logits went non-finite (its request finishes "error",
+    its lane or own pages and the trash page scrubbed to zero, every
+    other stream byte-identical) and answers a systemic failure (a CUDA
+    error, an out-of-memory error, anything escaping the step) with a
+    pool rebuild — the old pool's references dropped before the new one
+    is allocated — and a requeue, at most `fault_max_retries` times in a
+    row with a backoff from `fault_retry_backoff_s`; then the engine
+    drains every request "error" host-side and reports `unhealthy`
+    (/healthz 503) for `fault_recover_backoff_s` (doubling per episode).
+    `fault_step_deadline_s` arms a watchdog that counts steps over it.
+    `fault_plan` (a sequence of `FaultSpec`s or dicts; None = off) arms
+    the seeded injection plane at the reference's named sites.
+
+    Journal (`journal_path`, serve/journal.py; None = off): submit,
+    commit (once per decode block) and finish records, fsynced once per
+    step, compacted at `journal_rotate_bytes` / `journal_rotate_finished`;
+    an existing file is loaded and `recover()` resumes its unfinished
+    requests. A journal I/O failure degrades the engine to journal-off
+    with one warning, unless `journal_strict`.
+
+    Degradation ladder (`degrade`): under page exhaustion (free pages
+    below `degrade_free_page_frac` of the budget) or SLO burn (a class's
+    burn rate above `degrade_burn_threshold`) the engine climbs a rung
+    every `degrade_up_steps` pressured steps and steps down after
+    `degrade_down_steps` clear ones: shed prefix-cache leaves, (hold
+    speculation: a no-op until the port decodes speculatively), shed
+    batch admissions, then standard ones. The reference's third pressure
+    reason, `hbm` (the projected peak against `degrade_headroom_frac` of
+    the device), reads its XLA memory ledger, which exists only under
+    `xla_obs`; the port has no such ledger until ROADMAP A8, so its
+    ladder has no `hbm` reason, as the reference's has none with
+    `xla_obs=False`, and no `degrade_headroom_frac` until that reason
+    comes.
     """
 
     n_slots: int = 8
@@ -207,9 +307,69 @@ class ServeConfig:
     # torch.profiler window over engine steps [start, stop)
     profile_dir: str | None = None
     profile_steps: tuple[int, int] = (10, 15)
+    # SLO accounting (serve/slo.py)
+    slo_targets: dict | None = None
+    slo_burn_window: int = 256
+    # the fault boundary and the injection plane (serve/faults.py)
+    fault_plan: object | None = None
+    fault_max_retries: int = 2
+    fault_retry_backoff_s: float = 0.05
+    fault_recover_backoff_s: float = 0.25
+    fault_step_deadline_s: float | None = None
+    # the write-ahead journal (serve/journal.py)
+    journal_path: str | None = None
+    journal_strict: bool = False
+    journal_rotate_bytes: int = 4 << 20
+    journal_rotate_finished: int = 256
+    # the degradation ladder (serve/faults.py)
+    degrade: bool = False
+    degrade_up_steps: int = 2
+    degrade_down_steps: int = 16
+    degrade_free_page_frac: float = 0.125
+    degrade_burn_threshold: float = 1.5
+    # the flight recorder (metrics/trace.py)
+    trace: bool = False
+    trace_capacity: int = 65536
+    trace_dump_path: str | None = None
+    trace_dump_events: int = 256
+    trace_slow_step_factor: float = 10.0
+    trace_reject_burst: int = 8
+    # the rolling time series (metrics/timeseries.py)
+    timeseries: bool = True
+    timeseries_capacity: int = 120
+    timeseries_interval_s: float = 1.0
+    # the status endpoint (metrics/http.py)
+    status_port: int | None = None
+    status_host: str = "127.0.0.1"
 
 
 _UNSET = object()
+
+
+def _inject_fault(logits, fault):
+    """The fault plane's logits poison: `fault` is the int code riding
+    the packed control transfer (0 clean, FAULT_NAN / FAULT_INF poison
+    the slot's whole logits row), shaped like `logits` less its vocab
+    axis. The engine passes a fault only while a plan is armed, so with
+    the plane off there is no row and no op."""
+    mask = (fault > 0)[..., None]
+    bad = torch.where(fault == FAULT_NAN, float("nan"), float("inf"))
+    return torch.where(mask, bad[..., None].to(logits.dtype), logits)
+
+
+def _finite_ok(logits):
+    """Per-slot finite-logits guard: (the rows' flags, the logits with a
+    non-finite row replaced by zeros). A flag is True iff every logit the
+    sampler would draw from is finite: one reduction beside the program's
+    outputs, read back in the copy the engine makes anyway (the prefill's
+    first token, the decode block's tokens), never a transfer of its own.
+    A poisoned row is sampled from zeros (its tokens are discarded by the
+    quarantine): on NaN the sampler's top-p cutoff would index out of
+    range, which on a card is a device-side assert that leaves the CUDA
+    context unusable for every stream. Finite rows pass through
+    unchanged."""
+    ok = torch.isfinite(logits).all(dim=-1)
+    return ok, torch.where(ok[..., None], logits, 0.0)
 
 
 def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
@@ -230,28 +390,44 @@ def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
 
 
 def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
-                     length, packed, generator, allow=None, need_lp=False):
+                     length, packed, generator, allow=None, need_lp=False,
+                     fault=None):
     """Prefill one request into lane `slot` and sample its first token
-    (sample index 0 of its chain); returns the caches, the token and its
+    (sample index 0 of its chain); returns the caches, the (2,) head
+    [token, finite flag] (one host read gives both) and the token's
     logprob (None without `need_lp`).
 
     `start` is the prefix-cache match length: `prompt` is the UNCOVERED
     SUFFIX ((padded,) ids), lane positions [0, start) already hold the
     spliced prefix, and positions and `attend_len` shift by `start` (0
     is a full prefill). `allow` is the request's (1, cap) grammar
-    allow-list for the first token, or None."""
+    allow-list for the first token, or None. `fault` is the fault plane's
+    0-d poison code on the device, or None with the plane off."""
     lane = extract_lane(caches, slot)
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
+    head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
+                             fault)
+    caches = store_lane(caches, lane, slot)
+    return caches, head, lp
+
+
+def _sample_first(last, cap, packed, generator, allow, need_lp, fault):
+    """The prefill's first draw from the last real token's logits, with
+    the fault poison applied first and the finite guard read beside the
+    token: ((2,) [token, ok], logprob or None)."""
+    if fault is not None:
+        last = _inject_fault(last, fault)
+    ok, last = _finite_ok(last)
     first, lp = fused_sample(last[None], packed, [generator], cap=cap,
                              allow=allow, need_lp=need_lp)
-    caches = store_lane(caches, lane, slot)
-    return caches, first[0], None if lp is None else lp[0]
+    return (torch.stack([first[0], ok.to(first.dtype)]),
+            None if lp is None else lp[0])
 
 
 def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
                            row, length, packed, generator, allow=None,
-                           need_lp=False):
+                           need_lp=False, fault=None):
     """Paged-pool prefill: `_prefill_program`'s contract over a lane
     GATHERED from the slot's page-table `row`, with only the pages the
     prefill may have written going back. On a prefix hit pages [0,
@@ -261,11 +437,11 @@ def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
     lane = gather_lane(phys, row)
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
-    first, lp = fused_sample(last[None], packed, [generator], cap=cap,
-                             allow=allow, need_lp=need_lp)
+    head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
+                             fault)
     page = phys[0].max_len
     phys = scatter_lane_pages(phys, lane, row, start // page)
-    return phys, first[0], None if lp is None else lp[0]
+    return phys, head, lp
 
 
 def pooled_decode_kwargs(model) -> dict:
@@ -275,7 +451,7 @@ def pooled_decode_kwargs(model) -> dict:
 
 
 def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
-                    generators, allow=None, need_lp=False):
+                    generators, allow=None, need_lp=False, fault=None):
     """Advance every slot `block` tokens; inactive slots run masked.
 
     toks/pos/eos are (S,) int64 and active (S,) bool device tensors;
@@ -284,15 +460,26 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
     unconstrained; None = no constrained slot), the same at every step
     (a constrained slot keeps only the block's first token). EOS padding
     is sticky: a slot whose previous token was its EOS emits EOS again,
-    as `generate` pads. Returns the caches, the (block, S) emitted tokens
-    and, with `need_lp`, their (block, S) logprobs (else None).
+    as `generate` pads. `fault` is the fault plane's (S,) poison row, or
+    None with the plane off.
+
+    Returns the caches, a (block + 1, S) int64 tensor — the emitted
+    tokens, then each slot's finite-logits flag over the whole block (the
+    guard rides the token copy the host makes anyway) — and, with
+    `need_lp`, the tokens' (block, S) logprobs (else None).
     """
     out, lps = [], []
+    ok = torch.ones_like(active)
     kw = pooled_decode_kwargs(model)
     for t in range(block):
         logits, caches = model(toks[:, None], positions=pos[:, None],
                                caches=caches, **kw)
-        nxt, lp = fused_sample(logits[:, 0], packed, generators(t), cap=cap,
+        logits = logits[:, 0]
+        if fault is not None:
+            logits = _inject_fault(logits, fault)
+        step_ok, logits = _finite_ok(logits)
+        ok = ok & step_ok
+        nxt, lp = fused_sample(logits, packed, generators(t), cap=cap,
                                allow=allow, need_lp=need_lp)
         hit_eos = (eos >= 0) & (toks == eos)
         nxt = torch.where(hit_eos, eos, nxt)
@@ -301,11 +488,13 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
         out.append(nxt)
         lps.append(lp)
         toks = nxt
+    out.append(ok.to(toks.dtype))
     return caches, torch.stack(out), torch.stack(lps) if need_lp else None
 
 
 def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
-                          eos, packed, generators, allow=None, need_lp=False):
+                          eos, packed, generators, allow=None, need_lp=False,
+                          fault=None):
     """Paged-pool decode block: `_decode_program` over the lanes gathered
     once from the (S, pages_per_lane) page `table`, then only each slot's
     write window goes back. The block writes positions [pos, pos +
@@ -319,7 +508,7 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
     lanes = gather_lanes(phys, table)
     lanes, out, lps = _decode_program(model, block, cap, lanes, toks, pos,
                                       active, eos, packed, generators, allow,
-                                      need_lp)
+                                      need_lp, fault)
     page = phys[0].max_len
     limit = table.shape[1] * page - 1
     for w in range((block - 1) // page + 2):
@@ -373,6 +562,45 @@ class ServeEngine:
         self.config = cfg
         self.detokenize = detokenize
         self.metrics = ServeMetrics()
+        # flight recorder and anomaly monitor: None when tracing is off, so
+        # every hook below is one `is not None` branch. The recorder shares
+        # the latency metrics' clock, so trace-summary's phase sums equal
+        # the measured latencies.
+        self.trace = None
+        self._mon = None
+        # the rolling retrospective, created before the monitor so every
+        # dump can carry it (lazy imports: metrics.timeseries reads this
+        # package's clock)
+        self.timeseries = None
+        if cfg.timeseries:
+            from solvingpapers_tpu_torch.metrics.timeseries import TimeSeriesStore
+
+            self.timeseries = TimeSeriesStore(
+                capacity=cfg.timeseries_capacity,
+                interval_s=cfg.timeseries_interval_s, clock=smetrics.now)
+        if cfg.trace:
+            from solvingpapers_tpu_torch.metrics.trace import (
+                AnomalyMonitor,
+                FlightRecorder,
+            )
+
+            self.trace = FlightRecorder(capacity=cfg.trace_capacity,
+                                        clock=smetrics.now)
+            if cfg.trace_dump_path:
+                self._mon = AnomalyMonitor(
+                    self.trace, cfg.trace_dump_path,
+                    snapshot_fn=self.metrics.snapshot,
+                    last_n=cfg.trace_dump_events,
+                    slow_step_factor=cfg.trace_slow_step_factor,
+                    reject_burst=cfg.trace_reject_burst,
+                    timeseries_fn=(self.timeseries.doc
+                                   if self.timeseries is not None else None))
+        elif cfg.trace_dump_path:
+            raise ValueError(
+                "trace_dump_path dumps the flight recorder's last events on "
+                "anomalies, which needs trace=True: without the ring a dump "
+                "would hold nothing"
+            )
         self._paged = cfg.paged
         if cfg.paged:
             page = cfg.page_size or cfg.prefix_page
@@ -384,22 +612,78 @@ class ServeEngine:
                     "one granularity (set them equal, or leave page_size "
                     "None to inherit prefix_page)"
                 )
-            self.pool = PagedKVPool(model, cfg.n_slots, cfg.max_len, page,
-                                    page_budget=cfg.page_budget)
             self.metrics.add_gauge_provider(weak_method(self._page_gauges, {}))
-        else:
-            if cfg.page_size is not None or cfg.page_budget is not None:
-                raise ValueError(
-                    "page_size/page_budget configure the paged pool and need "
-                    "paged=True: on the lane pool they would silently do "
-                    "nothing"
-                )
-            self.pool = KVSlotPool(model, cfg.n_slots, cfg.max_len)
-        self.prefix_cache = (
-            PrefixCache(page=cfg.prefix_page, max_bytes=cfg.prefix_cache_bytes,
-                        pool=self.pool if cfg.paged else None)
-            if cfg.prefix_cache else None
-        )
+        elif cfg.page_size is not None or cfg.page_budget is not None:
+            raise ValueError(
+                "page_size/page_budget configure the paged pool and need "
+                "paged=True: on the lane pool they would silently do "
+                "nothing"
+            )
+        self.pool = self._make_pool()
+        self.prefix_cache = self._make_prefix_cache()
+        # SLO accounting: host-side, on the finish path; its gauges ride
+        # the snapshot iff slo_targets is configured
+        self._slo = None
+        if cfg.slo_targets is not None:
+            self._slo = SloTracker(cfg.slo_targets,
+                                   burn_window=cfg.slo_burn_window)
+            self.metrics.add_gauge_provider(weak_method(self._slo_gauges, {}))
+        # the fault boundary is always armed (a real NaN forward or device
+        # error needs no opt-in); the injection plane and the ladder
+        # follow the None pattern
+        if cfg.fault_max_retries < 0:
+            raise ValueError(
+                f"fault_max_retries must be >= 0, got {cfg.fault_max_retries}")
+        if (cfg.fault_step_deadline_s is not None
+                and not cfg.fault_step_deadline_s > 0):
+            raise ValueError(
+                "fault_step_deadline_s must be > 0 (or None to disarm the "
+                f"watchdog), got {cfg.fault_step_deadline_s}")
+        self._faults = FaultPlan.from_config(cfg.fault_plan)
+        # per-slot logits-poison row: the last row of the decode block's
+        # control transfer while a plan is armed, written by the decode
+        # site's pokes and cleared after the dispatch it rides
+        self._fault_row = np.zeros(cfg.n_slots, np.int64)
+        self._health = "healthy"
+        self._consec_failures = 0
+        self._failed_since: float | None = None
+        self._last_error: str | None = None
+        self._recover_at = 0.0
+        self._backoff = cfg.fault_recover_backoff_s
+        # the pool's device memory is gone (a rebuild failed: a sticky
+        # CUDA error, or the allocation itself): no device work until a
+        # rebuild succeeds
+        self._pool_lost = False
+        self._ladder = None
+        if cfg.degrade:
+            if not 0.0 < cfg.degrade_free_page_frac < 1.0:
+                raise ValueError("degrade_free_page_frac must be in (0, 1), "
+                                 f"got {cfg.degrade_free_page_frac}")
+            if not cfg.degrade_burn_threshold > 0:
+                raise ValueError("degrade_burn_threshold must be > 0, got "
+                                 f"{cfg.degrade_burn_threshold}")
+            self._ladder = DegradationLadder(up_steps=cfg.degrade_up_steps,
+                                             down_steps=cfg.degrade_down_steps)
+            self.metrics.add_gauge_provider(weak_method(self._ladder_gauges, {}))
+        # the write-ahead journal: None-pattern off; opening an existing
+        # path loads it, and `recover()` replays it
+        if cfg.journal_strict and cfg.journal_path is None:
+            raise ValueError(
+                "journal_strict escalates journal I/O failures, which needs "
+                "journal_path set: without a journal the knob would silently "
+                "do nothing"
+            )
+        self.journal = None
+        self._journal_degraded = False
+        self._recovered_total = 0
+        # trace_id -> recovered Request: the front door's Last-Event-ID
+        # surface after a restart (rebuilt by each recover())
+        self._recovered: dict[str, Request] = {}
+        if cfg.journal_path is not None:
+            self.journal = Journal(
+                cfg.journal_path, rotate_bytes=cfg.journal_rotate_bytes,
+                rotate_finished=cfg.journal_rotate_finished)
+            self.metrics.add_gauge_provider(weak_method(self._journal_gauges, {}))
         self.scheduler = FIFOScheduler(
             max_waiting=cfg.max_waiting,
             decode_priority=cfg.decode_priority,
@@ -407,9 +691,10 @@ class ServeEngine:
             max_wait_steps=cfg.max_wait_steps,
             prefer_cached=cfg.prefix_sched,
             prefix_lookup=(weak_method(self._match_len, 0)
-                           if self.prefix_cache else None),
+                           if cfg.prefix_cache else None),
             can_admit=(weak_method(self._can_admit, False)
                        if cfg.paged else None),
+            trace=self.trace,
         )
         self._slot_req: list[Request | None] = [None] * cfg.n_slots
         # host-side numpy mirrors of per-slot decode state, shipped to the
@@ -435,13 +720,30 @@ class ServeEngine:
         self._waiting_deadlines = 0
         self.profile = (None if cfg.profile_dir is None else ProfileWindow(
             cfg.profile_dir, cfg.profile_steps, self.device, "serve"))
+        # device-waited program seconds of the current step (tracing only)
+        self._dev_s = 0.0
+        # the status endpoint LAST: its handler threads read engine state,
+        # which must all exist before a probe can arrive. Its providers
+        # hold the engine weakly, like the gauge providers; `close()`
+        # stops the server.
+        self.status = None
+        if cfg.status_port is not None:
+            from solvingpapers_tpu_torch.metrics.http import StatusServer
+
+            self.status = StatusServer(
+                weak_method(self.statusz, {}),
+                weak_method(self._prom_metrics, (0, {})),
+                host=cfg.status_host, port=cfg.status_port,
+                health_fn=weak_method(self._health_state, "unhealthy"),
+                timeseries_fn=(self.timeseries.doc
+                               if self.timeseries is not None else None))
 
     # ------------------------------------------------------------- submit
 
     def submit(self, prompt, max_new_tokens: int = 64, eos_id=_UNSET,
                params: SamplingParams | None = None,
                deadline_s: float | None = None, grammar=None,
-               stream_cb=None) -> Request:
+               stream_cb=None, trace_id: str | None = None) -> Request:
         """Enqueue one request; returns its live handle immediately.
 
         `params` attaches per-request SamplingParams (default greedy;
@@ -463,8 +765,17 @@ class ServeEngine:
         `sample_cap`, prompt + budget beyond the engine capacity,
         non-positive deadlines, stop strings without a `detokenize`
         callable, a grammar alongside an explicit eos_id, and a budget
-        too small for the grammar's shortest complete document. A full
-        waiting queue returns the request ``rejected``.
+        too small for the grammar's shortest complete document, and an
+        SLO class (`params.slo`) the engine does not track. A full
+        waiting queue, an unhealthy (draining) engine, or a degradation
+        rung that sheds the request's SLO class returns the request
+        ``rejected`` (`reject_reason` None, "unhealthy" or
+        "shed:<class>").
+
+        `trace_id` is the request's durable identity (the HTTP front door
+        passes its X-Request-Id): it keys the journal record and the
+        Last-Event-ID resume surface. With the journal on and no id (or
+        the id of a still-live journal entry), one is minted.
         """
         arr = np.asarray(prompt)
         if arr.size < 1:
@@ -500,6 +811,18 @@ class ServeEngine:
                 f"top_k {params.top_k} exceeds ServeConfig.sample_cap "
                 f"{self.config.sample_cap}"
             )
+        if params.slo is not None:
+            if self._slo is None:
+                raise ValueError(
+                    "params.slo tags the request's SLO class, which needs "
+                    "ServeConfig.slo_targets configured: without the tracker "
+                    "the tag would silently account to nothing"
+                )
+            if params.slo not in self._slo.targets:
+                raise ValueError(
+                    f"unknown SLO class {params.slo!r}: ServeConfig."
+                    f"slo_targets defines {sorted(self._slo.targets)}"
+                )
         total = prompt.size + max_new_tokens
         limit = getattr(self.model, "max_positions", None)
         cap = min(self.config.max_len, limit or self.config.max_len)
@@ -532,12 +855,54 @@ class ServeEngine:
             grammar=grammar,
             stream_cb=stream_cb,
         )
+        req.trace_id = trace_id
         if deadline_s is not None:
             req.deadline = req.submit_time + deadline_s
+        tr = self.trace
+        # an unhealthy engine is draining and books no work; past its
+        # backoff the next submission re-arms it
+        if self._health == "unhealthy" and not (
+                smetrics.now() >= self._recover_at and self._recover()):
+            req.state = REJECTED
+            req.reject_reason = "unhealthy"
+            self.metrics.record_reject()
+            if tr is not None:
+                tr.instant("reject", "request", "queue", req=req.id,
+                           ts=req.submit_time, reason="unhealthy")
+            return req
+        # the degradation ladder sheds admissions by SLO class (batch
+        # first); the front door answers 503 with a jittered Retry-After
+        if self._ladder is not None:
+            cls = req.params.slo or "standard"
+            if cls in self._ladder.shed_classes():
+                req.state = REJECTED
+                req.reject_reason = f"shed:{cls}"
+                self.metrics.record_reject()
+                self.metrics.record_shed(cls)
+                if tr is not None:
+                    tr.instant("shed", "engine", "queue", req=req.id,
+                               ts=req.submit_time, slo=cls,
+                               rung=self._ladder.rung)
+                return req
         if not self.scheduler.submit(req):
             self.metrics.record_reject()
-        elif req.deadline is not None:
+            if tr is not None:
+                tr.instant("reject", "request", "queue", req=req.id,
+                           ts=req.submit_time, prompt_len=prompt.size)
+                if self._mon is not None:
+                    self._mon.observe_reject()
+            return req
+        if req.deadline is not None:
             self._waiting_deadlines += 1
+        # journaled AFTER acceptance: the write-ahead contract is that
+        # accepted work survives
+        self._journal_submit(req)
+        if tr is not None:
+            rid = {} if req.trace_id is None else {"rid": req.trace_id}
+            tr.instant("submit", "request", "queue", req=req.id,
+                       ts=req.submit_time, prompt_len=prompt.size, **rid)
+            if self._mon is not None:
+                self._mon.observe_accept()
         return req
 
     def cancel(self, req: Request) -> None:
@@ -555,7 +920,8 @@ class ServeEngine:
 
     def force_drain(self, reason: str = "cancelled") -> list[Request]:
         """Finish every in-flight and queued request host-side, with no
-        device work (so it cannot hang): the bounded shutdown's backstop.
+        device work (so it cannot hang on a wedged device): the bounded
+        shutdown's backstop and the unhealthy drain (`reason="error"`).
         Slots and pages return through the ordinary finish paths."""
         now = smetrics.now()
         finished: list[Request] = []
@@ -570,13 +936,24 @@ class ServeEngine:
         self._waiting_deadlines = 0
         return finished
 
-    def close(self) -> None:
-        """Shutdown's last step: `force_drain` whatever is still in flight
-        (the front door's `EngineLoop.close` drains gracefully first) and
-        close the profiler window. Idempotent; the engine stays usable."""
+    def close(self, drain_s: float = 0.0) -> None:
+        """Bounded shutdown: step for up to `drain_s` seconds of graceful
+        drain, then `force_drain` whatever is still in flight (the front
+        door's `EngineLoop.close` drains first), make the journal's last
+        records durable, close the profiler window and stop the status
+        endpoint. Idempotent; the engine stays usable."""
+        deadline = smetrics.now() + drain_s
+        while (self.has_work() and self._health != "unhealthy"
+               and smetrics.now() < deadline):
+            self.step()
         if self.has_work():
             self.force_drain("cancelled")
+        if self.journal is not None and self.journal.dirty:
+            self._journal_op(self.journal.sync)
         self.stop_profile()
+        if self.status is not None:
+            self.status.close()
+            self.status = None
 
     def stop_profile(self) -> None:
         """Close a still-open profiler window and write its trace
@@ -588,13 +965,15 @@ class ServeEngine:
     def statusz(self) -> dict:
         """The /statusz document from host-side mirrors only: the engine's
         shape and queue, every slot's request and position, the metrics
-        snapshot, and (present iff enabled) the page pool and the prefix
-        cache."""
+        snapshot, the health state machine, and (present iff enabled) the
+        journal, the page pool, the SLO classes, the prefix cache and the
+        time series' sparklines."""
+        pool = self.pool
         d = {
             "engine": {
                 "n_slots": self.config.n_slots,
-                "n_free": self.pool.n_free,
-                "occupancy": self.pool.occupancy,
+                "n_free": pool.n_free,
+                "occupancy": pool.occupancy,
                 "queue_depth": len(self.scheduler),
                 "step": self._step_idx,
                 "max_len": self.config.max_len,
@@ -602,26 +981,61 @@ class ServeEngine:
             },
             "slots": [
                 {"slot": i, "req": None if r is None else r.id,
-                 "position": int(self.pool.positions[i])}
+                 "position": int(pool.positions[i])}
                 for i, r in enumerate(self._slot_req)
             ],
             "metrics": self.metrics.snapshot(),
         }
+        m = self.metrics
+        d["health"] = {
+            "state": self.health,
+            "consecutive_failures": self._consec_failures,
+            "last_error": self._last_error,
+            "quarantines": m.quarantines,
+            "retries": m.engine_retries,
+            "unhealthy_episodes": m.engine_unhealthy,
+            "watchdog_stalls": m.watchdog_stalls,
+        }
+        if self._faults is not None:
+            d["health"]["fault_plan"] = self._faults.stats()
+        if self._ladder is not None:
+            d["health"]["ladder"] = self._ladder.stats()
+        if self.journal is not None:
+            d["journal"] = {
+                **self.journal.stats(),
+                "strict": self.config.journal_strict,
+                "degraded": self._journal_degraded,
+                "recovered_requests": self._recovered_total,
+            }
         if self._paged:
             d["kv_pages"] = {
-                "page_size": self.pool.page_size,
-                "page_budget": self.pool.page_budget,
-                "pages_free": self.pool.pages_free,
-                "pages_active": self.pool.pages_active,
-                "fragmentation": self.pool.fragmentation,
-                "per_slot_pages": self.pool.n_alloc.tolist(),
+                "page_size": pool.page_size,
+                "page_budget": pool.page_budget,
+                "pages_free": pool.pages_free,
+                "pages_active": pool.pages_active,
+                "fragmentation": pool.fragmentation,
+                "per_slot_pages": pool.n_alloc.tolist(),
             }
+        if self._slo is not None:
+            d["slo"] = self._slo.statusz()
         if self.prefix_cache is not None:
             d["prefix_cache"] = {
                 "bytes_held": self.prefix_cache.bytes_held,
                 "evictions": self.prefix_cache.evictions,
             }
+        if self.timeseries is not None and len(self.timeseries):
+            # the human rendering of the retrospective (right edge = now);
+            # the raw rows are /timeseriesz
+            d["timeseries"] = {
+                "interval_s": self.timeseries.interval_s,
+                "windows": len(self.timeseries),
+                "sparklines": self.timeseries.sparklines(),
+            }
         return d
+
+    def _prom_metrics(self) -> tuple[int, dict]:
+        """(step, metric set) of the status endpoint's /metrics."""
+        return self._step_idx, self.metrics.prom_snapshot()
 
     # --------------------------------------------------------------- step
 
@@ -631,12 +1045,86 @@ class ServeEngine:
     @torch.no_grad()
     def step(self) -> list[Request]:
         """One engine iteration: admit + prefill, then one decode block.
-        Returns the requests that FINISHED this iteration."""
-        return self._step_inner()
+        Returns the requests that FINISHED this iteration.
+
+        Supervised (the fault boundary): an exception escaping the
+        iteration — a CUDA error, an out-of-memory error, an injected
+        fault — is classified (`serve.faults.classify_failure`) and
+        answered with a pool rebuild and a requeue (active streams resume
+        by recompute, token-exactly: the preemption argument); after
+        `fault_max_retries` consecutive failures the engine drains to
+        `unhealthy` (every request finishes "error", /healthz answers
+        503) and re-arms after a backoff. Non-finite logits never raise:
+        the guard pins them to a slot, which `_quarantine` contains. The
+        watchdog counts steps over `fault_step_deadline_s`; the ladder,
+        when armed, re-evaluates its signals after every step; the time
+        series samples when its interval has passed.
+        """
+        if self._health == "unhealthy":
+            now = smetrics.now()
+            if now < self._recover_at or not self._recover():
+                # draining: no device work until the backoff elapses (a
+                # tight external drive loop must not busy-spin)
+                time.sleep(max(0.0, min(0.005, self._recover_at - now)))
+                self._step_idx += 1
+                self._timeseries_tick()
+                return []
+        t0 = smetrics.now()
+        try:
+            if self._pool_lost:
+                raise RuntimeError("the KV pool's device memory was lost in "
+                                   "a failed rebuild")
+            finished = self._step_inner()
+        except Exception as exc:  # noqa: BLE001 — the fault boundary
+            # no watchdog check here: the boundary's own rebuild and
+            # backoff are not a wedged step, and the failure is counted
+            finished = self._systemic_failure(exc)
+        else:
+            ddl = self.config.fault_step_deadline_s
+            if ddl is not None:
+                dur = smetrics.now() - t0
+                if dur > ddl:
+                    self._watchdog_fire(dur)
+            if self._failed_since is not None:
+                self._note_recovery()  # the first clean step of an episode
+        if self._ladder is not None:
+            self._ladder_step()
+        self._timeseries_tick()
+        return finished
+
+    def _timeseries_tick(self) -> None:
+        """Sample one window of load gauges and per-window counter deltas
+        once `timeseries_interval_s` has passed. It rides `step()` (no
+        timer thread), so an idle engine stops producing windows: the gap
+        in the ring is the record of the idle stretch."""
+        ts = self.timeseries
+        if ts is None or not ts.due():
+            return
+        snap = self.metrics.snapshot()
+        pool = self.pool
+        gauges = {
+            "occupancy": round(pool.occupancy, 4),
+            "queue_depth": float(len(self.scheduler)),
+            "n_free": float(pool.n_free),
+        }
+        if self._paged:
+            gauges["pages_free"] = float(pool.pages_free)
+        cumulative = {k: float(snap[k]) for k in (
+            "serve/tokens_out", "serve/tokens_prefilled",
+            "serve/requests_finished", "serve/requests_rejected",
+            "serve/steps") if k in snap}
+        # count and sum increments a window: a windowed mean latency
+        # without percentiles
+        for name, h in self.metrics._latencies():
+            cumulative[f"serve/{name}_count"] = float(len(h))
+            cumulative[f"serve/{name}_sum"] = float(h.sum)
+        ts.sample(gauges, cumulative)
 
     def _step_inner(self) -> list[Request]:
         if self.profile is not None and not self.profile.done:
             self.profile.tick(self._step_idx)
+        tr = self.trace
+        t_step = smetrics.now() if tr is not None else 0.0
         finished: list[Request] = []
         now = smetrics.now()
         if self._waiting_deadlines > 0:
@@ -660,14 +1148,44 @@ class ServeEngine:
         except BaseException:
             # `pick` already popped this batch: put the not-yet-admitted
             # tail back at the head, in order, before the error propagates
-            # (the tail never reached its deadline decrement above)
+            # (the tail never reached its deadline decrement above; the
+            # request being admitted is in `_slot_req`, where the fault
+            # boundary's rebuild finds it)
             for r in reversed(picked[at + 1:]):
                 self.scheduler.requeue_front(r)
             raise
-        if self.pool.n_active > 0:
+        n_admitted = len(picked)
+        decode_slots = self.pool.n_active
+        if decode_slots > 0:
             finished.extend(self._decode_block())
         self.scheduler.tick()
         self.metrics.record_step(self.pool.occupancy)
+        # only steps that did work are traced and monitored: idle polls
+        # would spam the ring and collapse the monitor's rolling median
+        if tr is not None and (n_admitted or decode_slots or finished):
+            now = smetrics.now()
+            dur = now - t_step
+            tr.complete(
+                "step", "engine", "engine", ts=t_step, dur=dur,
+                prefills=n_admitted, decode_slots=decode_slots,
+                # host->device control transfers: the ids + the sampling
+                # floats + top_k of each prefill, the packed state + the
+                # sampling floats + top_k of a decode block
+                transfers=3 * n_admitted + (3 if decode_slots else 0),
+                device_s=round(self._dev_s, 6),
+            )
+            tr.counter("queue_depth", "engine", "engine", ts=now,
+                       depth=len(self.scheduler))
+            tr.counter("active_slots", "engine", "engine", ts=now,
+                       active=self.pool.n_active)
+            self._dev_s = 0.0
+            if self._mon is not None and (n_admitted or decode_slots):
+                self._mon.observe_step(dur)
+        # the journal's batched durability point: ONE fsync a step over
+        # every record the step appended (gated on dirty, so idle polls
+        # never poke the fault plane's journal site)
+        if self.journal is not None and self.journal.dirty:
+            self._journal_op(self.journal.sync)
         self._step_idx += 1
         return finished
 
@@ -680,6 +1198,492 @@ class ServeEngine:
             if max_steps is not None and steps >= max_steps:
                 return
         self.stop_profile()
+
+    # ------------------------------------------------- fault boundary
+
+    @property
+    def health(self) -> str:
+        """The /healthz state machine: "healthy", "degraded" (a ladder
+        rung > 0: still serving, a load balancer keeps it) or
+        "unhealthy" (draining after persistent failures; /healthz answers
+        503). It reports readiness: once the recovery backoff elapses the
+        engine is ready again (the next submission or step re-arms it),
+        so /healthz returns to 200 then."""
+        if self._health == "unhealthy" and smetrics.now() < self._recover_at:
+            return "unhealthy"
+        if self._ladder is not None and self._ladder.rung > 0:
+            return "degraded"
+        return "healthy"
+
+    def _health_state(self) -> str:
+        return self.health
+
+    @property
+    def degradation_rung(self) -> int:
+        """The ladder's rung (0 = normal, and 0 with the ladder off)."""
+        return self._ladder.rung if self._ladder is not None else 0
+
+    def _poke_site(self, site: str) -> int:
+        """The fault plane's hook at a named site (one branch when it is
+        off): ``stall`` sleeps here, ``xla_error`` / ``oom`` / ``io_error``
+        raise an `InjectedFault` the boundary classifies like the real
+        thing, and logits poison is returned as the prefill's code or
+        written to the decode block's fault row."""
+        if self._faults is None:
+            return 0
+        code = 0
+        for spec in self._faults.poke(site):
+            self.metrics.record_fault_injected()
+            if self.trace is not None:
+                self.trace.instant("fault_injected", "engine", "engine",
+                                   site=site, kind=spec.kind, slot=spec.slot)
+            if spec.kind == "stall":
+                time.sleep(spec.stall_s)
+            elif spec.kind in ("xla_error", "oom", "io_error"):
+                raise InjectedFault(spec.kind, site)
+            elif spec.kind in ("nan", "inf"):
+                k = FAULT_NAN if spec.kind == "nan" else FAULT_INF
+                if site == "prefill":
+                    code = k
+                else:
+                    self._fault_row[spec.slot % self.config.n_slots] = k
+            # socket_reset belongs to the front door's sse_write site
+        return code
+
+    def _systemic_failure(self, exc: Exception) -> list[Request]:
+        """A step escaped with `exc`: rebuild the pool and requeue (the
+        step's device outcome is unknown), at most `fault_max_retries`
+        times in a row, then drain to `unhealthy`. A rebuild that raises
+        (a sticky CUDA error leaves the context unusable) counts as one
+        more failure, so the loop ends within the retry budget."""
+        # the traceback's frames hold the failed program's tensors (a
+        # gathered lane view is a pool's worth): free them before the
+        # rebuild allocates
+        traceback.clear_frames(exc.__traceback__)
+        while True:
+            kind = classify_failure(exc)
+            err = f"{type(exc).__name__}: {exc}"
+            exc = None
+            now = smetrics.now()
+            self._consec_failures += 1
+            self._last_error = err
+            if self._failed_since is None:
+                self._failed_since = now
+            if self._consec_failures <= self.config.fault_max_retries:
+                # counted when a retry is granted; the failure that
+                # exhausts the budget is the unhealthy transition below
+                self.metrics.record_engine_retry()
+            if self.trace is not None:
+                self.trace.instant("engine_fault", "engine", "engine", ts=now,
+                                   kind=kind, error=err[:200],
+                                   failures=self._consec_failures)
+                if self._mon is not None:
+                    self._mon.dump("engine_fault", failure_kind=kind,
+                                   error=err[:500],
+                                   consecutive=self._consec_failures)
+            if self._consec_failures > self.config.fault_max_retries:
+                return self._go_unhealthy(err)
+            try:
+                self._rebuild_pool(requeue=True)
+            except Exception as again:  # noqa: BLE001 — counted above
+                traceback.clear_frames(again.__traceback__)
+                exc = again
+            time.sleep(min(self.config.fault_retry_backoff_s
+                           * 2 ** (self._consec_failures - 1), 2.0))
+            if exc is None:
+                return []
+
+    def _go_unhealthy(self, err: str) -> list[Request]:
+        """Retries exhausted: every in-flight and queued request finishes
+        "error" host-side (each client gets its terminal event; slots and
+        pages reclaim leak-free), the pool is rebuilt so recovery starts
+        from fresh buffers (a failed rebuild is retried at recovery), and
+        /healthz reports 503 until the backoff elapses."""
+        self._health = "unhealthy"
+        now = smetrics.now()
+        self._recover_at = now + self._backoff
+        # doubles across consecutive unhealthy episodes; a clean step
+        # resets it (`_note_recovery`)
+        self._backoff = min(self._backoff * 2, 30.0)
+        self.metrics.record_engine_unhealthy()
+        if self.trace is not None:
+            self.trace.instant("unhealthy", "engine", "engine", ts=now,
+                               error=err[:200],
+                               recover_after_s=round(self._recover_at - now, 3))
+        finished = self.force_drain("error")
+        try:
+            self._rebuild_pool(requeue=False)
+        except Exception as exc:  # noqa: BLE001 — `_recover` retries it
+            traceback.clear_frames(exc.__traceback__)
+        return finished
+
+    def _recover(self) -> bool:
+        """Re-arm an unhealthy engine: rebuild the pool if its last
+        rebuild failed, else a host-side state flip. False (and another
+        unhealthy episode, with a doubled backoff) when the rebuild fails
+        again."""
+        if self._pool_lost:
+            try:
+                self._rebuild_pool(requeue=False)
+            except Exception as exc:  # noqa: BLE001 — still unusable
+                traceback.clear_frames(exc.__traceback__)
+                self._go_unhealthy(f"{type(exc).__name__}: {exc}")
+                return False
+        self._health = "healthy"
+        self._consec_failures = 0
+        if self.trace is not None:
+            self.trace.instant("recovered", "engine", "engine",
+                               ts=smetrics.now())
+        return True
+
+    def _note_recovery(self) -> None:
+        """The first clean step after a failure episode: stamp the
+        recovery time (first failure -> first clean step)."""
+        now = smetrics.now()
+        if self._failed_since is not None:
+            self.metrics.record_recovery(now - self._failed_since)
+            if self.trace is not None:
+                self.trace.instant(
+                    "fault_recovered", "engine", "engine", ts=now,
+                    recovery_s=round(now - self._failed_since, 4))
+        self._failed_since = None
+        self._consec_failures = 0
+        self._backoff = self.config.fault_recover_backoff_s
+
+    def _make_pool(self):
+        cfg = self.config
+        if self._paged:
+            return PagedKVPool(self.model, cfg.n_slots, cfg.max_len,
+                               cfg.page_size or cfg.prefix_page,
+                               page_budget=cfg.page_budget)
+        return KVSlotPool(self.model, cfg.n_slots, cfg.max_len)
+
+    def _make_prefix_cache(self):
+        cfg = self.config
+        if not cfg.prefix_cache:
+            return None
+        return PrefixCache(page=cfg.prefix_page, max_bytes=cfg.prefix_cache_bytes,
+                           pool=self.pool if self._paged else None,
+                           trace=self.trace)
+
+    def _rebuild_pool(self, requeue: bool) -> None:
+        """Replace the pool after a systemic failure (the failed step may
+        have written part of a block into it). With `requeue`, every
+        active stream returns to the queue head, oldest first, and
+        resumes by recompute, token-exactly (the preemption argument).
+        The prefix cache is dropped whole (its lane segments or page ids
+        belong to the old pool).
+
+        Every reference to the old pool's device memory is dropped BEFORE
+        the new pool is allocated — the pool, the tree (lane segments;
+        the paged tree holds page ids into the pool), the gathered lanes
+        (cleared from the failure's traceback by the caller), the gauge
+        providers (weak) — so after a real out-of-memory error the peak
+        does not rise by a second pool. If the allocation raises (a
+        sticky CUDA error, or memory still short), the engine keeps the
+        old pool's host bookkeeping, reset, without its device memory,
+        and refuses device work until a rebuild succeeds."""
+        cfg = self.config
+        if requeue:
+            active = [r for r in self._slot_req if r is not None]
+            active.sort(key=lambda r: r.admit_time or 0.0, reverse=True)
+            for req in active:  # youngest first: the oldest ends at the head
+                if self._paged and req.slot is not None:
+                    req.pages_held = max(req.pages_held,
+                                         int(self.pool.n_alloc[req.slot]))
+                req.slot = None
+                self._requeue(req)
+        self._slot_req = [None] * cfg.n_slots
+        self._toks[:] = 0
+        self._pos[:] = 0
+        self._samp_f[:] = np.asarray(GREEDY_ROW, np.float32)[:, None]
+        self._allow[:] = -1
+        self._top_k[:] = 0
+        self._seed[:] = -1
+        self._need_lp[:] = False
+        self._fault_row[:] = 0
+        old = self.pool
+        self.prefix_cache = None
+        # the old pool object keeps only host bookkeeping from here on
+        if self._paged:
+            old.phys = None
+        else:
+            old.caches = None
+        self.pool = None
+        try:
+            self.pool = self._make_pool()
+        except BaseException:
+            for slot in range(old.n_slots):
+                if not old._free_mask[slot]:
+                    old.release(slot)
+            self.pool = old
+            self._pool_lost = True
+            raise
+        self._pool_lost = False
+        del old
+        self.prefix_cache = self._make_prefix_cache()
+        if self.prefix_cache is not None:
+            self.metrics.record_prefix_state(0, self.prefix_cache.evictions)
+
+    def _watchdog_fire(self, dur_s: float) -> None:
+        """A step exceeded the absolute deadline: count it, stamp a trace
+        instant and (with the dumper armed) dump the recorder's tail."""
+        self.metrics.record_watchdog_stall(dur_s)
+        if self.trace is not None:
+            ddl = self.config.fault_step_deadline_s
+            self.trace.instant("watchdog_stall", "engine", "engine",
+                               step_s=round(dur_s, 4), deadline_s=ddl)
+            if self._mon is not None:
+                self._mon.dump("watchdog_stall", step_s=round(dur_s, 4),
+                               deadline_s=ddl)
+
+    def _quarantine(self, req: Request, now: float) -> Request:
+        """Contain a slot whose logits went non-finite: the block's tokens
+        are discarded, the slot's storage is scrubbed to zero before its
+        release (`_scrub_slot`), and the request finishes "error". Every
+        other stream, computed from its own lane in the same call,
+        continues byte-identically."""
+        slot = req.slot
+        self.metrics.record_quarantine()
+        if self.trace is not None:
+            self.trace.instant("quarantine", "engine", f"slot{slot}",
+                               req=req.id, ts=now, tokens=len(req.tokens))
+            if self._mon is not None:
+                self._mon.dump("quarantine", req=req.id, slot=slot)
+        self._scrub_slot(slot)
+        self._finish(req, "error", now)
+        self._notify(req, 0)
+        return req
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Zero a poisoned slot's device state before its storage is
+        reused: masked attention gives a stale finite value probability
+        0, but ``0 * NaN`` is NaN (the dense decode's ``softmax(scores) @
+        v`` and a flash tile's P·V alike). The lane pool zeroes the lane;
+        the paged pool zeroes the slot's own pages (refcount 1) — shared
+        prefix pages hold KV written before the poisoned step and other
+        holders read them — and the trash page, where the slot's masked
+        overshoot lands and which every idle slot's table points at."""
+        if self._paged:
+            pool = self.pool
+            n = int(pool.n_alloc[slot])
+            own = [int(p) for p in pool.table[slot, :n] if pool.refcount[p] == 1]
+            scrub_pages(pool.phys, own + [TRASH_PAGE])
+        else:
+            scrub_lane(self.pool.caches, slot)
+
+    def _ladder_step(self) -> None:
+        """One degradation-ladder evaluation a step: gather the pressure
+        signals (pages, SLO burn; no `hbm` reason until the port has a
+        memory ledger), move at most one rung, and apply the rung's
+        effects: from rung 1 shed up to 4 prefix-cache leaves a step;
+        rungs 3 and 4 shed admissions in `submit`."""
+        cfg = self.config
+        reasons = []
+        if self._paged and (self.pool.pages_free
+                            < cfg.degrade_free_page_frac * self.pool.page_budget):
+            reasons.append("pages")
+        if self._slo is not None:
+            for cls in self._slo.targets:
+                if self._slo.burn_rate(cls) > cfg.degrade_burn_threshold:
+                    reasons.append(f"burn:{cls}")
+                    break
+        new = self._ladder.observe(bool(reasons), reasons)
+        if new is not None:
+            self.metrics.record_degrade_transition()
+            if self.trace is not None:
+                self.trace.instant("degrade", "engine", "engine", rung=new,
+                                   name=self._ladder.name,
+                                   reasons=",".join(reasons) or "clear")
+        pc = self.prefix_cache
+        if self._ladder.rung >= 1 and pc is not None:
+            shed = 0
+            while shed < 4 and pc.evict_one():
+                shed += 1
+            if shed:
+                self.metrics.record_prefix_state(pc.bytes_held, pc.evictions)
+
+    def _slo_gauges(self) -> dict[str, float]:
+        return self._slo.gauges(self.metrics.elapsed_s)
+
+    def _ladder_gauges(self) -> dict[str, float]:
+        return {"serve/degradation_rung": float(self._ladder.rung)}
+
+    # ----------------------------------------------- write-ahead journal
+
+    def _journal_op(self, fn, *args) -> None:
+        """One journal operation inside the durability-failure boundary:
+        the fault plane's ``journal_write`` site pokes first (an
+        ``io_error`` raises where a real disk failure would), and an I/O
+        failure degrades the engine to journal-off with ONE warning and
+        the serve/journal_degraded gauge, unless `journal_strict` lets it
+        propagate."""
+        if self.journal is None or self._journal_degraded:
+            return
+        try:
+            self._poke_site("journal_write")
+            fn(*args)
+        except (JournalError, OSError, InjectedFault) as exc:
+            if isinstance(exc, InjectedFault) and exc.kind != "io_error":
+                raise
+            if self.config.journal_strict:
+                raise
+            self._journal_degraded = True
+            warnings.warn(
+                f"write-ahead journal failed ({type(exc).__name__}: {exc}); "
+                "degrading to journal-off: serving continues, crash recovery "
+                "and stream resumption are LOST from here (set "
+                "ServeConfig.journal_strict to fail loudly instead)",
+                stacklevel=2)
+            if self.trace is not None:
+                self.trace.instant("journal_degraded", "engine", "engine",
+                                   error=str(exc)[:200])
+
+    def _journal_submit(self, req: Request) -> None:
+        if self.journal is None:
+            return
+        if req.trace_id is None or self.journal.is_live(req.trace_id):
+            # addressable after a restart, and a re-used live id must not
+            # merge two streams' commits into one record
+            req.trace_id = uuid.uuid4().hex
+        # a grammar stepper is host state the journal cannot replay: the
+        # request is journaled, flagged, and finished "error" at recovery
+        self._journal_op(
+            self.journal.append_submit, req.trace_id, req.prompt,
+            req.max_new_tokens, req.eos_id, dataclasses.asdict(req.params),
+            req.submit_time, req.grammar is not None,
+            None if req.deadline is None
+            else max(req.deadline - req.submit_time, 1e-3))
+
+    def _journal_commit(self, req: Request, tokens) -> None:
+        if self.journal is not None and len(tokens):
+            self._journal_op(self.journal.append_commit, req.trace_id, tokens)
+
+    def _journal_finish(self, req: Request) -> None:
+        if self.journal is not None:
+            self._journal_op(self.journal.append_finish, req.trace_id,
+                             req.finish_reason or "unknown", {
+                                 "prompt_tokens": int(req.prompt.size),
+                                 "completion_tokens": len(req.tokens)})
+
+    def _journal_gauges(self) -> dict[str, float]:
+        s = self.journal.stats()
+        return {
+            "serve/journal_records": float(s["records"]),
+            "serve/journal_bytes": float(s["bytes_written"]),
+            "serve/journal_rotations": float(s["rotations"]),
+            "serve/journal_fsync_s": s["fsync_s"],
+            "serve/journal_live": float(s["live"]),
+            "serve/journal_degraded": float(self._journal_degraded),
+            "serve/recovered_requests": float(self._recovered_total),
+        }
+
+    def _entry_request(self, e) -> tuple[Request | None, str | None]:
+        """One live journal entry as a resumable WAITING `Request` with
+        its committed tokens (its deadline re-armed relative to now:
+        monotonic clocks do not cross a restart), or FINISHED with its
+        stop reason when the committed stream already satisfies one (the
+        crash fell between the last commit and its finish record).
+        ``(None, reason)`` for an entry this engine cannot resume
+        token-exactly: a grammar request, unparseable params, a prompt
+        beyond the capacity, stop strings without `detokenize`. An SLO
+        class this engine does not track is dropped (accounting, not
+        semantics), as is the reference's `kv_exact` (a no-op on an
+        unquantized pool, the only pool the port has)."""
+        limit = getattr(self.model, "max_positions", None)
+        cap = min(self.config.max_len, limit or self.config.max_len)
+        err = None
+        params = None
+        if e.grammar:
+            err = "grammar stepper state is not journaled"
+        else:
+            try:
+                p = dict(e.params)
+                p.pop("kv_exact", None)
+                p["stop_token_ids"] = tuple(p.get("stop_token_ids") or ())
+                p["stop"] = tuple(p.get("stop") or ())
+                params = SamplingParams(**p)
+            except (TypeError, ValueError) as exc:
+                err = f"unreplayable params: {exc}"
+        if err is None:
+            if len(e.prompt) < 1 or len(e.prompt) + e.max_new_tokens > cap:
+                err = f"beyond this engine's capacity {cap}"
+            elif params.stop and self.detokenize is None:
+                err = "stop strings need a detokenize callable"
+            elif params.slo is not None and (
+                    self._slo is None or params.slo not in self._slo.targets):
+                params = dataclasses.replace(params, slo=None)
+        if err is not None:
+            return None, err
+        req = Request(prompt=np.asarray(e.prompt, np.int64),
+                      max_new_tokens=e.max_new_tokens, eos_id=e.eos_id,
+                      params=params)
+        req.trace_id = e.rid
+        req.tokens = [int(t) for t in e.tokens]
+        if params.logprobs:
+            # the journal keeps token ids only: the committed prefix's
+            # logprobs are unknown (null on the wire)
+            req.logprobs = [None] * len(req.tokens)
+        if e.deadline_s is not None:
+            req.deadline = req.submit_time + e.deadline_s
+        reason = None
+        if req.tokens:
+            reason = self._stop_reason(req, req.tokens[-1], req.remaining)
+            if (reason is None and params.stop
+                    and self._stop_string_at(req, [], 0) is not None):
+                # commits are written after stop-string truncation, so a
+                # match here means the stream was complete at the crash
+                reason = "stop"
+        if reason is not None:
+            req.state = FINISHED
+            req.finish_reason = reason
+            req.finish_time = smetrics.now()
+        return req, None
+
+    def recover(self) -> list[Request]:
+        """Replay the journal's unfinished entries through the
+        preemption-resume machinery: each becomes a WAITING request with
+        its committed tokens; admission re-prefills prompt +
+        committed[:-1], discards the resampled token and decodes on —
+        token-exact against an uninterrupted run for greedy and seeded
+        streams in float32 (in bfloat16, up to near-ties within bf16
+        rounding: the re-prefill runs the flash forward over positions
+        the first run decoded). Call once, before the first step.
+
+        Entries that cannot resume token-exactly (`_entry_request`)
+        finish "error" in the journal; an entry whose committed stream
+        already satisfies a stop condition is finished with that reason.
+        Returns the requests requeued (oldest first); the journal is then
+        compacted to that live set."""
+        if self.journal is None:
+            raise ValueError("recover() replays the write-ahead journal, "
+                             "which needs ServeConfig.journal_path set")
+        resumed: list[Request] = []
+        for e in self.journal.live_entries():
+            usage = {"prompt_tokens": len(e.prompt),
+                     "completion_tokens": len(e.tokens)}
+            req, err = self._entry_request(e)
+            if err is not None:
+                warnings.warn(f"journal entry {e.rid} cannot be recovered "
+                              f"({err}); finishing it \"error\"", stacklevel=2)
+                self._journal_op(self.journal.append_finish, e.rid, "error",
+                                 usage)
+                continue
+            if req.done:
+                self._journal_op(self.journal.append_finish, e.rid,
+                                 req.finish_reason, usage)
+                continue
+            resumed.append(req)
+        for req in reversed(resumed):  # FIFO order survives the crash
+            self._requeue(req)
+        self._recovered = {r.trace_id: r for r in resumed}
+        self._recovered_total = len(resumed)
+        self._journal_op(self.journal.compact)
+        self._journal_op(self.journal.sync)
+        if self.trace is not None:
+            self.trace.instant("journal_recover", "engine", "engine",
+                               resumed=len(resumed))
+        return resumed
 
     # ------------------------------------------------------------ private
 
@@ -743,11 +1747,14 @@ class ServeEngine:
         length = int(seq.size)
         matched = 0
         pc = self.prefix_cache
+        tr = self.trace
         if pc is not None and length > 1:
             match = pc.match(seq[:length - 1])
             matched = match.length
             if matched:
+                self._poke_site("prefix_splice")
                 pc.pin(match)
+                t_sp = smetrics.now() if tr is not None else 0.0
                 offset = 0
                 for node in match.nodes:
                     if self._paged:  # zero-copy: page ids into the table
@@ -756,6 +1763,13 @@ class ServeEngine:
                         self.pool.splice_prefix(slot, node.segment, offset)
                         offset += node.length
                 pc.unpin(match)
+                if tr is not None:
+                    # the splice's copies are queued on the device, not
+                    # waited for: the span is their host dispatch time
+                    name = "share" if self._paged else "splice"
+                    tr.complete(name, "prefix", f"slot{slot}", ts=t_sp,
+                                dur=smetrics.now() - t_sp, req=req.id,
+                                matched=matched, pages=matched // pc.page)
         suffix = length - matched
         padded, chunk = self._prefill_shape(suffix, matched)
         if self._paged and not self._ensure_pages(slot, matched + padded):
@@ -779,32 +1793,57 @@ class ServeEngine:
         # request discards that sample, but the list must be well formed)
         constrained = req.grammar is not None
         self._allow[slot] = self._grammar_allow(req) if constrained else -1
-        # one transfer carries the suffix ids, paged the table row, and a
-        # constrained request's allow-list
+        # the fault plane's prefill site (a stall or synthetic error acts
+        # here; nan / inf poison this prefill's logits through its code)
+        pf_fault = self._poke_site("prefill")
+        # one transfer carries the suffix ids, paged the table row, a
+        # constrained request's allow-list and, while a fault plan is
+        # armed, the poison code (last)
         parts = [np.zeros(padded, np.int64)]
         parts[0][:suffix] = seq[matched:]
         if self._paged:
             parts.append(self.pool.table[slot])
         if constrained:
             parts.append(self._allow[slot])
+        armed = self._faults is not None
+        if armed:
+            parts.append(np.asarray([pf_fault], np.int64))
         ids = torch.as_tensor(np.concatenate(parts), device=self.device)
         table_end = padded + (self.pool.pages_per_lane if self._paged else 0)
-        allow = ids[None, table_end:] if constrained else None
+        allow_end = table_end + (self.config.sample_cap if constrained else 0)
+        allow = ids[None, table_end:allow_end] if constrained else None
+        fault = ids[-1] if armed else None
         generator = (None if req.params.greedy else request_generator(
             self.config.seed, self._rng_step, slot, seed, 0, self.device))
         self._rng_step += 1
         args = (self.model, padded, chunk, matched, self.config.sample_cap)
-        sample = (self._packed([slot]), generator, allow, req.params.logprobs)
+        sample = (self._packed([slot]), generator, allow, req.params.logprobs,
+                  fault)
+        t_pf = smetrics.now() if tr is not None else 0.0
         with scope(self.profile, "serve/prefill"):
             if self._paged:
-                self.pool.phys, first, logprob = _paged_prefill_program(
+                self.pool.phys, head, logprob = _paged_prefill_program(
                     *args, self.pool.phys, ids[:padded], ids[padded:table_end],
                     suffix, *sample)
             else:
-                self.pool.caches, first, logprob = _prefill_program(
+                self.pool.caches, head, logprob = _prefill_program(
                     *args, self.pool.caches, ids[:padded], slot, suffix,
                     *sample)
-            first = int(first)  # waits for the device: `now` is device-true
+            # one read, the token and the finite flag together; it waits
+            # for the device, so the clock readings after it are
+            # device-true
+            first, ok = head.tolist()
+        if tr is not None:
+            t_pf1 = smetrics.now()
+            self._dev_s += t_pf1 - t_pf
+            tr.complete("prefill_program", "engine", f"slot{slot}", ts=t_pf,
+                        dur=t_pf1 - t_pf, req=req.id, padded=padded,
+                        suffix=suffix, chunk=chunk or 0)
+        if not ok:
+            # poisoned prefill: quarantined BEFORE the prefix-cache insert
+            # below, so a non-finite lane never enters the tree
+            self._quarantine(req, smetrics.now())
+            return True
         if pc is not None:
             # hand the prefilled span to the tree while [0, length) is
             # pristine: the slot's decode writes land at positions >=
@@ -825,6 +1864,9 @@ class ServeEngine:
             self.pool.positions[slot] = length
             self._toks[slot] = req.tokens[-1]
             self._pos[slot] = length
+            if tr is not None:
+                tr.instant("resume", "request", f"slot{slot}", req=req.id,
+                           ts=now, recomputed=suffix, tokens=len(req.tokens))
             return False
         req.first_token_time = now
         req.tokens.append(first)
@@ -832,7 +1874,17 @@ class ServeEngine:
             req.grammar.advance(first)
         if req.params.logprobs:
             req.logprobs.append(float(logprob))
+        # the first token is a one-token commit at the admission boundary
+        self._journal_commit(req, (first,))
         self.metrics.record_first_token(req, now, prefilled=suffix)
+        if tr is not None:
+            # lifecycle spans from the request's own timestamps: queue +
+            # prefill partition TTFT exactly
+            tr.complete("queue", "request", "queue", ts=req.submit_time,
+                        dur=req.admit_time - req.submit_time, req=req.id)
+            tr.complete("prefill", "request", f"slot{slot}",
+                        ts=req.admit_time, dur=now - req.admit_time,
+                        req=req.id, prefilled=suffix, matched=matched)
         self._last_emit[slot] = now
         self.pool.positions[slot] = length
         self._toks[slot] = first
@@ -934,11 +1986,17 @@ class ServeEngine:
                     self._allow[slot] = self._grammar_allow(r)
                     constrained = True
         need_lp = bool(self._need_lp.any())
+        # the fault plane's decode site (a stall or synthetic error acts
+        # here; nan / inf write the fault row this block carries)
+        self._poke_site("decode")
+        armed = self._faults is not None
         # the block's int control values go to the device in ONE transfer:
         # rows toks, pos, active, eos, then (paged) the page tables, then
-        # (with a constrained slot) the allow-lists
+        # (with a constrained slot) the allow-lists, then (with a fault
+        # plan armed) the fault row
         pages = self.pool.pages_per_lane if self._paged else 0
-        state = np.zeros((4 + pages + (cap if constrained else 0), n), np.int64)
+        rows = 4 + pages + (cap if constrained else 0)
+        state = np.zeros((rows + armed, n), np.int64)
         state[0] = self._toks
         state[1] = self._pos
         state[3] = -1
@@ -950,7 +2008,10 @@ class ServeEngine:
         if self._paged:
             state[4:4 + pages] = self.pool.table.T
         if constrained:
-            state[4 + pages:] = self._allow.T
+            state[4 + pages:rows] = self._allow.T
+        if armed:
+            state[rows] = self._fault_row
+            self._fault_row[:] = 0  # one-shot: this dispatch only
         step_tag = self._rng_step
         self._rng_step += 1
         dev = self.device
@@ -962,9 +2023,10 @@ class ServeEngine:
 
         t0 = smetrics.now()
         state = torch.as_tensor(state, device=dev)
-        allow = state[4 + pages:].T if constrained else None
+        allow = state[4 + pages:rows].T if constrained else None
         ctl = (state[0], state[1], state[2].bool(), state[3],
-               self._packed(slice(None)), generators, allow, need_lp)
+               self._packed(slice(None)), generators, allow, need_lp,
+               state[rows] if armed else None)
         with scope(self.profile, "serve/decode_block"):
             if self._paged:
                 self.pool.phys, out, lps = _paged_decode_program(
@@ -973,13 +2035,32 @@ class ServeEngine:
             else:
                 self.pool.caches, out, lps = _decode_program(
                     self.model, block, cap, self.pool.caches, *ctl)
-            out = out.cpu().numpy()  # (block, n_slots); overshoot cut below
+            # the fault plane's scatter site: after the dispatch, before
+            # the read where a device error would surface
+            self._poke_site("scatter")
+            # (block + 1, n_slots): the tokens (overshoot cut below), then
+            # the per-slot finite flags
+            out = out.cpu().numpy()
             lps = None if lps is None else lps.cpu().numpy()
+        finite, out = out[-1], out[:-1]
         now = smetrics.now()
         self.metrics.record_decode_block(now - t0)
+        tr = self.trace
+        if tr is not None:
+            self._dev_s += now - t0
         finished: list[Request] = []
         for slot, req in enumerate(self._slot_req):
             if req is None:
+                continue
+            if tr is not None:
+                # one call advances every lane: each active slot's span
+                # shares its wall time
+                tr.complete("decode_block", "engine", f"slot{slot}", ts=t0,
+                            dur=now - t0, req=req.id, block=block)
+            if not finite[slot]:
+                # the guard pinned a non-finite forward to this slot: its
+                # block is garbage; every other slot's walk proceeds
+                finished.append(self._quarantine(req, now))
                 continue
             if req.cancelled or (req.deadline is not None
                                  and now >= req.deadline):
@@ -1029,6 +2110,9 @@ class ServeEngine:
             req.logprobs.extend(new_lps)
             req.tokens.extend(new)
             appended = len(new)
+            # ONE commit record a request a block, from the tokens the host
+            # already holds
+            self._journal_commit(req, new)
             self.metrics.record_tokens(appended, now - self._last_emit[slot],
                                        now)
             self._last_emit[slot] = now
@@ -1052,23 +2136,67 @@ class ServeEngine:
         req.state = FINISHED
         req.finish_reason = reason
         req.finish_time = now
+        tr = self.trace
         if req.first_token_time is None:
-            req.first_token_time = now  # force-drained mid-admission
+            # finished before its first token (quarantined or drained mid
+            # admission): a zero-width prefill phase keeps the traced
+            # three-span partition whole
+            req.first_token_time = now
+            if tr is not None:
+                admit = req.admit_time or now
+                tr.complete("queue", "request", "queue", ts=req.submit_time,
+                            dur=admit - req.submit_time, req=req.id)
+                tr.complete("prefill", "request", f"slot{req.slot}", ts=admit,
+                            dur=now - admit, req=req.id)
         if self._paged:
             # streams only grow, so the count at finish is the peak
             req.pages_held = max(req.pages_held,
                                  int(self.pool.n_alloc[req.slot]))
+        self._journal_finish(req)
         self.metrics.record_finish(req, now)
+        if self._slo is not None:
+            req.slo_result = self._slo.observe(req, now)
+        if tr is not None:
+            # first token -> finish; with queue + prefill, the spans
+            # partition finish_time - submit_time exactly
+            tr.complete("decode", "request", f"slot{req.slot}",
+                        ts=req.first_token_time, dur=now - req.first_token_time,
+                        req=req.id, tokens=len(req.tokens))
+            tr.instant("finish", "request", f"slot{req.slot}", req=req.id,
+                       ts=now, reason=reason)
+            if self._mon is not None:
+                self._mon.observe_finish(reason)
         self._vacate(req.slot)
 
     def _finish_unadmitted(self, req: Request, reason: str,
                            now: float) -> None:
-        """Finish a request cancelled or timed out in the waiting queue
-        (never admitted, or a preempted stream waiting to resume)."""
+        """Finish a request cancelled, timed out or drained in the waiting
+        queue (never admitted, or a preempted or requeued stream waiting
+        to resume)."""
         req.state = FINISHED
         req.finish_reason = reason
         req.finish_time = now
+        self._journal_finish(req)
         self.metrics.record_finish(req, now)
+        if self._slo is not None:
+            req.slo_result = self._slo.observe(req, now)
+        tr = self.trace
+        if tr is not None:
+            if req.first_token_time is None:
+                # its whole life was queue time
+                tr.complete("queue", "request", "queue", ts=req.submit_time,
+                            dur=now - req.submit_time, req=req.id)
+            else:
+                # preempted mid-stream: queue and prefill spans exist from
+                # its first admission; close it with the decode phase
+                tr.complete("decode", "request", "queue",
+                            ts=req.first_token_time,
+                            dur=now - req.first_token_time, req=req.id,
+                            tokens=len(req.tokens))
+            tr.instant("finish", "request", "queue", req=req.id, ts=now,
+                       reason=reason)
+            if self._mon is not None:
+                self._mon.observe_finish(reason)
         self._notify(req, 0)
 
     def _vacate(self, slot: int) -> None:

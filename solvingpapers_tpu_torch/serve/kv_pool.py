@@ -66,6 +66,16 @@ def store_lane(caches: list, lane: list, slot: int) -> list:
     return caches
 
 
+def scrub_lane(caches: list, slot: int) -> None:
+    """Zero slot `slot`'s lane in every tensor of every layer's cache, in
+    place: the quarantine of a poisoned slot. Masked attention gives a
+    stale FINITE value probability 0, but ``0 * NaN`` is NaN, so a
+    non-finite value left in the lane would reach its next occupant."""
+    for c in caches:
+        for t in _tensors(c).values():
+            t[slot].zero_()
+
+
 class _SlotBook:
     """Slot bookkeeping shared by both pool layouts: a LIFO free list (the
     freshest slot is reused first) plus an O(1) membership mask for the
@@ -304,6 +314,22 @@ def scatter_written_pages(phys: list, lanes: list, table: torch.Tensor,
 
 
 TRASH_PAGE = 0  # physical page 0: reserved write sink, never allocated
+
+
+def scrub_pages(phys: list, page_ids) -> None:
+    """Zero physical pages `page_ids` in every tensor of every layer's
+    cache, in place (the paged twin of `scrub_lane`). The engine passes a
+    poisoned slot's own pages (refcount 1) and the trash page: shared
+    prefix pages hold KV written before the poisoned step, while the
+    slot's masked overshoot lands in the trash page, which every idle
+    slot's table points at."""
+    if not len(page_ids):
+        return
+    dev = next(iter(_tensors(phys[0]).values())).device
+    idx = torch.as_tensor(list(page_ids), dtype=torch.long, device=dev)
+    for p in phys:
+        for t in _tensors(p).values():
+            t.index_fill_(0, idx, 0)
 
 
 class PagedKVPool(_SlotBook):

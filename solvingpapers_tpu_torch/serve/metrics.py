@@ -46,6 +46,25 @@ prompt up):
     serve/tokens_prefilled_saved   the same: prefill compute avoided
     serve/prefix_evictions         LRU leaf evictions so far
     serve/prefix_hbm_bytes         device bytes the radix tree holds now
+
+Fault-tolerance counters (serve/faults.py; each present iff its event
+ever occurred, so a fault-free run keeps the key surface of an engine
+without the fault plane):
+
+    serve/fault_injected       fault-plan specs fired at a site
+    serve/fault_quarantined    NaN/Inf-poisoned slots contained
+    serve/fault_retries        systemic failures answered by a rebuild
+    serve/fault_unhealthy      drains to `unhealthy` (retries exhausted)
+    serve/watchdog_stalls      steps past `fault_step_deadline_s`
+    serve/fault_recovery_s     first failure -> first clean step, last
+                               episode
+    serve/degrade_transitions  degradation-ladder moves, either way
+    serve/shed_<class>         admissions load-shed by SLO class
+
+Gauge providers the engine registers when the feature is on: the
+journal's (`serve/journal_*`, `serve/recovered_requests`), the SLO
+tracker's (`slo/<class>_*`, `serve/goodput_tokens[_per_s]`) and the
+ladder's `serve/degradation_rung`.
 """
 
 from __future__ import annotations
@@ -116,6 +135,15 @@ class ServeMetrics:
         self.prefix_bytes_held = 0
         self.preemptions = 0
         self.recompute_tokens = 0
+        self.faults_injected = 0
+        self.quarantines = 0
+        self.engine_retries = 0
+        self.engine_unhealthy = 0
+        self.watchdog_stalls = 0
+        self.recoveries = 0
+        self.recovery_s_last = 0.0
+        self.degrade_transitions = 0
+        self.sheds: dict[str, int] = {}
         self._t_first: float | None = None
         self._t_last: float | None = None
         # zero-argument {metric: float} providers merged into every
@@ -200,6 +228,42 @@ class ServeMetrics:
         self.recompute_tokens += n
         self.prefill_tokens += n
 
+    def record_fault_injected(self) -> None:
+        """The fault plan fired one spec at a hot-path site."""
+        self.faults_injected += 1
+
+    def record_quarantine(self) -> None:
+        """A NaN/Inf-poisoned slot was contained (its request finished
+        "error"; every other stream continued)."""
+        self.quarantines += 1
+
+    def record_engine_retry(self) -> None:
+        """A systemic step failure consumed one pool-rebuild retry."""
+        self.engine_retries += 1
+
+    def record_engine_unhealthy(self) -> None:
+        """Retries exhausted: the engine drained to `unhealthy`."""
+        self.engine_unhealthy += 1
+
+    def record_watchdog_stall(self, dur_s: float) -> None:
+        """A step exceeded the absolute watchdog deadline (`dur_s` rides
+        the trace instant and the anomaly dump, not a gauge)."""
+        self.watchdog_stalls += 1
+
+    def record_recovery(self, dur_s: float) -> None:
+        """First clean step after a failure episode: `dur_s` = first
+        failure -> first clean step (the serve/fault_recovery_s gauge)."""
+        self.recoveries += 1
+        self.recovery_s_last = dur_s
+
+    def record_degrade_transition(self) -> None:
+        """The degradation ladder moved one rung (either direction)."""
+        self.degrade_transitions += 1
+
+    def record_shed(self, slo_class: str) -> None:
+        """An admission was load-shed by SLO class (ladder rung >= 3)."""
+        self.sheds[slo_class] = self.sheds.get(slo_class, 0) + 1
+
     def _latencies(self):
         return (("ttft_s", self.ttft), ("itl_s", self.itl),
                 ("queue_wait_s", self.queue_wait),
@@ -228,6 +292,22 @@ class ServeMetrics:
         if self.preemptions:
             out["serve/preemptions"] = float(self.preemptions)
             out["serve/recompute_tokens"] = float(self.recompute_tokens)
+        if self.faults_injected:
+            out["serve/fault_injected"] = float(self.faults_injected)
+        if self.quarantines:
+            out["serve/fault_quarantined"] = float(self.quarantines)
+        if self.engine_retries:
+            out["serve/fault_retries"] = float(self.engine_retries)
+        if self.engine_unhealthy:
+            out["serve/fault_unhealthy"] = float(self.engine_unhealthy)
+        if self.watchdog_stalls:
+            out["serve/watchdog_stalls"] = float(self.watchdog_stalls)
+        if self.recoveries:
+            out["serve/fault_recovery_s"] = float(self.recovery_s_last)
+        if self.degrade_transitions:
+            out["serve/degrade_transitions"] = float(self.degrade_transitions)
+        for cls in sorted(self.sheds):
+            out[f"serve/shed_{cls}"] = float(self.sheds[cls])
         if self.elapsed_s > 0:
             out["serve/tokens_per_sec"] = self.tokens_out / self.elapsed_s
         if self.occupancy:

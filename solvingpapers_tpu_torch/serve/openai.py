@@ -107,15 +107,18 @@ def _field(body: dict, name: str, types, default, param=None):
     return val
 
 
-def parse_sampling(body: dict) -> tuple[SamplingParams, int, float | None]:
+def parse_sampling(body: dict, slo_classes=None
+                   ) -> tuple[SamplingParams, int, float | None]:
     """The sampling-relevant fields of a completion/chat body ->
     (SamplingParams, max_tokens, timeout_s). OpenAI defaults:
     temperature 1.0 (pass 0 for greedy), top_p 1.0, max_tokens 16.
-    `top_k` / `min_p` / `timeout_s` are accepted extensions (vLLM serves
-    them). The reference's `slo` class tag needs SLO accounting, which
-    the port does not serve yet (ROADMAP A4): a body that sets it is
-    refused, as the reference refuses it on a server without SLO classes;
-    OpenAI's `service_tier` is ignored, as there."""
+    `top_k` / `min_p` / `timeout_s` / `slo` are accepted extensions (vLLM
+    serves the first three). `slo_classes` is the server's configured SLO
+    class set (None = SLO accounting off). The `slo` tag must be a
+    non-empty string; whether the class exists is the engine's check, so
+    a server without SLO classes refuses any tag (400) at submit, as the
+    reference does. OpenAI's `service_tier` maps to a class only when it
+    names one of the server's classes, and is ignored otherwise."""
     if _field(body, "n", int, 1) != 1:
         raise ApiError("only n=1 is supported", param="n")
     if _field(body, "best_of", int, 1) != 1:
@@ -151,9 +154,14 @@ def parse_sampling(body: dict) -> tuple[SamplingParams, int, float | None]:
     seed = body.get("seed")
     if seed is not None and not isinstance(seed, int):
         raise ApiError("seed must be an integer", param="seed")
-    if body.get("slo") is not None:
-        raise ApiError("SLO classes are not served here (no SLO "
-                       "accounting on this server)", param="slo")
+    slo = body.get("slo", None)
+    if slo is None:
+        tier = body.get("service_tier")
+        if slo_classes and isinstance(tier, str) and tier in slo_classes:
+            slo = tier
+    if slo is not None and not (isinstance(slo, str) and slo):
+        raise ApiError("slo must be a non-empty class name string",
+                       param="slo")
     try:
         params = SamplingParams(
             temperature=float(_field(body, "temperature", (int, float), 1.0)),
@@ -164,6 +172,7 @@ def parse_sampling(body: dict) -> tuple[SamplingParams, int, float | None]:
             max_tokens=max_tokens,
             stop=stop,
             logprobs=bool(lp),
+            slo=slo,
         )
     except ValueError as e:
         raise ApiError(str(e)) from None
@@ -269,8 +278,11 @@ def usage_block(req) -> dict:
 def logprobs_block(token_ids, logprobs) -> dict:
     """The `logprobs` object of a completion choice: the chosen tokens'
     logprobs and, beside OpenAI's `token_logprobs`, their `token_ids`
-    (the exact stream, which text cannot always give back)."""
-    return {"token_logprobs": [round(v, 6) for v in logprobs],
+    (the exact stream, which text cannot always give back). A logprob the
+    server does not hold (a journal-recovered prefix: the journal keeps
+    token ids only) is null."""
+    return {"token_logprobs": [None if v is None else round(v, 6)
+                               for v in logprobs],
             "token_ids": [int(t) for t in token_ids]}
 
 

@@ -186,7 +186,7 @@ class PrefixCache:
     aligned (splits never have to cut a page)."""
 
     def __init__(self, page: int = 16, max_bytes: int = 64 << 20,
-                 pool=None):
+                 pool=None, trace=None):
         if page < 1:
             raise ValueError(f"page must be >= 1, got {page}")
         if max_bytes < 0:
@@ -200,6 +200,8 @@ class PrefixCache:
         self.page = page
         self.max_bytes = max_bytes
         self.pool = pool
+        # the engine's metrics.trace.FlightRecorder, or None (tracing off)
+        self.trace = trace
         self.root = _Node(np.zeros(0, np.int32), None, None)
         self.evictions = 0
         self.bytes_held = 0
@@ -254,7 +256,7 @@ class PrefixCache:
             break
         return i
 
-    def match(self, tokens) -> PrefixMatch:
+    def match(self, tokens, _trace: bool = True) -> PrefixMatch:
         """Longest page-aligned cached prefix of `tokens`.
 
         Touches the matched path's LRU stamps and splits a partially
@@ -282,6 +284,14 @@ class PrefixCache:
         stamp = self._tick()
         for nd in path:
             nd.stamp = stamp
+        if self.trace is not None and _trace:
+            # insert()'s own re-match passes _trace=False: the trace's
+            # lookups are the admission-time ones only
+            self.trace.instant(
+                "prefix_lookup", "prefix", "prefix",
+                matched=i, pages=i // self.page,
+                hit=int(i > 0), prompt_len=int(tokens.size),
+            )
         return PrefixMatch(nodes=path, length=i)
 
     # ---------------------------------------------------------- mutation
@@ -342,7 +352,7 @@ class PrefixCache:
             )
         if tokens.size == 0:
             return 0
-        m = self.match(tokens)
+        m = self.match(tokens, _trace=False)
         rem = tokens[m.length:]
         if rem.size == 0:
             return 0
@@ -360,6 +370,12 @@ class PrefixCache:
         node.stamp = self._tick()
         parent.children[self._key(rem)] = node
         self.bytes_held += node.nbytes
+        if self.trace is not None:
+            self.trace.instant(
+                "prefix_snapshot", "prefix", "prefix",
+                new_tokens=int(rem.size), pages=int(rem.size) // self.page,
+                nbytes=node.nbytes, held=self.bytes_held,
+            )
         self._evict_to_budget()
         return int(rem.size)
 
@@ -379,7 +395,13 @@ class PrefixCache:
         del victim.parent.children[self._key(victim.tokens)]
         self.bytes_held -= victim.nbytes
         self.evictions += 1
+        freed = victim.nbytes
         victim.payload.release()
+        if self.trace is not None:
+            self.trace.instant(
+                "prefix_evict", "prefix", "prefix",
+                tokens=victim.length, freed=freed, held=self.bytes_held,
+            )
         return True
 
     def _evict_to_budget(self) -> None:

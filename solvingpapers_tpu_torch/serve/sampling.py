@@ -68,6 +68,12 @@ class SamplingParams:
     logprobs     when True, the chosen token's log-softmax under the
                  model's raw logits goes into `Request.logprobs`, one
                  entry per generated token.
+    slo          SLO class the request's latency is accounted under
+                 (serve/slo.py: "interactive" / "standard" / "batch" in
+                 the default tier set; any class `ServeConfig.slo_targets`
+                 defines). None = "standard" when the engine tracks SLOs;
+                 the engine's `submit` checks that the class exists (and
+                 that slo_targets is configured at all).
     """
 
     temperature: float = 0.0
@@ -79,6 +85,7 @@ class SamplingParams:
     stop_token_ids: tuple[int, ...] = ()
     stop: tuple[str, ...] = ()
     logprobs: bool = False
+    slo: str | None = None
 
     def __post_init__(self):
         if self.temperature < 0:
@@ -96,6 +103,12 @@ class SamplingParams:
             raise ValueError(f"seed must be None or in [0, 2**31), got {self.seed}")
         if self.max_tokens is not None and self.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {self.max_tokens}")
+        if self.slo is not None and (not isinstance(self.slo, str) or not self.slo):
+            # class membership is the engine's (slo_targets names the
+            # classes): `submit` checks it; here only the type
+            raise ValueError(
+                f"slo must be None or a non-empty class name, got {self.slo!r}"
+            )
         # a lone string is one stop string, not its characters
         stop = (self.stop,) if isinstance(self.stop, str) else tuple(self.stop)
         if any(not s for s in stop):

@@ -63,6 +63,10 @@ class Request:
         timeout    the request's deadline passed (a waiting request
                    leaves the queue; an active one is freed at the next
                    block boundary, the expired block's tokens discarded)
+        error      the engine failed the request: its slot's logits went
+                   non-finite (quarantined), or persistent device
+                   failures drained the engine (serve/faults.py), or its
+                   journal entry could not be resumed
 
     `logprobs` holds the chosen token's logprob per generated token when
     `params.logprobs`.
@@ -98,9 +102,21 @@ class Request:
     # computed at the first pick (slightly stale by design: it only
     # orders admission; the engine matches again at admit time)
     prefix_hint: int | None = None
+    # client-facing identity (the HTTP front door's X-Request-Id, honored
+    # or minted): keys the write-ahead journal record, the Last-Event-ID
+    # resume cursor and GET /v1/requests/<id>
+    trace_id: str | None = None
+    # why a rejected request was refused: None (queue full), "unhealthy"
+    # (the engine is draining) or "shed:<class>" (the degradation ladder
+    # load-shed its SLO class); the front door words its 503 from it
+    reject_reason: str | None = None
     # peak pages the request's slot held (paged pool; 0 on lane pools),
     # stamped at finish and preemption
     pages_held: int = 0
+    # the SLO verdict (serve/slo.py SloTracker.observe): class, attained,
+    # violated targets, latencies; None until finished, or when the
+    # engine tracks no SLOs
+    slo_result: dict | None = None
     submit_time: float = dataclasses.field(default_factory=lambda: smetrics.now())
     admit_time: float | None = None
     first_token_time: float | None = None
@@ -121,7 +137,7 @@ class FIFOScheduler:
     def __init__(self, max_waiting: int = 256, decode_priority: bool = True,
                  max_prefills_per_step: int = 1, max_wait_steps: int = 64,
                  prefer_cached: bool = False, prefix_lookup=None,
-                 can_admit=None):
+                 can_admit=None, trace=None):
         self.max_waiting = max_waiting
         self.decode_priority = decode_priority
         self.max_prefills_per_step = max(1, max_prefills_per_step)
@@ -132,6 +148,8 @@ class FIFOScheduler:
         # Request -> bool capacity gate beyond free slots (the paged
         # engine's page-budget check); None = slots are the only gate
         self.can_admit = can_admit
+        # the engine's metrics.trace.FlightRecorder, or None (tracing off)
+        self.trace = trace
         self.queue: deque[Request] = deque()
 
     def __len__(self) -> int:
@@ -161,9 +179,18 @@ class FIFOScheduler:
         if not self.queue or n_free == 0:
             return []
         budget = n_free
-        if (self.decode_priority and n_active > 0
-                and self.queue[0].waited_steps <= self.max_wait_steps):
-            budget = self.max_prefills_per_step
+        if self.decode_priority and n_active > 0:
+            head = self.queue[0]
+            if head.waited_steps <= self.max_wait_steps:
+                budget = self.max_prefills_per_step
+            elif self.trace is not None:
+                # the anti-starvation override fired: prefill takes every
+                # free slot despite active decodes (what explains an ITL
+                # spike in a trace)
+                self.trace.instant(
+                    "wait_budget_override", "sched", "queue", req=head.id,
+                    waited_steps=head.waited_steps, queued=len(self.queue),
+                )
         k = min(budget, n_free, len(self.queue))
         if not (self.prefer_cached and self.prefix_lookup is not None):
             picked = []

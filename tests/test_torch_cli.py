@@ -185,10 +185,13 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--config", "gpt_tiny", "--journal", "j.jsonl"], "A4"),
+    (["serve", "--config", "gpt_tiny", "--replicas", "2"], "A4"),
     (["replay", "--journal", "j.jsonl"], "A4"),
-    (["trace-summary", "t.json"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny", "--trace"], "A4"),
+    (["trace-summary", "t.json", "--fleet"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny", "--chaos"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny", "--journal"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny", "--replay"], "A4"),
+    (["serve-bench", "--config", "gpt_tiny", "--fleet"], "A4"),
     (["serve-bench", "--config", "gpt_tiny", "--obs"], "A8"),
     (["kernel-bench"], "A5"),
     (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
@@ -221,6 +224,38 @@ def test_serve_flags_set_the_front_door_knobs():
     for name in ("api_host", "api_max_connections", "drain_timeout_s",
                  "json_mode", "max_waiting"):
         assert getattr(got, name) == getattr(ServeConfig(), name), name
+
+
+def test_serve_durability_flags_set_their_knobs():
+    """`cli serve`'s flags of the durability and observability planes
+    reach the ServeConfig; serve-bench and trace-summary take theirs."""
+    from solvingpapers_tpu_torch.serve.slo import DEFAULT_SLO_TARGETS
+
+    model = types.SimpleNamespace(max_positions=128)
+    args = cli.build_parser().parse_args([
+        "serve", "--config", "gpt_tiny", "--trace", "--trace-out", "t.json",
+        "--slo", "--degrade", "--step-deadline", "2.5", "--journal", "j.jsonl",
+        "--journal-strict", "--timeseries-interval", "0.5",
+        "--timeseries-capacity", "7"])
+    got = cli._serve_config(args, model)
+    assert (got.trace, got.slo_targets, got.degrade, got.fault_step_deadline_s,
+            got.journal_path, got.journal_strict, got.timeseries,
+            got.timeseries_interval_s, got.timeseries_capacity) == (
+        True, DEFAULT_SLO_TARGETS, True, 2.5, "j.jsonl", True, True, 0.5, 7)
+    assert args.trace_out == "t.json"
+    off = cli._serve_config(cli.build_parser().parse_args(
+        ["serve", "--config", "gpt_tiny", "--timeseries-interval", "0"]), model)
+    assert (off.timeseries, off.trace, off.slo_targets, off.journal_path) == (
+        False, False, None, None)
+    bench = cli.build_parser().parse_args([
+        "serve-bench", "--config", "gpt_tiny", "--trace", "--trace-out", "o.json",
+        "--trace-dump", "d.jsonl", "--status-port", "0", "--status-hold-s", "1",
+        "--slo"])
+    assert (bench.trace, bench.trace_out, bench.trace_dump, bench.status_port,
+            bench.status_hold_s, bench.slo) == (True, "o.json", "d.jsonl", 0,
+                                                1.0, True)
+    assert cli.build_parser().parse_args(["trace-summary", "t.json",
+                                          "--top", "3"]).top == 3
 
 
 def test_the_default_device_is_the_card(monkeypatch):

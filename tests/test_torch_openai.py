@@ -2,9 +2,9 @@
 package's: on a table of request bodies `parse_sampling`, `wants_json`,
 `parse_prompt` and `chat_prompt` give the same values, or the same
 `ApiError` status, type and param; the response shapes, the finish
-reason map and `extend_token_table` agree too. The one difference is
-the reference's `slo` class tag, which the port refuses (no SLO
-accounting yet)."""
+reason map and `extend_token_table` agree too, the `slo` class tag and
+its `service_tier` alias included (a server without SLO classes refuses
+a tag at submit: `test_torch_slo.py`)."""
 
 import numpy as np
 import pytest
@@ -35,7 +35,8 @@ BODIES = [
     {"stop": [""]}, {"timeout_s": 0}, {"timeout_s": "1"}, {"seed": 1.5},
     {"seed": -1}, {"temperature": -0.1}, {"temperature": True},
     {"top_p": 0}, {"top_p": 1.5}, {"min_p": 2}, {"top_k": -1},
-    {"top_k": 2.0}, {"service_tier": "flex"},
+    {"top_k": 2.0}, {"service_tier": "flex"}, {"slo": "interactive"},
+    {"slo": ""}, {"slo": 3},
 ]
 
 
@@ -57,14 +58,29 @@ def test_parse_sampling_matches_the_reference(body):
     (p, max_tokens, timeout_s), (jp, jmax, jtimeout) = ours, theirs
     assert (max_tokens, timeout_s) == (jmax, jtimeout)
     for field in ("temperature", "top_k", "top_p", "min_p", "seed",
-                  "max_tokens", "stop", "stop_token_ids", "logprobs"):
+                  "max_tokens", "stop", "stop_token_ids", "logprobs", "slo"):
         assert getattr(p, field) == getattr(jp, field), field
 
 
 def test_slo_tag_is_refused():
-    with pytest.raises(oai.ApiError) as e:
-        oai.parse_sampling({"slo": "interactive"})
-    assert e.value.param == "slo" and e.value.status == 400
+    """A malformed `slo` tag is a 400 on `slo` in both packages; a class
+    name passes through (the engine refuses a class it does not track),
+    and `service_tier` becomes the class only where the server has it."""
+    for bad in ({"slo": ""}, {"slo": 3}, {"slo": ["batch"]}):
+        with pytest.raises(oai.ApiError) as e:
+            oai.parse_sampling(bad)
+        with pytest.raises(joai.ApiError) as je:
+            joai.parse_sampling(bad)
+        assert (e.value.param, e.value.status) == ("slo", 400)
+        assert (e.value.param, e.value.status) == (je.value.param,
+                                                   je.value.status)
+    classes = {"interactive", "standard", "batch"}
+    for body, want in (({"slo": "batch"}, "batch"),
+                       ({"service_tier": "batch"}, "batch"),
+                       ({"service_tier": "flex"}, None)):
+        got = oai.parse_sampling(body, slo_classes=classes)[0].slo
+        assert got == want == joai.parse_sampling(body, slo_classes=classes)[0].slo
+    assert oai.parse_sampling({"service_tier": "batch"})[0].slo is None
 
 
 @pytest.mark.parametrize("body,ok", [

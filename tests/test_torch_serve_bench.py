@@ -23,6 +23,7 @@ import glob
 import json
 import os
 import types
+import urllib.request
 import weakref
 
 import numpy as np
@@ -114,11 +115,26 @@ REF_DETAIL = {
              "direct_requests_per_sec", "http_overhead_pct",
              "http_mean_ttft_s", "http_ttft_p95_s", "http_itl_p99_s",
              "stream_token_exact", *KV, *PROBE},
+    # run_slo_bench :1971-2008
+    "slo": {"config", "workload", "n_requests", "n_slots", "max_new_tokens",
+            "decode_block", "prompt_lens", "mean_interarrival_s", "reps",
+            "class_cycle", "slo_targets", "slo_overhead_pct",
+            "slo_requests_per_sec", "plain_requests_per_sec",
+            "goodput_tokens_per_s", "tokens_per_sec", "goodput_ratio",
+            "attainment_by_class", "goodput_tokens", "ttft_p95_s",
+            "itl_p95_s", "e2e_p95_s", *KV, *PROBE},
 }
+# `_traced_arm_fields` :296-307 (trace_out when given), and the status
+# endpoint's port from the probe :390-391
+TRACED = {"trace_overhead_pct", "traced_requests_per_sec", "trace_events",
+          "trace_out"}
+STATUS = {"status_port"}
 # what the port leaves out of each: the XLA set everywhere; the paged
 # decode decomposition and the anatomy arm wait for the kernel bench and
-# the compile observatory
+# the compile observatory; the SLO workload's e2e_p95_s reads the
+# reference's e2e latency histogram, which the port's metrics do not keep
 LEFT_OUT = {
+    "slo": {"e2e_p95_s"},
     "paged": {"gather_wall_s", "dequant_wall_s", "scatter_wall_s",
               "gather_share_pct", "dequant_share_pct", "scatter_share_pct",
               "attention_share_pct", "anatomy_overhead_pct",
@@ -377,6 +393,42 @@ def test_sampling_workload_keys():
     assert result["detail"]["greedy_tokens_per_sec"] > 0
 
 
+def test_slo_workload_keys_and_attainment():
+    with _no_collector():
+        result = bench.run_slo_bench(**SMALL, reps=1)
+    _detail_keys_hold(result, "slo")
+    d = result["detail"]
+    assert set(d["arms"]) == {"probe", "slo[0]", "plain[0]"}
+    assert sum(c["finished"] for c in d["attainment_by_class"].values()) == 6
+    assert result["metric"] == "serve_slo_goodput_tokens_per_s"
+
+
+def test_traced_arm_and_status_port_keys(tmp_path):
+    """`trace=True` adds the traced arm's fields and writes its Chrome
+    trace; `status_port` keeps the probe engine serving /healthz for the
+    run and closes it at the end."""
+    out = str(tmp_path / "t.json")
+    seen = {}
+    real = bench._release_probe
+
+    def release(eng, hold_s=0.0):
+        with urllib.request.urlopen(eng.status.url("/healthz"), timeout=30) as r:
+            seen["healthz"] = r.status
+        real(eng, hold_s)
+        seen["closed"] = eng.status is None
+
+    bench._release_probe = release
+    try:
+        result = bench.run_serve_bench(**SMALL, trace=True, trace_out=out,
+                                       status_port=0)
+    finally:
+        bench._release_probe = real
+    assert set(result["detail"]) == _cpu_keys("serve") | TRACED | STATUS
+    assert result["detail"]["trace_events"] > 0
+    assert json.load(open(out))["traceEvents"]
+    assert seen == {"healthz": 200, "closed": True}
+
+
 def test_http_workload_keys_and_exact_streams():
     with _no_collector():
         result = bench.run_http_bench(**SMALL, reps=1)
@@ -485,13 +537,13 @@ def test_cli_serve_bench_writes_its_line(tmp_path, capsys):
 @pytest.mark.parametrize("argv,code,item", [
     (["--speculative"], 2, "ROADMAP A5"),
     (["--kv-quant", "int8"], 2, "ROADMAP A5"),
-    (["--slo"], 2, "ROADMAP A4"),
+    (["--journal-kill-step", "3"], 2, "ROADMAP A4"),
     (["--chaos"], 2, "ROADMAP A4"),
     (["--journal"], 2, "ROADMAP A4"),
     (["--replay"], 2, "ROADMAP A4"),
     (["--fleet"], 2, "ROADMAP A4"),
-    (["--status-port", "0"], 2, "ROADMAP A4"),
-    (["--trace-out=t.json"], 2, "ROADMAP A4"),
+    (["--fleet-replicas", "2"], 2, "ROADMAP A4"),
+    (["--replay-train-steps=3"], 2, "ROADMAP A4"),
     (["--obs-hlo-dir", "d"], 2, "ROADMAP A8"),
     (["--paged", "--http"], 2, "pick one per run"),
     (["--checkpoint-dir", "ck"], 2, "not consumed"),

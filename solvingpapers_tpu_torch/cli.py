@@ -18,13 +18,19 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--trace [--trace-out t.json]] [--slo] [--degrade]
                [--step-deadline S] [--journal j.jsonl [--journal-strict]]
                [--timeseries-interval 1.0] [--timeseries-capacity 120]
+               [--replicas N]
+    cli replay --config dsv3_long --journal j.jsonl [--config-overrides
+               K=V ...] [--byte-exact-min 1.0] [--agreement-min 0]
+               [--cut-stride 8] [--max-cuts 512] [--max-requests N]
+               [--pace] [--out r.json] [the engine flags of serve]
     cli serve-bench --config llama3_shakespeare [--shared-prefix |
-               --sampling | --paged | --http | --slo] [--requests N]
-               [--slots 8] [--max-new-tokens N] [--prompt-lens 16 32 48 64]
-               [--skip-sequential] [--trace [--trace-out t.json]
-               [--trace-dump d.jsonl]] [--status-port 0 [--status-hold-s S]]
-               [--out f.jsonl [--append]]
-    cli trace-summary t.json [--top 5]
+               --sampling | --paged | --http | --slo | --chaos | --journal
+               | --replay | --fleet] [--requests N] [--slots 8]
+               [--max-new-tokens N] [--prompt-lens 16 32 48 64]
+               [--skip-sequential] [--trace [--trace-out
+               t.json] [--trace-dump d.jsonl]] [--status-port 0
+               [--status-hold-s S]] [--out f.jsonl [--append]]
+    cli trace-summary t.json [--top 5] [--fleet]
 
 Every command runs on ``--device cuda`` (the default; it raises when
 there is no card) or ``--device cpu``; the reference's `--platform` and
@@ -52,16 +58,29 @@ Last-Event-ID. `--trace` turns the flight recorder on and `--trace-out`
 writes its Chrome trace at shutdown; `--slo` accounts requests under
 `DEFAULT_SLO_TARGETS`; `--degrade` arms the degradation ladder;
 `--step-deadline` the step watchdog; `--timeseries-interval 0` turns the
-time series off. SIGINT / SIGTERM shut it down in order: drain streams,
-close the engine, stop the HTTP threads.
+time series off. `--replicas N` serves a fleet of N engines on the one
+model behind the same port (serve/fleet.py: prefix-affinity and
+SLO-aware routing, the merged /metrics, the fleet /statusz), each
+journaling to PATH.rN and recovering it before the door opens, and
+`--trace-out` then writes the stitched fleet trace. SIGINT / SIGTERM
+shut it down in order: drain streams, close the engines, stop the HTTP
+threads.
+
+`replay` re-serves a journal's finished streams on a fresh engine of the
+model `serve` builds (same --config, --seed, --checkpoint-dir), shaped
+by the engine flags and `--config-overrides` (serve/replay.py), prints
+the divergence report, and exits 2 past its gate (`--byte-exact-min`,
+`--agreement-min`).
 
 `serve-bench` runs one workload of `serve/bench.py` a run — Poisson
 (engine against sequential `generate`, the default), `--shared-prefix`,
-`--sampling`, `--paged`, `--http` or `--slo` — on random weights, and
+`--sampling`, `--paged`, `--http`, `--slo`, `--chaos`, `--journal`,
+`--replay` or `--fleet` — on random weights, and
 prints one JSON line with a provenance stamp (written to `--out` too when
 given). Beyond the reference's flags it takes `--max-seq-len` (the
 model's position budget, which the prefix stems stretch to) and `--reps`
-(the paged, HTTP and SLO workloads' ABBA pairs); without
+(the ABBA pairs of the paged, HTTP, SLO, chaos, journal and fleet
+workloads); without
 `--prompt-lens`, the default cycle 16 32 48 64 keeps the lengths that
 fit the model's positions with the new tokens (gpt_tiny's 64 at 4 new
 tokens: 16 32 48). `--trace` adds a traced arm to the Poisson, prefix
@@ -69,15 +88,15 @@ and sampling workloads (`trace_overhead_pct`); `--status-port` keeps a
 status endpoint up for the run (`--status-hold-s` past its end).
 
 `trace-summary` rebuilds per-request timelines from a flight-recorder
-export (`metrics/trace.py`).
+export (`metrics/trace.py`); `--fleet` requires a stitched fleet export
+and prints its fleet section.
 
-Not ported, refused with their ROADMAP items: `replay`, `trace-summary
---fleet`, `serve --replicas` and the serve-bench workloads `--chaos`,
-`--journal`, `--replay` and `--fleet` (A4, the replay harness and the
-fleet router), `kernel-bench`, `sample --speculative` and the flags of
-the quantized pool and speculative decoding (A5), and the compile
-observatory's (A8); image, KD and Gemma configs (A6) and pipeline ones
-(A7) are not registered.
+Not ported, refused with their ROADMAP items: `kernel-bench`, `sample
+--speculative` and the flags of the quantized pool and speculative
+decoding (A5: of `serve`, `serve-bench` and `replay`, whose `--replay`
+workload also leaves out the reference's int8 candidate arm), and the
+compile observatory's (A8); image, KD and Gemma configs (A6) and
+pipeline ones (A7) are not registered.
 """
 
 from __future__ import annotations
@@ -94,7 +113,6 @@ import torch
 # the reference's commands the port refuses, with the ROADMAP item that
 # brings each
 UNPORTED = {
-    "replay": "A4 (the replay harness, serve/replay.py)",
     "kernel-bench": "A5 (serve/kernel_bench.py)",
 }
 
@@ -342,7 +360,6 @@ SERVE_UNPORTED = {
     "--speculative": "A5 (speculative decoding)",
     "--spec-k": "A5 (speculative decoding)",
     "--spec-rounds": "A5 (speculative decoding)",
-    "--replicas": "A4 (the fleet router, serve/fleet.py)",
 }
 
 
@@ -365,20 +382,41 @@ def cmd_serve(args) -> int:
     cfg, model, _, table, encode, decode, info = built
     print("[serve] tokenizer " + json.dumps(info), file=sys.stderr, flush=True)
     serve_cfg = _serve_config(args, model)
-    engine = ServeEngine(model, serve_cfg, device=device, detokenize=decode)
-    if serve_cfg.journal_path:
-        # crash-safe warm restart: the journal's unfinished entries are
-        # requeued BEFORE the front door starts stepping
-        resumed = engine.recover()
-        print(f"[serve] journal {serve_cfg.journal_path}: recovered "
-              f"{len(resumed)} in-flight request(s)", file=sys.stderr,
-              flush=True)
-    server = ApiServer(engine, encode=encode, decode=decode, token_table=table,
-                       model_name=args.config)
+    n_replicas = max(1, args.replicas)
+    engines = []
+    for i in range(n_replicas):
+        rep_cfg = serve_cfg
+        if serve_cfg.journal_path and n_replicas > 1:
+            # each replica journals to its own file: one shared file would
+            # interleave the records of independent engines
+            rep_cfg = dataclasses.replace(
+                serve_cfg, journal_path=f"{serve_cfg.journal_path}.r{i}")
+        # the replicas share the one model, and so one copy of its weights
+        eng = ServeEngine(model, rep_cfg, device=device, detokenize=decode)
+        if rep_cfg.journal_path:
+            # crash-safe warm restart: the journal's unfinished entries are
+            # requeued BEFORE the front door starts stepping
+            resumed = eng.recover()
+            print(f"[serve] journal {rep_cfg.journal_path}: recovered "
+                  f"{len(resumed)} in-flight request(s)", file=sys.stderr,
+                  flush=True)
+        engines.append(eng)
+    router = None
+    fleet_note = ""
+    if n_replicas > 1:
+        from solvingpapers_tpu_torch.serve.fleet import FleetRouter
+
+        router = FleetRouter(engines)
+        server = ApiServer(encode=encode, decode=decode, token_table=table,
+                           model_name=args.config, router=router)
+        fleet_note = f" — a fleet of {n_replicas} replicas"
+    else:
+        server = ApiServer(engines[0], encode=encode, decode=decode,
+                           token_table=table, model_name=args.config)
     print(f"[serve] {args.config} on http://{server.host}:{server.port} — "
-          "POST /v1/completions /v1/chat/completions, GET /v1/models "
-          "/v1/requests/<id> /healthz /metrics /statusz /timeseriesz",
-          file=sys.stderr, flush=True)
+          "POST /v1/completions /v1/chat/completions /v1/replay, GET "
+          "/v1/models /v1/requests/<id> /v1/replay/<id> /healthz /metrics "
+          f"/statusz /timeseriesz{fleet_note}", file=sys.stderr, flush=True)
     stop = threading.Event()
 
     def _sig(signum, frame):
@@ -394,13 +432,105 @@ def cmd_serve(args) -> int:
               file=sys.stderr, flush=True)
         server.close()
         if args.trace_out:
-            # written after close, so the drain's spans are in the file
-            if engine.trace is None:
+            # written after close, so the drain's spans are in the file; a
+            # fleet writes the stitched export (router and every replica)
+            if engines[0].trace is None:
                 print("[serve] --trace-out skipped: tracing is off (pass "
                       "--trace)", file=sys.stderr)
+            elif router is not None:
+                router.export_chrome_fleet(args.trace_out)
+                print(f"[serve] fleet trace -> {args.trace_out}",
+                      file=sys.stderr)
             else:
-                engine.trace.export_chrome(args.trace_out)
+                engines[0].trace.export_chrome(args.trace_out)
                 print(f"[serve] trace -> {args.trace_out}", file=sys.stderr)
+    return 0
+
+
+def cmd_replay(args) -> int:
+    """Replay a request journal against a candidate serving config and gate
+    on the divergence report (serve/replay.py): journal real traffic,
+    replay it under the proposed knobs, ship only if the streams still
+    match. The model is built as `cli serve` builds it (same --config,
+    --seed and --checkpoint-dir, so the same weights); the engine flags
+    and --config-overrides shape the candidate; with overrides the
+    un-overridden config is re-served too, for paired deltas. Prints the
+    report as one JSON line.
+
+    Exit codes: 0 the gate passed; 2 divergence beyond --byte-exact-min or
+    --agreement-min (the canary signal); 1 an operational failure (an
+    unreadable journal, nothing comparable)."""
+    from solvingpapers_tpu_torch.serve.engine import ServeConfig
+    from solvingpapers_tpu_torch.serve.journal import JournalError
+    from solvingpapers_tpu_torch.serve.replay import ReplayHarness, apply_overrides
+
+    device = _device(args)
+    built = _serve_model(args, device)
+    if isinstance(built, int):
+        return built
+    _, model, _, _, _, decode, _ = built
+    limit = getattr(model, "max_positions", None) or 512
+    max_len = args.max_len or min(512, limit)
+    base_cfg = ServeConfig(
+        n_slots=args.slots, max_len=max_len, decode_block=args.decode_block,
+        bucket=min(args.bucket, max_len), sample_cap=args.sample_cap,
+        paged=args.paged, max_waiting=args.max_waiting)
+    overrides = {}
+    for kv in args.config_overrides or []:
+        if "=" not in kv:
+            print(f"[replay] --config-overrides takes KEY=VALUE pairs, got "
+                  f"{kv!r}", file=sys.stderr)
+            return 2
+        k, v = kv.split("=", 1)
+        overrides[k] = v
+    try:
+        candidate = apply_overrides(base_cfg, overrides)
+    except (ValueError, TypeError) as e:
+        print(f"[replay] {e}", file=sys.stderr)
+        return 2
+    harness = ReplayHarness(model, detokenize=decode)
+    try:
+        entries = harness.load(args.journal)
+    except FileNotFoundError:
+        print(f"[replay] journal not found: {args.journal}", file=sys.stderr)
+        return 1
+    except JournalError as e:
+        print(f"[replay] {e}", file=sys.stderr)
+        return 1
+    print(f"[replay] {args.journal}: {len(entries)} journaled request(s)",
+          file=sys.stderr)
+    report = harness.run(
+        entries, candidate, baseline=base_cfg if overrides else None,
+        cut_stride=args.cut_stride, max_cuts=args.max_cuts,
+        max_requests=args.max_requests, pace=args.pace,
+        journal_path=args.journal)
+    line = json.dumps(report)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+        print(f"[replay] wrote {args.out}", file=sys.stderr)
+    if report["streams_compared"] == 0:
+        print("[replay] no byte-comparable streams (greedy or seeded) in the "
+              "journal: the gate is undecidable", file=sys.stderr)
+        return 1
+    bex = report["byte_exact_rate"]
+    agr = report["agreement_rate"]
+    print(f"[replay] byte_exact_rate={bex} agreement_rate={agr} "
+          f"compared={report['streams_compared']} "
+          f"skipped={len(report['skipped'])} wall={report['replay_wall_s']}s",
+          file=sys.stderr)
+    failed = []
+    if bex < args.byte_exact_min:
+        failed.append(f"byte_exact_rate {bex} < {args.byte_exact_min}")
+    if args.agreement_min and (agr is None or agr < args.agreement_min):
+        failed.append(f"agreement_rate {agr} < {args.agreement_min}")
+    if failed:
+        for d in report["diverged"][:8]:
+            print(f"[replay] diverged: {json.dumps(d)}", file=sys.stderr)
+        print(f"[replay] DIVERGENCE GATE FAILED: {'; '.join(failed)}",
+              file=sys.stderr)
+        return 2
     return 0
 
 
@@ -414,22 +544,19 @@ BENCH_UNPORTED = {
     "--kv-quant": "A5 (the quantized KV pool)",
     "--kv-quant-block": "A5 (the quantized KV pool)",
     "--quant-train-steps": "A5 (the quantized KV pool)",
-    "--chaos": "A4 (the chaos workload, with the fleet router and replay)",
-    "--chaos-stall": "A4 (the chaos workload, with the fleet router and replay)",
-    "--journal": "A4 (the journal workload, with the fleet router and replay)",
-    "--journal-kill-step": "A4 (the journal workload, with the fleet router "
-                           "and replay)",
-    "--replay": "A4 (the replay harness, serve/replay.py)",
-    "--replay-train-steps": "A4 (the replay harness, serve/replay.py)",
-    "--fleet": "A4 (the fleet router, serve/fleet.py)",
-    "--fleet-replicas": "A4 (the fleet router, serve/fleet.py)",
     "--obs": "A8 (the compile and memory observatory)",
     "--obs-hlo-dir": "A8 (the compile and memory observatory)",
 }
 
-# `trace-summary` flags the port refuses
-TRACE_SUMMARY_UNPORTED = {
-    "--fleet": "A4 (the fleet export, serve/fleet.py)",
+# `replay` flags of the reference that the port refuses: a candidate of
+# the quantized pool or of speculative decoding cannot be built yet
+REPLAY_UNPORTED = {
+    "--kv-quant": "A5 (the quantized KV pool)",
+    "--kv-quant-block": "A5 (the quantized KV pool)",
+    "--kv-exact-lanes": "A5 (the quantized KV pool)",
+    "--speculative": "A5 (speculative decoding)",
+    "--spec-k": "A5 (speculative decoding)",
+    "--spec-rounds": "A5 (speculative decoding)",
 }
 
 
@@ -461,15 +588,20 @@ def cmd_serve_bench(args) -> int:
               file=sys.stderr)
         return 2
     if sum((args.shared_prefix, args.sampling, args.paged, args.http,
-            args.slo)) > 1:
-        print("--shared-prefix, --sampling, --paged, --http and --slo are "
-              "separate workloads; pick one per run", file=sys.stderr)
+            args.slo, args.chaos, args.journal, args.fleet, args.replay)) > 1:
+        print("--shared-prefix, --sampling, --paged, --http, --slo, --chaos, "
+              "--journal, --fleet and --replay are separate workloads; pick "
+              "one per run", file=sys.stderr)
         return 2
     from solvingpapers_tpu_torch.serve.bench import (
         bench_provenance,
+        run_chaos_bench,
+        run_fleet_bench,
         run_http_bench,
+        run_journal_bench,
         run_paged_bench,
         run_prefix_bench,
+        run_replay_bench,
         run_sampling_bench,
         run_serve_bench,
         run_slo_bench,
@@ -487,9 +619,14 @@ def cmd_serve_bench(args) -> int:
         decode_block = 4 if args.shared_prefix else 16
     n_requests = args.requests
     if n_requests is None:
-        n_requests = 48 if args.shared_prefix else 32
-    mean_ia = 0.001 if args.mean_interarrival is None else args.mean_interarrival
-    common = dict(config=config, n_requests=n_requests, n_slots=args.slots,
+        n_requests = 48 if args.shared_prefix or args.chaos else 32
+    n_slots = args.slots
+    if n_slots is None:
+        n_slots = 4 if args.chaos else 8
+    mean_ia = args.mean_interarrival
+    if mean_ia is None:
+        mean_ia = 0.15 if args.chaos else 0.001
+    common = dict(config=config, n_requests=n_requests, n_slots=n_slots,
                   max_new=max_new, decode_block=decode_block,
                   mean_interarrival_s=mean_ia, seed=args.seed, device=device)
     prompt_lens = args.prompt_lens
@@ -513,7 +650,31 @@ def cmd_serve_bench(args) -> int:
     traced = dict(trace=args.trace,
                   trace_out=args.trace_out if args.trace else None,
                   trace_dump=args.trace_dump if args.trace else None)
-    if args.http:
+    if args.replay:
+        # all up front: no arrivals; its own budget and block defaults
+        replay_common = {k: v for k, v in common.items()
+                         if k not in ("mean_interarrival_s", "max_new",
+                                      "decode_block")}
+        result = run_replay_bench(
+            prompt_lens=prompt_lens, max_new=args.max_new_tokens or 48,
+            decode_block=args.decode_block or 8,
+            train_steps=args.replay_train_steps, page_size=args.page_size,
+            **replay_common)
+    elif args.chaos:
+        result = run_chaos_bench(
+            prompt_lens=prompt_lens, stall_s=args.chaos_stall, **reps,
+            **{**common, "max_new": args.max_new_tokens or 48,
+               "decode_block": args.decode_block or 8})
+    elif args.fleet:
+        result = run_fleet_bench(
+            prompt_lens=prompt_lens, n_replicas=args.fleet_replicas,
+            trace_out=args.trace_out if args.trace else None, **reps,
+            **common)
+    elif args.journal:
+        result = run_journal_bench(prompt_lens=prompt_lens,
+                                   kill_step=args.journal_kill_step, **reps,
+                                   **common)
+    elif args.http:
         result = run_http_bench(prompt_lens=prompt_lens, **reps, **common)
     elif args.slo:
         result = run_slo_bench(prompt_lens=prompt_lens, **reps, **common)
@@ -573,12 +734,24 @@ def cmd_trace_summary(args) -> int:
               f"at line {e.lineno} column {e.colno}", file=sys.stderr)
         return 2
     except (ValueError, TypeError, AttributeError, KeyError) as e:
+        if isinstance(e, ValueError) and "partial fleet export" in str(e):
+            # the stitcher's own diagnosis: a sliced fleet file must not
+            # pass for a generic parse failure
+            print(f"{args.trace}: {e}", file=sys.stderr)
+            return 2
         print(f"{args.trace} does not parse as a Chrome trace-event JSON "
               f"({type(e).__name__}: {e}) — expected the flight recorder's "
               "export format", file=sys.stderr)
         return 2
     except OSError as e:
         print(f"cannot read {args.trace}: {e}", file=sys.stderr)
+        return 2
+    if args.fleet and "fleet" not in summary:
+        print(f"{args.trace} holds no fleet events: --fleet expects the "
+              "stitched export (FleetRouter.export_chrome_fleet, `serve "
+              "--replicas N --trace --trace-out`, or `serve-bench --fleet "
+              "--trace --trace-out`); this looks like a single-engine trace, "
+              "so rerun without --fleet", file=sys.stderr)
         return 2
     if summary["n_requests"] or summary["rejected"]:
         print(format_summary(summary, top=args.top))
@@ -760,13 +933,22 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--journal-strict", action="store_true",
                        help="[--journal] a journal I/O failure stops "
                             "serving instead of degrading to journal-off")
+    p_srv.add_argument("--replicas", type=int, default=1,
+                       help="serve a FLEET of N engine replicas on one model "
+                            "behind one port (serve/fleet.py FleetRouter): "
+                            "prefix-affinity and SLO-aware routing, merged "
+                            "/metrics, a fleet /statusz; with --journal each "
+                            "replica journals to PATH.rN, and a drain can "
+                            "migrate live streams between replicas")
     p_srv.add_argument("--trace", action="store_true",
                        help="flight recorder on (ServeConfig.trace): HTTP "
                             "spans join the engine's lifecycle spans per "
                             "request")
     p_srv.add_argument("--trace-out", default=None, metavar="PATH",
                        help="[--trace] write the Chrome trace-event JSON "
-                            "here at shutdown (feed `cli trace-summary`)")
+                            "here at shutdown (feed `cli trace-summary`); "
+                            "with --replicas > 1 the stitched fleet export "
+                            "(`cli trace-summary --fleet`)")
     p_srv.add_argument("--timeseries-interval", type=float, default=1.0,
                        help="time-series sample interval in seconds (0 "
                             "turns the store and /timeseriesz off)")
@@ -777,7 +959,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p_bench)
     p_bench.add_argument("--requests", type=int, default=None,
                          help="default 32 (48 with --shared-prefix)")
-    p_bench.add_argument("--slots", type=int, default=8)
+    p_bench.add_argument("--slots", type=int, default=None,
+                         help="default 8 (4 with --chaos, whose ladder needs "
+                              "queueing)")
     p_bench.add_argument("--max-new-tokens", type=int, default=None,
                          help="default 64 (4 with --shared-prefix, whose "
                               "TTFT story is prefill-bound)")
@@ -787,7 +971,8 @@ def build_parser() -> argparse.ArgumentParser:
                          help="prompt-length cycle; default 16 32 48 64")
     p_bench.add_argument("--mean-interarrival", type=float, default=None,
                          help="Poisson arrival mean gap in seconds; default "
-                              "0.001")
+                              "0.001 (0.15 with --chaos: shedding shows only "
+                              "while arrivals keep coming)")
     p_bench.add_argument("--seed", type=int, default=0)
     p_bench.add_argument("--skip-sequential", action="store_true",
                          help="only run the engine arm")
@@ -831,17 +1016,65 @@ def build_parser() -> argparse.ArgumentParser:
                               "positions (the prefix stems stretch to it)")
     p_bench.add_argument("--reps", type=int, default=None,
                          help="[--paged, --http, --slo] ABBA pairs (default "
-                              "2)")
+                              "2); [--chaos, --journal, --fleet] ABBA pairs of "
+                              "the overhead arms (default 4)")
     p_bench.add_argument("--slo", action="store_true",
                          help="SLO workload instead: the Poisson trace with "
                               "requests tagged interactive / standard / "
                               "batch through an slo_targets engine, "
                               "ABBA-paired against the plain engine "
                               "(run_slo_bench)")
+    p_bench.add_argument("--chaos", action="store_true",
+                         help="fault-tolerance soak instead: one seeded fault "
+                              "schedule (NaN and Inf slot poisons, a device "
+                              "error and an OOM, a step stall, a journal I/O "
+                              "error) over the Poisson trace through a "
+                              "fault-free reference, a ladder-off arm "
+                              "(streams_survived, survivor token-exactness, "
+                              "zero leaks) and a ladder-on arm (goodput), "
+                              "plus fault_overhead_pct (run_chaos_bench)")
+    p_bench.add_argument("--chaos-stall", type=float, default=0.75,
+                         help="[--chaos] injected step-stall seconds (the "
+                              "watchdog's deadline is set below it)")
+    p_bench.add_argument("--journal", action="store_true",
+                         help="durability workload instead: ABBA-paired "
+                              "journal-on against journal-off req/s "
+                              "(journal_overhead_pct) and a kill-and-recover "
+                              "arm: abandon the engine mid-decode, recover the "
+                              "journal on a fresh one, recovered_token_exact "
+                              "(run_journal_bench)")
+    p_bench.add_argument("--journal-kill-step", type=int, default=None,
+                         help="[--journal] engine step at which the "
+                              "kill-and-recover arm abandons its engine "
+                              "(default: after a third of the requests "
+                              "finish)")
+    p_bench.add_argument("--replay", action="store_true",
+                         help="replay workload instead: journal a greedy and "
+                              "seeded workload on a briefly trained model on "
+                              "both pools and replay each through "
+                              "serve/replay.py at the identical config: "
+                              "replay_byte_exact, the never-flip gate "
+                              "(run_replay_bench; the int8 candidate arm "
+                              "waits for ROADMAP A5)")
+    p_bench.add_argument("--replay-train-steps", type=int, default=150,
+                         help="[--replay] brief training steps before "
+                              "journaling (0 = random init)")
+    p_bench.add_argument("--fleet", action="store_true",
+                         help="fleet workload instead: router_overhead_pct "
+                              "(a one-replica FleetRouter against the bare "
+                              "engine), fleet_trace_overhead_pct, and a "
+                              "mid-decode drain of replica r0 whose streams "
+                              "its peers adopt: migrated_token_exact, "
+                              "fleet_token_exact, zero leaks on every replica "
+                              "(run_fleet_bench)")
+    p_bench.add_argument("--fleet-replicas", type=int, default=2,
+                         help="[--fleet] replicas of the drain arm")
     p_bench.add_argument("--trace", action="store_true",
                          help="[Poisson, --shared-prefix, --sampling] add a "
                               "traced arm, ABBA-paired against the untraced "
-                              "one (trace_overhead_pct)")
+                              "one (trace_overhead_pct); [--fleet] write the "
+                              "drain arm's stitched fleet trace to "
+                              "--trace-out")
     p_bench.add_argument("--trace-out", default="serve_trace.json",
                          help="[--trace] write the traced arm's Chrome trace "
                               "here (feed `cli trace-summary`)")
@@ -866,6 +1099,63 @@ def build_parser() -> argparse.ArgumentParser:
                                       "the flight recorder")
     p_tsum.add_argument("--top", type=int, default=5,
                         help="how many slowest requests to print")
+    p_tsum.add_argument("--fleet", action="store_true",
+                        help="require the stitched fleet section: exit 2 "
+                             "when the trace holds no fleet events (a "
+                             "single-engine export), or when its manifest "
+                             "declares replicas the file is missing")
+
+    p_rep = sub.add_parser(
+        "replay",
+        help="replay a request journal against a candidate config and gate "
+             "on stream divergence (serve/replay.py): exit 0 = match, 2 = "
+             "divergence beyond the thresholds, 1 = operational failure")
+    _add_common(p_rep)
+    p_rep.add_argument("--journal", required=True, metavar="PATH",
+                       help="journal to replay: the live file a `cli serve "
+                            "--journal` wrote (a rotation mid-read is "
+                            "tolerated) or a copy")
+    p_rep.add_argument("--config-overrides", nargs="*", default=None,
+                       metavar="KEY=VALUE",
+                       help="ServeConfig fields of the CANDIDATE (e.g. "
+                            "paged=true decode_block=16); values parse as "
+                            "JSON, else stay strings; with overrides the "
+                            "un-overridden config is re-served too, for "
+                            "paired deltas")
+    p_rep.add_argument("--out", default=None,
+                       help="also write the report JSON here")
+    p_rep.add_argument("--byte-exact-min", type=float, default=1.0,
+                       help="exit 2 if byte_exact_rate over the greedy and "
+                            "seeded streams falls below this (default 1.0: "
+                            "an identical config must match exactly)")
+    p_rep.add_argument("--agreement-min", type=float, default=0.0,
+                       help="exit 2 if the teacher-forced agreement_rate "
+                            "falls below this (0 turns the check off)")
+    p_rep.add_argument("--max-requests", type=int, default=None,
+                       help="replay only the first N journaled requests")
+    p_rep.add_argument("--cut-stride", type=int, default=8,
+                       help="token stride of the teacher-forced agreement "
+                            "cuts (0 turns the agreement pass off)")
+    p_rep.add_argument("--max-cuts", type=int, default=512,
+                       help="total agreement-cut budget (the overflow is "
+                            "reported as cuts_dropped)")
+    p_rep.add_argument("--pace", action="store_true",
+                       help="re-serve at the recorded arrival offsets "
+                            "instead of all up front")
+    p_rep.add_argument("--slots", type=int, default=8)
+    p_rep.add_argument("--max-len", type=int, default=None,
+                       help="engine sequence capacity (default: min(512, "
+                            "model max positions)); match the recording "
+                            "server's")
+    p_rep.add_argument("--decode-block", type=int, default=8)
+    p_rep.add_argument("--bucket", type=int, default=32)
+    p_rep.add_argument("--sample-cap", type=int, default=64)
+    p_rep.add_argument("--max-waiting", type=int, default=256)
+    p_rep.add_argument("--paged", action="store_true")
+    p_rep.add_argument("--seed", type=int, default=0,
+                       help="model-init seed: must match the recording "
+                            "server's for byte-exactness without a "
+                            "checkpoint")
 
     for name in UNPORTED:
         sub.add_parser(name, help=f"not ported (ROADMAP {UNPORTED[name]})")
@@ -881,7 +1171,7 @@ def main(argv=None) -> int:
               f"{UNPORTED[argv[0]]})", file=sys.stderr)
         return 2
     refused = {"serve": SERVE_UNPORTED, "serve-bench": BENCH_UNPORTED,
-               "trace-summary": TRACE_SUMMARY_UNPORTED}
+               "replay": REPLAY_UNPORTED}
     if argv and argv[0] in refused:
         for arg in argv[1:]:
             flag = arg.split("=", 1)[0]
@@ -893,7 +1183,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     run = {"list": cmd_list, "train": cmd_train, "sample": cmd_sample,
            "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve,
-           "serve-bench": cmd_serve_bench,
+           "serve-bench": cmd_serve_bench, "replay": cmd_replay,
            "trace-summary": cmd_trace_summary}[args.cmd]
     try:
         return run(args)

@@ -9,6 +9,17 @@ carries a hash of its source, of every header under `csrc/` and of the
 flags, so an edited source or shared header (`philox.cuh`) is never
 served by a stale build.
 
+Builds and loads are serialized by `lock`, and launch counts go through
+`count`: the serving fleet (serve/fleet.py) launches kernels from several
+engine-loop threads of one process, whose first launches may race. A
+loaded library is read without the lock (it is published only once its
+entry points are typed). The launchers' `static bool configured` flags
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu) may be read and set by two
+threads at once. That race is harmless: a thread that reads the flag
+unset sets the kernel's attributes itself before its launch (setting the
+same value twice is allowed), and the flag is set only after a
+`cudaFuncSetAttribute` that returned.
+
 Nothing here runs at import time: the CPU test box has no `nvcc`.
 """
 
@@ -18,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +48,21 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, kept in the log
 ]
+
+
+# held across a build and a library's first load: threads of one process
+# share a pid, so without it two first launches would write one temporary
+# file and load half-written libraries
+lock = threading.RLock()
+_count_lock = threading.Lock()
+
+
+def count(fn) -> None:
+    """Add one to a kernel wrapper's ``launches``. A bare ``+=`` reads and
+    writes the attribute in two steps, so two threads launching at once
+    could lose a launch; the lock makes the count exact."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc() -> str:
@@ -65,6 +92,11 @@ def build_all(names=None) -> dict[str, dict]:
     {name: {"path", "seconds", "log"}}; raises RuntimeError naming the
     library and the compiler's output when a build fails."""
     names = list(LIBRARIES) if names is None else list(names)
+    with lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: dict[str, dict] = {}
     running = {}
@@ -73,7 +105,7 @@ def build_all(names=None) -> dict[str, dict]:
         if path.exists():
             out[name] = {"path": path, "seconds": 0.0, "log": "(cached)"}
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / LIBRARIES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

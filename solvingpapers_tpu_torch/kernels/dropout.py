@@ -60,18 +60,21 @@ _lib = None  # the loaded mask library, built at first CUDA use
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build.ensure_built("dropout_mask")))
-        lib.dropout_mask.argtypes = [ctypes.c_uint64, ctypes.c_uint32] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
-        lib.dropout_mask.restype = ctypes.c_int
-        # (dtype, seed, threshold, d, 1 / d, BH, Sq, Skv, x, y, stream)
-        lib.dropout_apply.argtypes = [ctypes.c_int, ctypes.c_uint64,
-                                      ctypes.c_uint32, ctypes.c_float,
-                                      ctypes.c_float] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-        lib.dropout_apply.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:  # warm: a launch takes no lock here
+        return _lib
+    with build.lock:  # one build and load, whichever thread comes first
+        if _lib is None:
+            lib = ctypes.CDLL(str(build.ensure_built("dropout_mask")))
+            lib.dropout_mask.argtypes = [ctypes.c_uint64, ctypes.c_uint32] + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+            lib.dropout_mask.restype = ctypes.c_int
+            # (dtype, seed, threshold, d, 1 / d, BH, Sq, Skv, x, y, stream)
+            lib.dropout_apply.argtypes = [ctypes.c_int, ctypes.c_uint64,
+                                          ctypes.c_uint32, ctypes.c_float,
+                                          ctypes.c_float] + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+            lib.dropout_apply.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
@@ -175,7 +178,7 @@ def dropout_mask(seed: int, rate: float, bh: int, sq: int, skv: int,
                                torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_mask kernel launch failed: CUDA error {err}")
-    dropout_mask.launches += 1
+    build.count(dropout_mask)
     return out.view(torch.bool)
 
 
@@ -248,7 +251,7 @@ def dropout_apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
             err = launch(*args)
     if err != 0:
         raise RuntimeError(f"dropout_apply kernel launch failed: error {err}")
-    dropout_apply.launches += 1
+    build.count(dropout_apply)
     return y
 
 

@@ -66,41 +66,47 @@ _bwd_lib = None  # the loaded backward library, likewise
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build.ensure_built("flash_fwd")))
-        fn = lib.flash_fwd
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:  # warm: a launch takes no lock here
+        return _lib
+    with build.lock:  # one build and load, whichever thread comes first
+        if _lib is None:
+            lib = ctypes.CDLL(str(build.ensure_built("flash_fwd")))
+            fn = lib.flash_fwd
+            fn.argtypes = (
+                [ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 9
+                + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
+                + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
 def _bwd_library():
     global _bwd_lib
-    if _bwd_lib is None:
-        lib = ctypes.CDLL(str(build.ensure_built("flash_bwd")))
-        # (dtype, head_dim, q, k, v, dO, lse, delta, <outputs>, B, N, Nkv,
-        #  Sq, Skv, scale, causal, dropout, seed, threshold, drop_scale,
-        #  [splits,] tiles, stream)
-        for fn, n_out, n_splits in ((lib.flash_bwd_dq, 1, 0),
-                                    (lib.flash_bwd_dkv, 2, 1)):
-            fn.argtypes = (
-                [ctypes.c_int, ctypes.c_int]
-                + [ctypes.c_void_p] * (6 + n_out)
-                + [ctypes.c_int] * 5
-                + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
-                + [ctypes.c_int] * n_splits
-                + [ctypes.c_void_p] * 2
-            )
-            fn.restype = ctypes.c_int
-        _bwd_lib = lib
+    if _bwd_lib is not None:  # warm: a launch takes no lock here
+        return _bwd_lib
+    with build.lock:  # one build and load, whichever thread comes first
+        if _bwd_lib is None:
+            lib = ctypes.CDLL(str(build.ensure_built("flash_bwd")))
+            # (dtype, head_dim, q, k, v, dO, lse, delta, <outputs>, B, N, Nkv,
+            #  Sq, Skv, scale, causal, dropout, seed, threshold, drop_scale,
+            #  [splits,] tiles, stream)
+            for fn, n_out, n_splits in ((lib.flash_bwd_dq, 1, 0),
+                                        (lib.flash_bwd_dkv, 2, 1)):
+                fn.argtypes = (
+                    [ctypes.c_int, ctypes.c_int]
+                    + [ctypes.c_void_p] * (6 + n_out)
+                    + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGTYPES
+                    + [ctypes.c_int] * n_splits
+                    + [ctypes.c_void_p] * 2
+                )
+                fn.restype = ctypes.c_int
+            _bwd_lib = lib
     return _bwd_lib
 
 
@@ -329,7 +335,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None,
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: error {err} "
                            "(-2: no tensor map could be encoded)")
-    flash_attention_fwd.launches += 1
+    build.count(flash_attention_fwd)
     return o, lse
 
 
@@ -581,7 +587,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, scale=None,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
-    flash_bwd_dq.launches += 1
+    build.count(flash_bwd_dq)
     return dq
 
 
@@ -625,7 +631,7 @@ def _launch_dkv(q, k, v, do, lse, delta, splits, *, causal=False, scale=None,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
-    flash_bwd_dkv.launches += 1
+    build.count(flash_bwd_dkv)
     if splits > 1:
         dk, dv = fold_partials(dk).to(k.dtype), fold_partials(dv).to(v.dtype)
     return dk, dv

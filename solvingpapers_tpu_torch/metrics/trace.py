@@ -34,11 +34,18 @@ the lifecycle spans partition its wall time exactly — queue
 are taken on the host after the block's host read, which waits for the
 device, so tracing adds no device synchronisation of its own.
 
-The reference's fleet export and fleet section, its mesh section, its
-per-program roofline and anatomy sections (read from XLA compile
-events) and its train-trace summary are not here: their events do not
-exist in the port yet, and `summarize_trace` has no such section when
-the trace holds no such events, as in the reference.
+`fleet_events_to_chrome` stitches the fleet router's recorder and every
+replica's into one trace, one Perfetto process a section, with flows
+that follow a request across reroutes and drain migrations; the
+summary's `fleet` section (`_fleet_section`, `format_fleet`: `cli
+trace-summary --fleet`) reads the routing counters, the requests each
+replica finished and the migrations back from it.
+
+The reference's mesh section, its per-program roofline and anatomy
+sections (read from XLA compile events) and its train-trace summary are
+not here: their events do not exist in the port yet, and
+`summarize_trace` has no such section when the trace holds no such
+events, as in the reference.
 """
 
 from __future__ import annotations
@@ -262,6 +269,119 @@ def events_to_chrome(events: list[TraceEvent]) -> dict:
                     "ts": us(e.ts)}
             if ph == "f":
                 flow["bp"] = "e"  # bind to the enclosing slice
+            out.append(flow)
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+def fleet_events_to_chrome(sections) -> dict:
+    """Stitch N recorders into ONE Chrome trace: `sections` is
+    ``[(label, events), ...]`` — the router recorder plus one section
+    per replica, all on the shared engine clock (`serve.metrics.now`),
+    so one t0 aligns every section.
+
+    Layout: each section becomes its own Perfetto PROCESS (pid = index
+    + 1, named via process_name/process_sort_index metadata) with its
+    own tracks as tids — the process-per-replica view the fleet drain
+    post-mortem reads top-to-bottom. Per-section per-request flows are
+    emitted exactly as `events_to_chrome` does (request ids are unique
+    across in-process replicas, so the flow ids cannot collide);
+    additionally, every event carrying a ``rid`` arg (the router's
+    route/reroute/migrate spans and each engine's submit instant) joins
+    a CROSS-SECTION flow keyed on the request's trace id — the arrow
+    that follows a request from the router into its replica and, after
+    a drain, across to the adopting peer. Flow ids are crc32(rid)
+    (Chrome binds flows by (cat, name, id), and the name carries the
+    full rid, so a crc collision cannot merge two requests' arrows).
+
+    A ``fleet_manifest`` metadata record lists the declared section
+    labels. It survives `load_chrome`'s events-only round trip, so
+    `summarize_trace` can detect a PARTIAL export (a slice of the
+    stitched file missing a declared section) and refuse loudly
+    instead of summarizing half a fleet as the whole."""
+    import zlib
+
+    sections = [(label, list(evs)) for label, evs in sections]
+    labels = [label for label, _ in sections]
+    if len(set(labels)) != len(labels):
+        raise ValueError(f"duplicate fleet section labels: {labels}")
+    out: list[dict] = [{
+        "ph": "M", "pid": 0, "tid": 0, "name": "fleet_manifest",
+        "args": {"sections": labels},
+    }]
+    all_ts = [e.ts for _, evs in sections for e in evs]
+    t0 = min(all_ts) if all_ts else 0.0
+
+    def us(t: float) -> float:
+        return round((t - t0) * 1e6, 3)
+
+    # (pid, ts, tid, rid) anchors for the cross-section flows
+    rid_anchors: dict[str, list[tuple[float, int, int]]] = {}
+    for idx, (label, evs) in enumerate(sections):
+        pid = idx + 1
+        out.append({"ph": "M", "pid": pid, "name": "process_name",
+                    "args": {"name": label}})
+        out.append({"ph": "M", "pid": pid, "name": "process_sort_index",
+                    "args": {"sort_index": idx}})
+        tracks = sorted({e.track for e in evs}, key=_track_sort_key)
+        tids = {t: i for i, t in enumerate(tracks)}
+        for track, tid in tids.items():
+            out.append({"ph": "M", "pid": pid, "tid": tid,
+                        "name": "thread_name", "args": {"name": track}})
+            out.append({"ph": "M", "pid": pid, "tid": tid,
+                        "name": "thread_sort_index",
+                        "args": {"sort_index": tid}})
+        by_req: dict[int, list[TraceEvent]] = {}
+        for e in evs:
+            rec = {"ph": e.ph, "pid": pid, "tid": tids[e.track],
+                   "name": e.name, "cat": e.cat, "ts": us(e.ts)}
+            args = dict(e.args or {})
+            if e.ph == "X":
+                rec["dur"] = round(e.dur * 1e6, 3)
+            elif e.ph == "i":
+                rec["s"] = "t"
+            elif e.ph == "C":
+                rec["args"] = args
+                out.append(rec)
+                continue
+            if e.req is not None:
+                args["req"] = e.req
+                by_req.setdefault(e.req, []).append(e)
+            if args:
+                rec["args"] = args
+            rid = (e.args or {}).get("rid")
+            if rid is not None:
+                rid_anchors.setdefault(str(rid), []).append(
+                    (e.ts, pid, tids[e.track]))
+            out.append(rec)
+        for req, revs in by_req.items():
+            revs = sorted(revs, key=lambda e: (e.ts, -ord(e.ph[0])))
+            if len(revs) == 1:
+                continue
+            for i, e in enumerate(revs):
+                ph = "s" if i == 0 else ("f" if i == len(revs) - 1
+                                         else "t")
+                flow = {"ph": ph, "pid": pid, "tid": tids[e.track],
+                        "name": f"req{req}", "cat": "flow", "id": req,
+                        "ts": us(e.ts)}
+                if ph == "f":
+                    flow["bp"] = "e"
+                out.append(flow)
+
+    # the cross-section flow: router decision -> replica submit ->
+    # (migrate) -> peer submit, joined on the request's trace id
+    for rid, anchors in rid_anchors.items():
+        if len(anchors) < 2:
+            continue
+        anchors.sort()
+        fid = zlib.crc32(rid.encode())
+        for i, (ts, pid, tid) in enumerate(anchors):
+            ph = "s" if i == 0 else ("f" if i == len(anchors) - 1
+                                     else "t")
+            flow = {"ph": ph, "pid": pid, "tid": tid,
+                    "name": f"req:{rid}", "cat": "fleet_flow",
+                    "id": fid, "ts": us(ts)}
+            if ph == "f":
+                flow["bp"] = "e"
             out.append(flow)
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 
@@ -566,7 +686,99 @@ def summarize_trace(trace) -> dict:
             "phase_totals_s": http_totals,
             "disconnects": disconnects,
         }
+    fleet = _fleet_section(events)
+    if fleet is not None:
+        # present IFF the trace holds fleet events (router spans or the
+        # stitched export's manifest): a single-engine trace summarizes
+        # with the key absent
+        summary["fleet"] = fleet
     return summary
+
+
+def _fleet_section(events: list[dict]) -> dict | None:
+    """Rebuild the router's view from a stitched fleet export: the
+    declared sections (from the ``fleet_manifest`` metadata record),
+    per-replica served-request counts (finish events grouped by
+    process), and the routing counters (route/reroute/migrate/drain
+    spans, cat "fleet"). None when the trace holds neither a manifest
+    nor fleet events — the backward-compat contract for every
+    single-engine trace recorded before the fleet fabric existed.
+
+    Raises ValueError on a PARTIAL export: the manifest declares
+    sections whose process records are missing (someone sliced the
+    stitched file, or an exporter died mid-write past the JSON layer)
+    — summarizing half a fleet as the whole would be silent data loss.
+    """
+    declared: list | None = None
+    pid_labels: dict[int, str] = {}
+    for e in events:
+        if e.get("ph") != "M":
+            continue
+        if e.get("name") == "fleet_manifest":
+            declared = list((e.get("args") or {}).get("sections") or [])
+        elif e.get("name") == "process_name":
+            label = (e.get("args") or {}).get("name")
+            if label is not None:
+                pid_labels[e.get("pid")] = label
+    routing = {"route": 0, "attempts": 0, "reroutes": 0,
+               "migrations": 0, "drains": 0}
+    drain_wall_s = 0.0
+    migrate_wall_s = 0.0
+    migrations: list[dict] = []
+    any_fleet = False
+    for e in events:
+        if e.get("cat") != "fleet":
+            continue
+        any_fleet = True
+        name = e.get("name")
+        args = e.get("args") or {}
+        if name == "route":
+            routing["route"] += 1
+            routing["attempts"] += int(args.get("attempts", 1))
+        elif name == "reroute":
+            routing["reroutes"] += 1
+        elif name == "migrate":
+            routing["migrations"] += 1
+            migrate_wall_s += e.get("dur", 0.0) / 1e6
+            migrations.append({
+                "rid": args.get("rid"),
+                "from": args.get("src"),
+                "to": args.get("dst"),
+            })
+        elif name == "drain":
+            routing["drains"] += 1
+            drain_wall_s += e.get("dur", 0.0) / 1e6
+    if declared is None and not any_fleet:
+        return None
+    if declared is not None:
+        observed = set(pid_labels.values())
+        missing = [s for s in declared if s not in observed]
+        if missing:
+            raise ValueError(
+                f"partial fleet export: manifest declares sections "
+                f"{declared} but the trace is missing {missing} — "
+                "refusing to summarize a slice of the fleet as the "
+                "whole")
+    # served requests per replica process (finish events carry the
+    # authoritative per-request outcome; pid 1 is the router section
+    # in a stitched export and never stamps request-cat events)
+    by_replica: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "request" and e.get("name") == "finish":
+            label = pid_labels.get(e.get("pid"))
+            if label is not None:
+                by_replica[label] = by_replica.get(label, 0) + 1
+    out: dict = {"routing": routing}
+    if declared is not None:
+        out["sections"] = declared
+    if by_replica:
+        out["requests_by_replica"] = dict(sorted(by_replica.items()))
+    if routing["drains"]:
+        out["drain_wall_s"] = round(drain_wall_s, 6)
+    if migrations:
+        out["migrate_wall_s"] = round(migrate_wall_s, 6)
+        out["migrations"] = migrations
+    return out
 
 
 def format_summary(summary: dict, top: int = 5) -> str:
@@ -610,4 +822,40 @@ def format_summary(summary: dict, top: int = 5) -> str:
         lines.append(f"http front door: {parts}")
         if http.get("disconnects"):
             lines.append(f"  disconnects: {http['disconnects']}")
+    fleet = format_fleet(summary.get("fleet"))
+    if fleet:
+        lines.append("")
+        lines.append(fleet)
+    return "\n".join(lines)
+
+
+def format_fleet(fleet: dict | None) -> str:
+    """Human-readable fleet report (the `fleet` section of
+    `summarize_trace`), or "" when the trace held no fleet events."""
+    if not fleet:
+        return ""
+    lines: list[str] = []
+    sections = fleet.get("sections")
+    if sections:
+        lines.append(f"fleet: {len(sections)} sections "
+                     f"({', '.join(sections)})")
+    else:
+        lines.append("fleet: router events present")
+    r = fleet["routing"]
+    lines.append(
+        f"  routing: {r['route']} routed ({r['attempts']} attempts, "
+        f"{r['reroutes']} reroutes)  drains={r['drains']}  "
+        f"migrations={r['migrations']}"
+    )
+    by_rep = fleet.get("requests_by_replica")
+    if by_rep:
+        parts = "  ".join(f"{k}={v}" for k, v in by_rep.items())
+        lines.append(f"  requests finished by replica: {parts}")
+    if fleet.get("drain_wall_s") is not None:
+        lines.append(f"  drain wall: {fleet['drain_wall_s']:.4f}s")
+    for m in fleet.get("migrations") or []:
+        lines.append(
+            f"  migrated {m.get('rid')}: {m.get('from')} -> "
+            f"{m.get('to')}"
+        )
     return "\n".join(lines)

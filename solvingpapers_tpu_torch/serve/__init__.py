@@ -1,10 +1,13 @@
 """Continuous-batching serving over a lane pool or a paged pool, with a
 radix prefix cache, per-request sampling, grammar-constrained JSON
-decoding (JsonStepper) and an OpenAI-compatible HTTP front door
-(ApiServer) (port of `solvingpapers_tpu/serve`)."""
+decoding (JsonStepper), an OpenAI-compatible HTTP front door
+(ApiServer), a fleet router over engine replicas (FleetRouter) and a
+journal replay harness (ReplayHarness) (port of
+`solvingpapers_tpu/serve`)."""
 
 from solvingpapers_tpu_torch.serve.api import ApiServer, EngineLoop
 from solvingpapers_tpu_torch.serve.engine import ServeConfig, ServeEngine
+from solvingpapers_tpu_torch.serve.fleet import FleetRouter, MigrationReport
 from solvingpapers_tpu_torch.serve.grammar import JsonStepper
 from solvingpapers_tpu_torch.serve.kv_pool import (
     TRASH_PAGE,
@@ -19,6 +22,7 @@ from solvingpapers_tpu_torch.serve.kv_pool import (
 )
 from solvingpapers_tpu_torch.serve.metrics import ServeMetrics
 from solvingpapers_tpu_torch.serve.prefix_cache import PrefixCache
+from solvingpapers_tpu_torch.serve.replay import ReplayHarness
 from solvingpapers_tpu_torch.serve.sampling import (
     PackedSampling,
     SamplingParams,
@@ -32,11 +36,14 @@ __all__ = [
     "ApiServer",
     "EngineLoop",
     "FIFOScheduler",
+    "FleetRouter",
     "JsonStepper",
     "KVSlotPool",
+    "MigrationReport",
     "PackedSampling",
     "PagedKVPool",
     "PrefixCache",
+    "ReplayHarness",
     "Request",
     "SamplingParams",
     "ServeConfig",

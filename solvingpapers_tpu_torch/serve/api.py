@@ -1,6 +1,5 @@
-"""OpenAI-compatible HTTP front door over a live `ServeEngine` (port of
-`solvingpapers_tpu/serve/api.py`, without its replay endpoint and fleet
-routing).
+"""OpenAI-compatible HTTP front door over a live `ServeEngine` or a fleet
+of them (port of `solvingpapers_tpu/serve/api.py`).
 
 One stdlib `ThreadingHTTPServer` on a daemon thread (no dependencies)
 exposes:
@@ -11,6 +10,9 @@ exposes:
     GET  /v1/models             the one hosted model
     GET  /v1/requests/<id>      one request's end-to-end timeline, or its
                                 write-ahead journal record
+    POST /v1/replay             replay a journal against a candidate
+                                config in the background (serve/replay.py)
+    GET  /v1/replay/<id>        that run's progress, then its report
     GET  /healthz /metrics /statusz /timeseriesz   the inspection surface,
                                 on the same listener
 
@@ -56,6 +58,24 @@ with the engine's queue + prefill + decode they partition the
 server-observed wall. `GET /v1/requests/<id>` assembles the same
 timeline from a bounded registry, with or without the recorder.
 
+Fleet mode (`ApiServer(router=...)`, serve/fleet.py): admissions route
+through the `FleetRouter` (prefix affinity, SLO burn, load, with ranked
+retry on a full replica); responses carry ``X-Replica-Id`` (and
+``X-Fleet-Reroutes`` after a retry); /healthz is the router's view,
+/metrics one merged unlabelled set plus one ``replica="rN"`` set a
+replica, /statusz gains a ``fleet`` section. A drain closes a
+"migrated" SSE stream WITHOUT its terminal chunk (the client's signal to
+reconnect with its Last-Event-ID, which resolves on the adopting peer),
+a blocking request rides the migration inside its one POST, and `GET
+/v1/requests/<id>` stitches the hops. Replica 0's engine stays the
+config, vocabulary and fault-plane source.
+
+Replay (serve/replay.py): `POST /v1/replay` re-serves a journal (the
+server's own by default) on a FRESH engine over the live engine's
+weights, one run at a time, in the background; the runs are kept in a
+bounded registry, and the last finished run's `replay/*` gauges ride
+/metrics.
+
 Shutdown (`ApiServer.close`, idempotent): refuse new work (503), drain
 active streams up to `drain_timeout_s` then cancel the rest, stop the
 engine loop, `engine.close()`, then the HTTP threads — so no handler
@@ -75,9 +95,11 @@ import time
 import traceback
 import uuid
 from collections import OrderedDict
+from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch
 
 from solvingpapers_tpu_torch.metrics.http import healthz_response
 from solvingpapers_tpu_torch.metrics.writer import PrometheusTextWriter
@@ -114,17 +136,25 @@ class EngineLoop:
         if start:
             self._thread.start()
 
-    def _locked(self, fn):
-        """Run an engine call under the step lock, counted as a waiter so
-        the loop hands the lock over instead of convoying."""
+    @contextmanager
+    def held(self):
+        """The step lock, taken as a waiter: the loop hands it over after
+        its current step instead of taking it straight back (a bare
+        ``with loop.lock`` on a started loop can starve). Yields the
+        engine, which no step mutates until the block ends."""
         with self._waiter_lock:
             self._waiters += 1
         try:
             with self.lock:
-                return fn()
+                yield self.engine
         finally:
             with self._waiter_lock:
                 self._waiters -= 1
+
+    def _locked(self, fn):
+        """Run an engine call under the step lock (`held`)."""
+        with self.held():
+            return fn()
 
     def submit(self, *args, **kwargs):
         if self.error is not None:
@@ -257,16 +287,28 @@ class ApiServer:
     without it only token-id prompts are accepted. `token_table` (id ->
     string list) skips the per-id decode probe when the caller already
     built one (`cli serve` does). `loop` lets tests inject an unstarted
-    `EngineLoop`; by default the server owns one.
+    `EngineLoop`; by default the server owns one. `router` (a
+    `serve.fleet.FleetRouter`) puts the server in fleet mode: replica 0's
+    engine and loop stand in for `engine` and `loop`.
     """
 
     # request timelines kept for GET /v1/requests/<id>: a debug surface,
     # so bounded and evict-oldest; a client re-using an id overwrites
     # the older entry (last wins)
     timeline_cap = 1024
+    # replay runs kept for GET /v1/replay/<id>, bounded the same way (each
+    # record holds a full divergence report)
+    replay_cap = 16
 
-    def __init__(self, engine, *, encode=None, decode=None, token_table=None,
-                 model_name: str = "solvingpapers", loop=None):
+    def __init__(self, engine=None, *, encode=None, decode=None,
+                 token_table=None, model_name: str = "solvingpapers",
+                 loop=None, router=None):
+        self.router = router
+        if router is not None:
+            engine = engine if engine is not None else router.replicas[0].engine
+            loop = loop if loop is not None else router.replicas[0].loop
+        if engine is None:
+            raise ValueError("ApiServer needs an engine or a router")
         cfg = engine.config
         self.engine = engine
         self.encode = encode
@@ -285,6 +327,13 @@ class ApiServer:
         self._retry_lock = threading.Lock()
         self._timelines: OrderedDict[str, dict] = OrderedDict()
         self._timeline_lock = threading.Lock()
+        # the replay registry: one run in flight at a time (each builds an
+        # engine and a pool of its own), and the replay/* gauges of the
+        # last finished run ({} until one has run)
+        self._replays: OrderedDict[str, dict] = OrderedDict()
+        self._replay_lock = threading.Lock()
+        self._replay_active = False
+        self._replay_gauge_vals: dict[str, float] = {}
         self.vocab_size = engine.model.cfg.vocab_size
         # token table for grammar mode: caller-supplied, or derived by
         # decoding each id once (None = outside the detokenizer's range)
@@ -351,6 +400,7 @@ class ApiServer:
             "serve/http_disconnects": float(c["disconnects"]),
             "serve/http_rejected": float(c["rejected"]),
             "serve/http_client_errors": float(c["client_errors"]),
+            **self._replay_gauge_vals,
         }
 
     def _bump(self, key: str, delta: int = 1) -> None:
@@ -382,21 +432,57 @@ class ApiServer:
         """Backpressure headers for every 503: a JITTERED Retry-After
         (integer seconds, its base growing with the degradation rung) and
         the rung itself."""
-        rung = self.engine.degradation_rung
+        src = self.router if self.router is not None else self.engine
+        rung = src.degradation_rung
         with self._retry_lock:
             retry = self._retry_rng.randint(1 + rung, 4 + rung)
         return {"Retry-After": str(retry), "X-Degradation-Rung": str(rung)}
 
+    def _engines(self) -> list:
+        """Every engine behind this door: after a drain, a stream's record
+        lives on a peer replica."""
+        if self.router is not None:
+            return [r.engine for r in self.router.replicas]
+        return [self.engine]
+
     def _find_recovered(self, rid: str):
-        """The engine's recovered Request for `rid` (after a restart's
-        `recover()`), or None."""
-        return self.engine._recovered.get(rid)
+        """The recovered or adopted Request for `rid` on any replica, or
+        None. Where a drained replica's "migrated" husk and a peer's
+        adopted request share the id, the adopted one wins: its token list
+        is the stream."""
+        best = None
+        for eng in self._engines():
+            req = eng._recovered.get(rid)
+            if req is None:
+                continue
+            if req.finish_reason != "migrated":
+                return req
+            best = best or req
+        return best
 
     def _journal_lookup(self, rid: str):
-        """The journal's live or recently finished entry for `rid`, or
-        None (no journal, or aged out)."""
-        journal = self.engine.journal
-        return None if journal is None else journal.lookup(rid)
+        """The best journal record of `rid` across the engines: a live
+        entry anywhere wins; among finished ones, a real outcome beats a
+        drained replica's "migrated" record. None without a journal, or
+        when aged out."""
+        best = None
+        for eng in self._engines():
+            entry = None if eng.journal is None else eng.journal.lookup(rid)
+            if entry is None:
+                continue
+            if not entry.finished:
+                return entry
+            if best is None or (best.finish_reason == "migrated"
+                                and entry.finish_reason != "migrated"):
+                best = entry
+        return best
+
+    def _loop_for(self, req):
+        """The loop that owns `req`: the router's owner in fleet mode (a
+        migrated stream's cancel must land on the replica decoding it)."""
+        if self.router is not None:
+            return self.router.owner_loop(req)
+        return self.loop
 
     def _send_error(self, h, err: ApiError, headers: dict | None = None) -> None:
         self._bump("rejected" if err.status == 503 else "client_errors")
@@ -415,23 +501,39 @@ class ApiServer:
         try:
             if path == "/healthz":
                 # the engine's health state machine through the status
-                # endpoint's own mapping; a dead loop is unhealthy
-                state = ("unhealthy" if self.loop.error is not None
-                         else self.engine.health)
+                # endpoint's own mapping; a dead loop is unhealthy. A fleet
+                # serves the router's view: healthy while any admitting
+                # replica is
+                if self.router is not None:
+                    state = self.router.health
+                else:
+                    state = ("unhealthy" if self.loop.error is not None
+                             else self.engine.health)
                 code, body = healthz_response(state)
                 self._send(h, code, body, "text/plain")
             elif path == "/metrics":
-                with self.loop.lock:
-                    step, snap = (self.engine._step_idx,
-                                  self.engine.metrics.prom_snapshot())
-                self._send(h, 200, PrometheusTextWriter.render(step, snap),
-                           "text/plain; version=0.0.4")
+                if self.router is not None:
+                    # one merged unlabelled set, one replica="rN" set each
+                    text = PrometheusTextWriter.render_sets(
+                        self.router.prom_sets())
+                else:
+                    with self.loop.lock:
+                        step, snap = (self.engine._step_idx,
+                                      self.engine.metrics.prom_snapshot())
+                    text = PrometheusTextWriter.render(step, snap)
+                self._send(h, 200, text, "text/plain; version=0.0.4")
             elif path == "/statusz":
                 with self.loop.lock:
                     doc = self.engine.statusz()
+                if self.router is not None:
+                    # replica 0's document stays the backbone; the fleet
+                    # section adds every replica's facts and the routing
+                    doc["fleet"] = self.router.statusz()
                 self._send_json(h, 200, doc)
             elif path == "/timeseriesz":
-                if self.engine.timeseries is not None:
+                if self.router is not None:
+                    self._send_json(h, 200, self.router.timeseriesz())
+                elif self.engine.timeseries is not None:
                     self._send_json(h, 200, self.engine.timeseries.doc())
                 else:
                     self._send(h, 404, "no time-series store (run with "
@@ -444,6 +546,8 @@ class ApiServer:
                 })
             elif path.startswith("/v1/requests/"):
                 self._request_status(h, path[len("/v1/requests/"):])
+            elif path.startswith("/v1/replay/"):
+                self._replay_status(h, path[len("/v1/replay/"):])
             else:
                 self._send(h, 404, "not found\n", "text/plain")
         except (BrokenPipeError, ConnectionResetError):
@@ -508,29 +612,169 @@ class ApiServer:
             },
         }
 
+    # ---------------------------------------------------------- replay
+
+    def _post_replay(self, h) -> None:
+        """POST /v1/replay: start a background replay of a journal against
+        a candidate config (serve/replay.py) on a FRESH engine over the
+        live engine's weights; the live engine is never touched. Body:
+        ``journal`` (default: this server's own journal), ``config_overrides``
+        (ServeConfig field -> value), ``max_requests`` (default 256),
+        ``cut_stride``, ``pace``. One run at a time (409 otherwise); 202
+        with the run's id, then poll GET /v1/replay/<id>."""
+        from solvingpapers_tpu_torch.serve import replay as replay_mod
+
+        try:
+            body = self._read_body(h)
+            journal = body.get("journal") or self.engine.config.journal_path
+            if not journal:
+                raise ApiError("no journal to replay: pass 'journal' (a path "
+                               "this server can read) or serve with --journal",
+                               param="journal")
+            overrides = body.get("config_overrides") or {}
+            if not isinstance(overrides, dict):
+                raise ApiError("config_overrides must be an object",
+                               param="config_overrides")
+            try:
+                candidate = replay_mod.apply_overrides(self.engine.config,
+                                                       dict(overrides))
+            except (ValueError, TypeError) as e:
+                raise ApiError(str(e), param="config_overrides") from None
+            max_requests = int(body.get("max_requests", 256))
+            cut_stride = int(body.get("cut_stride", 8))
+            pace = bool(body.get("pace", False))
+        except ApiError as e:
+            self._send_error(h, e)
+            return
+        with self._replay_lock:
+            if self._replay_active:
+                self._send_json(h, 409, {"error": {
+                    "message": "a replay run is already in flight: poll it "
+                               "to completion first",
+                    "type": "invalid_request_error", "param": None,
+                    "code": "replay_in_flight",
+                }})
+                return
+            self._replay_active = True
+            run_id = uuid.uuid4().hex[:12]
+            rec = {"id": run_id, "state": "running",
+                   "progress": {"done": 0, "total": 1}, "journal": journal,
+                   "config_overrides": overrides, "report": None,
+                   "error": None}
+            self._replays[run_id] = rec
+            while len(self._replays) > self.replay_cap:
+                self._replays.popitem(last=False)
+        harness = replay_mod.ReplayHarness.from_engine(self.engine)
+
+        def work():
+            try:
+                entries = harness.load(journal)
+
+                def prog(done, total):
+                    rec["progress"] = {"done": done, "total": total}
+
+                # grad mode is per thread: this one computes under no_grad
+                with torch.no_grad():
+                    rec["report"] = harness.run(
+                        entries, candidate, cut_stride=cut_stride,
+                        max_requests=max_requests, pace=pace,
+                        journal_path=journal, progress=prog)
+                rec["state"] = "finished"
+                # the replay/* gauges ride the LIVE engine's /metrics
+                self._replay_gauge_vals = replay_mod.report_gauges(
+                    rec["report"])
+            except Exception as e:  # noqa: BLE001 — surfaced through GET
+                rec["error"] = f"{type(e).__name__}: {e}"
+                rec["state"] = "error"
+            finally:
+                with self._replay_lock:
+                    self._replay_active = False
+
+        threading.Thread(target=work, name="replay", daemon=True).start()
+        self._send_json(h, 202, {"id": run_id, "state": "running"},
+                        {"Location": f"/v1/replay/{run_id}"})
+
+    def _replay_status(self, h, run_id: str) -> None:
+        """GET /v1/replay/<id>: state and progress while running, the
+        report once finished, the error on failure; an evicted run 404s."""
+        with self._replay_lock:
+            rec = self._replays.get(run_id)
+            doc = dict(rec) if rec is not None else None
+        if doc is None:
+            self._send_json(h, 404, {"error": {
+                "message": f"no replay run {run_id!r} (unknown or evicted "
+                           f"past the last {self.replay_cap} runs)",
+                "type": "invalid_request_error", "param": None,
+                "code": "replay_not_found",
+            }})
+            return
+        self._send_json(h, 200, doc)
+
+    @staticmethod
+    def _hop_phases(req) -> dict[str, float]:
+        """One hop's engine phases from its Request stamps: queue, prefill
+        and decode up to ITS finish (a migrated husk finishes at the
+        drain). A hop admitted but frozen before its first token spent its
+        admitted life in prefill."""
+        ph: dict[str, float] = {}
+        if req.admit_time is not None:
+            ph["queue"] = req.admit_time - req.submit_time
+            if req.first_token_time is not None:
+                ph["prefill"] = req.first_token_time - req.admit_time
+                if req.finish_time is not None:
+                    ph["decode"] = req.finish_time - req.first_token_time
+            elif req.finish_time is not None:
+                ph["prefill"] = req.finish_time - req.admit_time
+        elif req.finish_time is not None:
+            ph["queue"] = req.finish_time - req.submit_time
+        return ph
+
     def _assemble_timeline(self, rec: dict) -> dict:
         """One JSON timeline from the HTTP record and the Request's own
-        timestamps. The phases are adjacent intervals — accept -> parse
-        -> queue_handoff -> queue -> prefill -> decode -> sse_drain — so
-        their sum equals the server-observed wall to the clock's
+        timestamps. The phases are adjacent intervals — accept -> parse ->
+        [route] -> queue_handoff -> queue -> prefill -> decode -> [migrate
+        -> peer_queue -> peer_prefill -> peer_decode ...] -> sse_drain —
+        so their sum equals the server-observed wall to the clock's
         resolution; an in-flight request reports the phases it has
-        reached."""
+        reached. In a fleet, `route` is the router's ranking and retry
+        wall, carved out of the handoff it happens in, and after a drain
+        every hop stays: the drained replica's phases up to its
+        "migrated" finish (the husks in ``rec["hops"]``), the migration
+        gap, then the adopter's as peer_*."""
         req = rec["req"]
+        hops = rec.get("hops") or []
+        chain = [hp["req"] for hp in hops] + [req]
+        req0 = chain[0]
         cfg = self.engine.config
         phases: dict[str, float] = {
             "accept": rec["t_body"] - rec["t_accept"],
             "parse": rec["t_parsed"] - rec["t_body"],
-            "queue_handoff": max(req.submit_time - rec["t_parsed"], 0.0),
         }
-        if req.admit_time is not None:
-            phases["queue"] = req.admit_time - req.submit_time
-            if req.first_token_time is not None:
-                phases["prefill"] = req.first_token_time - req.admit_time
-                if req.finish_time is not None:
-                    phases["decode"] = req.finish_time - req.first_token_time
-        elif req.finish_time is not None:
-            # never admitted: its whole engine life was queue time
-            phases["queue"] = req.finish_time - req.submit_time
+        handoff = max(req0.submit_time - rec["t_parsed"], 0.0)
+        route_s = min(max(getattr(req0, "fleet_route_s", 0.0), 0.0), handoff)
+        if route_s > 0:
+            phases["route"] = route_s
+        phases["queue_handoff"] = handoff - route_s
+        if not hops:
+            if req.admit_time is not None:
+                phases["queue"] = req.admit_time - req.submit_time
+                if req.first_token_time is not None:
+                    phases["prefill"] = req.first_token_time - req.admit_time
+                    if req.finish_time is not None:
+                        phases["decode"] = (req.finish_time
+                                            - req.first_token_time)
+            elif req.finish_time is not None:
+                # never admitted: its whole engine life was queue time
+                phases["queue"] = req.finish_time - req.submit_time
+        else:
+            phases.update(self._hop_phases(req0))
+        for prev, nxt in zip(chain, chain[1:]):
+            if prev.finish_time is not None:
+                phases["migrate"] = (phases.get("migrate", 0.0)
+                                     + max(nxt.submit_time - prev.finish_time,
+                                           0.0))
+            for k, v in self._hop_phases(nxt).items():
+                phases[f"peer_{k}"] = phases.get(f"peer_{k}", 0.0) + v
         if rec["t_done"] is not None and req.finish_time is not None:
             phases["sse_drain"] = max(rec["t_done"] - req.finish_time, 0.0)
         phases = {k: round(v, 6) for k, v in phases.items()}
@@ -559,6 +803,20 @@ class ApiServer:
             # in flight (or an excluded finish): class known, no verdict
             doc["slo"] = {"class": self.engine._slo.classify(req),
                           "attained": None}
+        if self.router is not None:
+            # which replica served it, how many refused first, and every
+            # hop a drain moved it along
+            doc["fleet"] = {
+                "replica": rec.get("replica"),
+                "reroutes": int(rec.get("reroutes") or 0),
+                "migrated": bool(hops),
+                "hops": [{"replica": hp.get("replica"),
+                          "engine_req": hp["req"].id,
+                          "finish_reason": hp["req"].finish_reason}
+                         for hp in hops]
+                + [{"replica": rec.get("replica"), "engine_req": req.id,
+                    "finish_reason": req.finish_reason}],
+            }
         return doc
 
     def _post(self, h) -> None:
@@ -566,6 +824,9 @@ class ApiServer:
         # headers were parsed
         t_accept = smetrics.now()
         path = h.path.split("?", 1)[0]
+        if path == "/v1/replay":
+            self._post_replay(h)
+            return
         chat = path == "/v1/chat/completions"
         if not chat and path != "/v1/completions":
             self._send(h, 404, "not found\n", "text/plain")
@@ -627,16 +888,22 @@ class ApiServer:
                 "resume from within the committed prefix or restart the "
                 "stream", status=409, code="resume_offset_beyond_committed")
 
-    def _sse_open(self, h, trace_id: str):
+    def _sse_open(self, h, trace_id: str, replica: str | None = None,
+                  reroutes: int = 0):
         """Send the SSE response headers and return THE event writer (one
         framing for live streams, re-attached resumes and journal-only
         replays): each event is an optional ``id: <trace_id>:<offset>``
         resume cursor and a ``data:`` line, and the fault plane's
-        ``sse_write`` site pokes once an event."""
+        ``sse_write`` site pokes once an event. A fleet adds
+        ``X-Replica-Id`` and, after a retry, ``X-Fleet-Reroutes``."""
         h.send_response(200)
         h.send_header("Content-Type", "text/event-stream")
         h.send_header("Cache-Control", "no-cache")
         h.send_header("X-Request-Id", trace_id)
+        if replica is not None:
+            h.send_header("X-Replica-Id", replica)
+        if reroutes:
+            h.send_header("X-Fleet-Reroutes", str(reroutes))
         h.end_headers()
         engine = self.engine
 
@@ -695,12 +962,29 @@ class ApiServer:
         req = rec["req"] if rec is not None else None
         if req is None:
             req = self._find_recovered(rid)
+        if (req is not None and req.finish_reason == "migrated"
+                and self.router is not None):
+            # the registry holds the DRAINED replica's husk; the peer's
+            # adopted request (same id, same committed prefix) is the
+            # stream the cursor belongs to
+            adopted = self._find_recovered(rid)
+            if adopted is not None and adopted is not req:
+                if rec is not None:
+                    # the husk's phases are the first leg of the trail
+                    rec.setdefault("hops", []).append(
+                        {"req": req, "replica": rec.get("replica")})
+                    rec["req"] = adopted
+                req = adopted
         if req is not None:
             self._check_resume_offset(offset, len(req.tokens), rid)
+            owner = self.router.owner(rid) if self.router is not None else None
+            if rec is not None and owner is not None:
+                rec["replica"] = owner.rid
             now = smetrics.now()
             new_rec = {"trace_id": rid, "req": req, "chat": chat,
                        "stream": True, "t_accept": now, "t_body": now,
-                       "t_parsed": now, "t_done": None, "disconnected": False}
+                       "t_parsed": now, "t_done": None, "disconnected": False,
+                       "replica": owner.rid if owner is not None else None}
             bridge = _Stream()
             if not req.done:
                 # the engine reads stream_cb at each notify: one reference
@@ -788,7 +1072,9 @@ class ApiServer:
         if self.closing.is_set():
             raise ApiError("server is shutting down", status=503,
                            err_type="server_error", code="shutting_down")
-        if self.loop.error is not None:
+        if self.router is None and self.loop.error is not None:
+            # a fleet has no single fatal loop: a dead replica stops
+            # admitting and the router routes around it
             raise ApiError("engine loop failed — the server needs a restart "
                            f"({type(self.loop.error).__name__})", status=503,
                            err_type="server_error", code="engine_failed")
@@ -808,9 +1094,15 @@ class ApiServer:
                            f"({cfg.api_max_connections}) — retry shortly",
                            status=503, err_type="server_error",
                            code="overloaded")
-        if self.engine.scheduler.capacity_left == 0:
-            raise ApiError("waiting queue is full — retry shortly", status=503,
-                           err_type="server_error", code="overloaded")
+        # a fleet's probe is its fleet-wide queue room: one busy replica
+        # must not 503 a request a peer has room for
+        capacity = (self.router.capacity_left if self.router is not None
+                    else self.engine.scheduler.capacity_left)
+        fleet_note = " fleet-wide" if self.router is not None else ""
+        if capacity == 0:
+            raise ApiError(f"waiting queue is full{fleet_note} — retry shortly",
+                           status=503, err_type="server_error",
+                           code="overloaded")
         grammar = (JsonStepper(self.token_table, cache=self._grammar_cache)
                    if json_mode else None)
         bridge = _Stream()
@@ -818,11 +1110,23 @@ class ApiServer:
         # submit_time inside the locked engine call, so the gap is the
         # submit-lock handoff
         t_parsed = smetrics.now()
+        replica = None
         try:
-            req = self.loop.submit(
-                np.asarray(prompt_ids, np.int64), max_new_tokens=max_tokens,
-                params=params, deadline_s=timeout_s, grammar=grammar,
-                stream_cb=bridge, trace_id=trace_id)
+            if self.router is not None:
+                replica, req = self.router.submit(
+                    np.asarray(prompt_ids, np.int64), max_new_tokens=max_tokens,
+                    params=params, deadline_s=timeout_s, grammar=grammar,
+                    stream_cb=bridge, trace_id=trace_id)
+                if req is None:
+                    raise ApiError("no replica is admitting (fleet draining or "
+                                   "unhealthy) — retry shortly", status=503,
+                                   err_type="server_error",
+                                   code="engine_unhealthy")
+            else:
+                req = self.loop.submit(
+                    np.asarray(prompt_ids, np.int64), max_new_tokens=max_tokens,
+                    params=params, deadline_s=timeout_s, grammar=grammar,
+                    stream_cb=bridge, trace_id=trace_id)
         except ValueError as e:
             code = ("context_length_exceeded"
                     if "exceeds the engine capacity" in str(e) else None)
@@ -833,7 +1137,13 @@ class ApiServer:
             trace_id = req.trace_id
         rec = {"trace_id": trace_id, "req": req, "chat": chat,
                "stream": stream, "t_accept": t_accept, "t_body": t_body,
-               "t_parsed": t_parsed, "t_done": None, "disconnected": False}
+               "t_parsed": t_parsed, "t_done": None, "disconnected": False,
+               # fleet: the admitting replica (X-Replica-Id), the peers that
+               # refused first (X-Fleet-Reroutes) and, after a drain, the
+               # husks of earlier hops (the trail of /v1/requests/<id>)
+               "replica": replica.rid if replica is not None else None,
+               "reroutes": int(getattr(req, "fleet_reroutes", 0) or 0),
+               "hops": []}
         with self._timeline_lock:
             self._timelines[trace_id] = rec
             self._timelines.move_to_end(trace_id)
@@ -858,19 +1168,24 @@ class ApiServer:
                                "shortly", status=503, err_type="server_error",
                                code="engine_unhealthy")
             elif why.startswith("shed:"):
+                shed_eng = replica.engine if replica is not None else self.engine
                 err = ApiError(
                     f"admissions for SLO class {why[5:]!r} are being "
                     f"load-shed (degradation rung "
-                    f"{self.engine.degradation_rung}) — retry after the "
+                    f"{shed_eng.degradation_rung}) — retry after the "
                     "hinted delay", status=503, err_type="server_error",
                     code="overloaded")
             else:
                 # the queue filled between the probe above and the submit
-                err = ApiError("waiting queue is full — retry shortly",
-                               status=503, err_type="server_error",
+                err = ApiError(f"waiting queue is full{fleet_note} — retry "
+                               "shortly", status=503, err_type="server_error",
                                code="overloaded")
-            self._send_json(h, 503, err.body(),
-                            {**self._retry_headers(), "X-Request-Id": trace_id})
+            headers = {**self._retry_headers(), "X-Request-Id": trace_id}
+            if rec["replica"] is not None:
+                headers["X-Replica-Id"] = rec["replica"]
+            if rec["reroutes"]:
+                headers["X-Fleet-Reroutes"] = str(rec["reroutes"])
+            self._send_json(h, 503, err.body(), headers)
             return
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         if stream:
@@ -927,7 +1242,8 @@ class ApiServer:
         """`start` > 0 is a Last-Event-ID reconnect: tokens[:start] were
         delivered already, and the stream resumes from there (the prefix
         is re-rendered so text deltas stay exact)."""
-        event = self._sse_open(h, rec["trace_id"])
+        event = self._sse_open(h, rec["trace_id"], replica=rec.get("replica"),
+                               reroutes=int(rec.get("reroutes") or 0))
         self._bump_active(1)
         emitted = start
         events = 0
@@ -937,9 +1253,10 @@ class ApiServer:
 
         def cancel_if_mine() -> None:
             # the last reconnect wins: an abandoned connection noticing its
-            # dead socket after a re-attach must not cancel the stream
+            # dead socket after a re-attach must not cancel the stream; the
+            # cancel goes to the replica decoding it now
             if not req.done and req.stream_cb is bridge:
-                self.loop.cancel(req)
+                self._loop_for(req).cancel(req)
 
         try:
             if chat:
@@ -984,6 +1301,19 @@ class ApiServer:
                     emitted = upto
                     events += 1
                 if finished:
+                    if req.finish_reason == "migrated":
+                        # a fleet drain: the stream goes on on a peer. Close
+                        # WITHOUT a terminal chunk or [DONE] (an unterminated
+                        # SSE stream is the signal to reconnect with the
+                        # Last-Event-ID; the cursor resolves on the adopter,
+                        # token-exact from this offset). The committed prefix
+                        # went out above: force_drain froze the token list
+                        # before the entries were snapshotted.
+                        h.wfile.write(b": migrated - reconnect with "
+                                      b"Last-Event-ID\n\n")
+                        h.wfile.flush()
+                        self._mark_done(req, rec, events=events)
+                        return
                     if req.finish_reason == "error":
                         # a quarantined or engine-failed stream ends with a
                         # structured error event before its terminal chunk
@@ -1035,21 +1365,49 @@ class ApiServer:
                            rec: dict) -> None:
         self._bump_active(1)
         try:
-            while not req.done:
-                try:
-                    _, finished = bridge.q.get(timeout=0.5)
-                    if finished and req.done:
-                        break
-                except queue.Empty:
-                    if self._disconnected(h):
-                        self.loop.cancel(req)
-                        self._mark_disconnect(req, rec)
-                        return
+            while True:
+                while not req.done:
+                    try:
+                        _, finished = bridge.q.get(timeout=0.5)
+                        if finished and req.done:
+                            break
+                    except queue.Empty:
+                        if self._disconnected(h):
+                            self._loop_for(req).cancel(req)
+                            self._mark_disconnect(req, rec)
+                            return
+                if req.finish_reason != "migrated" or self.router is None:
+                    break
+                # a drain mid-request: no bytes went out, so the migration
+                # is transparent: wait on the adopted request instead
+                nxt = self._find_recovered(req.trace_id)
+                if nxt is None:
+                    # the drain force-finishes the husk BEFORE the peer
+                    # adopts it: give the adoption a bounded window to land
+                    deadline = time.monotonic() + 5.0
+                    while nxt is None and time.monotonic() < deadline:
+                        time.sleep(0.002)
+                        nxt = self._find_recovered(req.trace_id)
+                if nxt is None or nxt is req:
+                    break  # the adoption failed: report the husk
+                rec.setdefault("hops", []).append(
+                    {"req": req, "replica": rec.get("replica")})
+                req = nxt
+                rec["req"] = req
+                owner = self.router.owner(req.trace_id)
+                rec["replica"] = owner.rid if owner is not None else None
+                if not req.done:
+                    req.stream_cb = bridge
+                bridge(req, 0, req.done)  # past the 0.5 s poll
             if self.decode is not None:
                 text = self.decode(list(req.tokens))
             else:
                 text = "".join(str(t) + " " for t in req.tokens)
             headers = {"X-Request-Id": rec["trace_id"]}
+            if rec.get("replica") is not None:
+                headers["X-Replica-Id"] = rec["replica"]
+            if rec.get("reroutes"):
+                headers["X-Fleet-Reroutes"] = str(rec["reroutes"])
             if req.finish_reason == "error":
                 # no bytes went out yet: the honest status is a 500
                 self._send_json(h, 500, oai.error_event(
@@ -1069,7 +1427,8 @@ class ApiServer:
     def close(self) -> None:
         """Graceful shutdown, idempotent: refuse new work, drain active
         streams (up to `drain_timeout_s`, then cancel), stop the engine
-        loop, close the engine, then the HTTP threads."""
+        loop, close the engine (every replica's, in a fleet), then the
+        HTTP threads."""
         if self._closed:
             return
         self._closed = True
@@ -1077,8 +1436,13 @@ class ApiServer:
         deadline = time.monotonic() + self.engine.config.drain_timeout_s
         while self._active > 0 and time.monotonic() < deadline:
             time.sleep(0.01)
-        self.loop.close(drain_timeout_s=max(0.0, deadline - time.monotonic()))
-        self.engine.close()
+        left = max(0.0, deadline - time.monotonic())
+        if self.router is not None:
+            # every replica's loop and engine, within the one budget
+            self.router.close(drain_timeout_s=left)
+        else:
+            self.loop.close(drain_timeout_s=left)
+            self.engine.close()
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=5)

@@ -1,6 +1,6 @@
 """Serving benchmark on the port (port of the Poisson, shared-prefix,
-paged, sampling, HTTP and SLO workloads of
-`solvingpapers_tpu/serve/bench.py`, with its traced arm and status
+paged, sampling, HTTP, SLO, chaos, journal, replay and fleet workloads
+of `solvingpapers_tpu/serve/bench.py`, with its traced arm and status
 endpoint).
 
 Synthetic open-loop traffic: request arrivals are a Poisson process
@@ -30,6 +30,23 @@ reference's requests element for element.
   (requests tagged interactive / standard / batch in turn) against the
   plain engine: the accounting's cost, per-class attainment and burn,
   and goodput.
+* `run_chaos_bench` — one seeded fault schedule (`chaos_fault_plan`)
+  through a fault-free reference, a ladder-off and a ladder-on engine:
+  surviving streams token-exact, recovery time, zero leaks, goodput
+  with the ladder against without, and an armed-but-quiet plan's cost.
+* `run_journal_bench` — the journal's cost (ABBA) and a kill-and-recover
+  arm: an engine abandoned mid-decode, its journal recovered by a fresh
+  one, every stream token-exact with an uninterrupted run.
+* `run_replay_bench` — a journaled greedy and seeded workload replayed
+  through `serve/replay.py` at the identical config on the lane and the
+  paged pool: byte-exact on both. The reference's int8-KV candidate arm
+  waits for the quantized pool (ROADMAP A5); the result says so under
+  ``notes`` and leaves out that arm's keys.
+* `run_fleet_bench` — a one-replica `FleetRouter` against the bare
+  engine (the routing tax), traced against untraced, and a drain of
+  replica r0 while streams are live: migrated and every other stream
+  token-exact with a single engine, no leak on any replica, the trails'
+  phases partitioning their walls.
 
 `trace=True` (Poisson, prefix and sampling workloads) adds an ABBA-paired
 traced arm and records `trace_overhead_pct`, the traced req/s and the
@@ -1319,14 +1336,888 @@ def run_slo_bench(
     }
 
 
+# ------------------------------------------------------------------ chaos
+
+
+def chaos_fault_plan(n_slots: int, seed: int = 0, stall_s: float = 0.05,
+                     journal: bool = False) -> tuple:
+    """The seeded chaos schedule `run_chaos_bench` drives: two slot poisons
+    (NaN and Inf: the quarantine path, both finite-guard codes), one
+    synthetic device error and one prefill out-of-memory (the rebuild and
+    recompute path), and one step stall (the watchdog). With `journal`,
+    one ``io_error`` at the ``journal_write`` site (the degraded-journal
+    path). Deterministic given (n_slots, seed): the same schedule replays
+    across the ladder-off and ladder-on arms."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(n_slots)
+    v = sorted(int(x) for x in rng.integers(8, 48, size=4))
+    plan = (
+        dict(site="prefill", kind="oom", visit=int(rng.integers(3, 8))),
+        dict(site="decode", kind="nan", visit=v[0], slot=int(slots[0])),
+        dict(site="decode", kind="inf", visit=v[1],
+             slot=int(slots[1 % len(slots)])),
+        dict(site="decode", kind="xla_error", visit=v[2]),
+        dict(site="decode", kind="stall", visit=v[3], stall_s=stall_s),
+    )
+    if journal:
+        plan += (dict(site="journal_write", kind="io_error",
+                      visit=int(rng.integers(6, 24))),)
+    return plan
+
+
+def _run_chaos_arm(model, requests, serve_cfg, max_new, params_for=None):
+    """`_run_engine_arm` that tolerates rejects: under the degradation
+    ladder (or an unhealthy window) submissions may bounce, and those are
+    counted as shed. Returns (engine, accepted handles BY REQUEST INDEX
+    (None = shed), shed count, makespan)."""
+    eng = ServeEngine(model, serve_cfg, device=model.device)
+    pending = sorted(enumerate(requests), key=lambda r: r[1][0])
+    handles: list = [None] * len(requests)
+    shed = 0
+    t0 = time.monotonic()
+    i = 0
+    while i < len(pending) or eng.has_work():
+        elapsed = time.monotonic() - t0
+        while i < len(pending) and pending[i][1][0] <= elapsed:
+            ridx, (_, prompt) = pending[i]
+            h = eng.submit(prompt, max_new_tokens=max_new,
+                           params=params_for(ridx) if params_for else None)
+            if h.state == "rejected":
+                shed += 1
+            else:
+                handles[ridx] = h
+            i += 1
+        if eng.has_work():
+            eng.step()
+        elif i < len(pending):
+            time.sleep(max(0.0, pending[i][1][0] - (time.monotonic() - t0)))
+    makespan = (time.monotonic() - t0) - pending[0][1][0]
+    assert all(h.done for h in handles if h is not None), \
+        "chaos arm drained unfinished"
+    return eng, handles, shed, makespan
+
+
+def _zero_leak_fields(eng) -> dict:
+    """The drained pool's leak invariant as result facts: the slot free
+    mask and free list consistent and, on a paged pool (its prefix tree
+    evicted first: the one legitimate holder after a drain), every page
+    free with the refcount sum back at the trash page's 1."""
+    pool = eng.pool
+    ok = (pool.n_active == 0 and bool(pool._free_mask.all())
+          and sorted(pool._free) == list(range(pool.n_slots)))
+    out = {"slots_clean": ok}
+    if eng.prefix_cache is not None:
+        while eng.prefix_cache.evict_one():
+            pass
+    if hasattr(pool, "refcount"):
+        out["pages_free"] = pool.pages_free
+        out["page_budget"] = pool.page_budget
+        out["refcount_sum"] = int(pool.refcount.sum())
+        ok = (ok and pool.pages_free == pool.page_budget
+              and out["refcount_sum"] == 1)
+    out["zero_leak"] = ok
+    return out
+
+
+def _page_max_len(requests, max_new: int, page: int = 16) -> int:
+    """The longest prompt and its new tokens, rounded up to a page."""
+    max_prompt = max(len(p) for _, p in requests)
+    return -(-(max_prompt + max_new) // page) * page
+
+
+def run_chaos_bench(
+    config="llama3_shakespeare",
+    n_requests: int = 48,
+    n_slots: int = 4,
+    max_new: int = 48,
+    decode_block: int = 8,
+    prompt_lens=(16, 32, 48, 64),
+    # arrivals spread out: shedding shows only while admissions keep
+    # arriving with the ladder up
+    mean_interarrival_s: float = 0.15,
+    seed: int = 0,
+    reps: int = 4,
+    # the stall alone must exceed the watchdog deadline below
+    stall_s: float = 0.75,
+    slo_targets: dict | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --chaos`: the fault-tolerance soak. One seeded
+    fault schedule (`chaos_fault_plan`, with a journal ``io_error``)
+    replays over the Poisson trace through three paged, SLO-tracked
+    engines:
+
+    * reference, fault-free: the token-exactness oracle;
+    * chaos, ladder OFF, journaled: `streams_survived` (finished other
+      than "error"), `survivors_token_exact` (every survivor equal to the
+      reference: quarantine contained the poison, rebuilds recomputed
+      exactly), `fault_recovery_s`, `journal_degraded_exercised` and the
+      drained pool's `zero_leak`;
+    * chaos, ladder ON: the same schedule with the degradation ladder,
+      `goodput_ladder_on` against `goodput_ladder_off`.
+
+    `fault_overhead_pct` is the ABBA-paired cost of an armed plan that
+    never fires against none."""
+    import os
+    import tempfile
+
+    from solvingpapers_tpu_torch.serve.slo import DEFAULT_SLO_TARGETS
+
+    targets = slo_targets or DEFAULT_SLO_TARGETS
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    requests = synthetic_requests(
+        n_requests, vocab, prompt_lens=prompt_lens,
+        mean_interarrival_s=mean_interarrival_s, seed=seed)
+    max_prompt = max(len(p) for _, p in requests)
+    plan = chaos_fault_plan(n_slots, seed=seed, stall_s=stall_s, journal=True)
+    journal_dir = tempfile.mkdtemp(prefix="serve_chaos_journal_")
+    base_cfg = ServeConfig(
+        n_slots=n_slots, max_len=_page_max_len(requests, max_new),
+        decode_block=decode_block, bucket=min(32, max_prompt),
+        max_prefills_per_step=n_slots, max_waiting=max(256, n_requests),
+        paged=True, page_size=16, seed=seed)
+    ref_cfg = dataclasses.replace(base_cfg, slo_targets=targets)
+    # the watchdog's deadline BELOW the injected stall, so the stall trips it
+    chaos_cfg = dataclasses.replace(
+        ref_cfg, fault_plan=plan,
+        fault_step_deadline_s=max(0.25, 0.75 * stall_s),
+        journal_path=os.path.join(journal_dir, "chaos_off.jsonl"))
+    ladder_cfg = dataclasses.replace(
+        chaos_cfg, degrade=True,
+        journal_path=os.path.join(journal_dir, "chaos_on.jsonl"))
+
+    def params_for(i: int) -> SamplingParams:
+        return SamplingParams(slo=SLO_CLASS_CYCLE[i % len(SLO_CLASS_CYCLE)])
+
+    probe_fields, probe_eng = _obs_probe(
+        model, _warm_trace(requests), ref_cfg, max_new, params_for=params_for,
+        arms=arms, status_port=status_port)
+    ref_eng, ref_handles, _, _ = arms.run(
+        "reference", _run_chaos_arm, model, requests, ref_cfg, max_new,
+        params_for=params_for)
+    kv = _kv_entry_fields(ref_eng)
+    del ref_eng
+
+    off_eng, off_handles, off_shed, _ = arms.run(
+        "chaos_off", _run_chaos_arm, model, requests, chaos_cfg, max_new,
+        params_for=params_for)
+    off_snap = off_eng.metrics.snapshot()
+    survivors = [(i, h) for i, h in enumerate(off_handles)
+                 if h is not None and h.finish_reason != "error"]
+    errored = sum(1 for h in off_handles
+                  if h is not None and h.finish_reason == "error")
+    exact = all(h.tokens == ref_handles[i].tokens for i, h in survivors)
+    leak_fields = _zero_leak_fields(off_eng)
+    journal_degraded = bool(off_eng._journal_degraded)
+    goodput_off = off_snap.get("serve/goodput_tokens_per_s", 0.0)
+    del off_eng
+
+    on_eng, _, on_shed, _ = arms.run(
+        "chaos_on", _run_chaos_arm, model, requests, ladder_cfg, max_new,
+        params_for=params_for)
+    goodput_on = on_eng.metrics.snapshot().get(
+        "serve/goodput_tokens_per_s", 0.0)
+    ladder_stats = on_eng.statusz()["health"].get("ladder", {})
+    on_leaks = _zero_leak_fields(on_eng)
+    del on_eng
+
+    # an armed plan that never fires against none: the hooks' cost
+    quiet = (dict(site="decode", kind="stall", visit=1_000_000_000,
+                  stall_s=0.001),)
+    runs, _ = _paired_arm_stats(
+        model, requests, dataclasses.replace(base_cfg, fault_plan=quiet),
+        base_cfg, max_new, reps=reps, arms=arms, names=("armed", "plain"))
+    armed_rps = n_requests / np.mean([mk for mk, _ in runs["on"]])
+    plain_rps = n_requests / np.mean([mk for mk, _ in runs["off"]])
+    _release_probe(probe_eng, status_hold_s)
+    admitted = sum(1 for h in off_handles if h is not None)
+    return {
+        "metric": "serve_chaos_streams_survived",
+        "value": len(survivors),
+        "unit": (f"streams finished non-error of {admitted} admitted under "
+                 "the seeded fault schedule (ladder-off arm)"),
+        "vs_baseline": round(len(survivors) / admitted, 4) if admitted else 0.0,
+        "detail": {
+            "config": _config_name(config),
+            "workload": "chaos",
+            "n_requests": n_requests,
+            "n_slots": n_slots,
+            "max_new_tokens": max_new,
+            "decode_block": decode_block,
+            "prompt_lens": list(prompt_lens),
+            "mean_interarrival_s": mean_interarrival_s,
+            "reps": reps,
+            "fault_plan": [dict(spec) for spec in plan],
+            "streams_survived": len(survivors),
+            "streams_admitted": admitted,
+            "streams_quarantined": errored,
+            "streams_shed_off_arm": off_shed,
+            "survivors_token_exact": exact,
+            "faults_injected": int(off_snap.get("serve/fault_injected", 0)),
+            "fault_retries": int(off_snap.get("serve/fault_retries", 0)),
+            "fault_recovery_s": round(
+                off_snap.get("serve/fault_recovery_s", 0.0), 4),
+            "watchdog_stalls": int(off_snap.get("serve/watchdog_stalls", 0)),
+            "journal_degraded_exercised": journal_degraded,
+            **leak_fields,
+            "ladder_zero_leak": on_leaks["zero_leak"],
+            "goodput_ladder_on": round(goodput_on, 2),
+            "goodput_ladder_off": round(goodput_off, 2),
+            "goodput_ladder_ratio": (round(goodput_on / goodput_off, 4)
+                                     if goodput_off else None),
+            "ladder_max_shed": on_shed,
+            "ladder_rung_final": ladder_stats.get("rung"),
+            "ladder_transitions": ladder_stats.get("transitions"),
+            "fault_overhead_pct": round((1.0 - armed_rps / plain_rps) * 100.0,
+                                        2),
+            "armed_requests_per_sec": round(float(armed_rps), 2),
+            "plain_requests_per_sec": round(float(plain_rps), 2),
+            **kv,
+            **probe_fields,
+            "arms": arms.log,
+        },
+    }
+
+
+# ---------------------------------------------------------------- journal
+
+
+def _journal_params_for(i: int) -> SamplingParams | None:
+    """The durability workloads' sampling cycle: greedy and two SEEDED
+    stochastic shapes, so every stream replays (seeded chains fold only
+    (seed, sample index))."""
+    if i % 3 == 1:
+        return SamplingParams(temperature=0.8, top_p=0.9, seed=1000 + i)
+    if i % 3 == 2:
+        return SamplingParams(temperature=1.2, top_k=8, seed=2000 + i)
+    return None
+
+
+def run_journal_bench(
+    config="llama3_shakespeare",
+    n_requests: int = 32,
+    n_slots: int = 8,
+    max_new: int = 64,
+    decode_block: int = 16,
+    prompt_lens=(16, 32, 48, 64),
+    mean_interarrival_s: float = 0.001,
+    seed: int = 0,
+    reps: int = 4,
+    kill_step: int | None = None,
+    journal_dir: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --journal`: the durability workload.
+
+    * overhead: ABBA-paired journal-on against journal-off req/s on the
+      Poisson trace (`journal_overhead_pct`; records are buffered writes,
+      fsynced once a step);
+    * kill and recover: every request submitted up front through a
+      journaled engine, which is ABANDONED mid-decode (after a third of
+      the requests finish, or at `kill_step`: no close, no drain); a fresh
+      engine opens the same journal, `recover()` requeues the live set and
+      the drain completes every stream. `recovered_token_exact` holds
+      every stream (finished before the kill or recovered) equal to an
+      uninterrupted reference run over greedy and seeded sampling;
+      `recovery_wall_s` runs from the fresh engine's construction to the
+      last recovered finish; `zero_leak` holds after the drain."""
+    import os
+    import tempfile
+
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    requests = synthetic_requests(
+        n_requests, vocab, prompt_lens=prompt_lens,
+        mean_interarrival_s=mean_interarrival_s, seed=seed)
+    max_prompt = max(len(p) for _, p in requests)
+    jdir = journal_dir or tempfile.mkdtemp(prefix="serve_journal_bench_")
+    base_cfg = ServeConfig(
+        n_slots=n_slots, max_len=_page_max_len(requests, max_new),
+        decode_block=decode_block, bucket=min(32, max_prompt),
+        max_prefills_per_step=n_slots, max_waiting=max(256, n_requests),
+        seed=seed)
+    jcfg = dataclasses.replace(base_cfg,
+                               journal_path=os.path.join(jdir, "overhead.jsonl"))
+    probe_fields, probe_eng = _obs_probe(model, _warm_trace(requests),
+                                         base_cfg, max_new, arms=arms,
+                                         status_port=status_port)
+    # the reference arm first: the uninterrupted oracle, and the plain
+    # path's warm-up (every sampling shape runs here once)
+    upfront = [(0.0, p) for _, p in requests]
+    ref_eng, ref_handles, _ = arms.run(
+        "reference", _run_engine_arm, model, upfront, base_cfg, max_new,
+        params_for=_journal_params_for)
+    kv = _kv_entry_fields(ref_eng)
+    del ref_eng
+
+    # overhead: journal-on against journal-off, ABBA and mean; the last
+    # journaled engine's journal gives the record counts
+    mk = {"on": [], "off": []}
+    jstats = None
+    for rep in range(reps):
+        order = ("on", "off") if rep % 2 == 0 else ("off", "on")
+        for arm in order:
+            eng, _, span = arms.run(
+                f"journal_{arm}[{rep}]", _run_engine_arm, model, requests,
+                jcfg if arm == "on" else base_cfg, max_new)
+            mk[arm].append(span)
+            if arm == "on":
+                jstats = eng.journal.stats()
+                eng.close()
+            del eng
+    on_rps = n_requests / np.mean(mk["on"])
+    off_rps = n_requests / np.mean(mk["off"])
+
+    # kill and recover
+    kcfg = dataclasses.replace(base_cfg,
+                               journal_path=os.path.join(jdir, "recover.jsonl"))
+    eng_a = ServeEngine(model, kcfg, device=model.device)
+    handles = [eng_a.submit(p, max_new_tokens=max_new,
+                            params=_journal_params_for(i))
+               for i, (_, p) in enumerate(requests)]
+    finish_target = max(1, n_requests // 3)
+    steps = 0
+    while eng_a.has_work():
+        eng_a.step()
+        steps += 1
+        done = sum(1 for h in handles if h.done)
+        if kill_step is not None:
+            if steps >= kill_step:
+                break
+        elif finish_target <= done < n_requests:
+            break
+    finished_before = sum(1 for h in handles if h.done)
+    live_at_kill = n_requests - finished_before
+    # the in-process stand-in for a SIGKILL: no close, no drain; only what
+    # the journal flushed survives
+    del eng_a
+
+    t0 = time.monotonic()
+    eng_b = ServeEngine(model, kcfg, device=model.device)
+    resumed = eng_b.recover()
+    eng_b.run()
+    recovery_wall_s = time.monotonic() - t0
+    assert all(r.done for r in resumed), "recovery drained unfinished"
+    by_rid = {r.trace_id: r for r in resumed}
+    exact = all(
+        (by_rid[h.trace_id].tokens if h.trace_id in by_rid else h.tokens)
+        == r.tokens for h, r in zip(handles, ref_handles))
+    leak_fields = _zero_leak_fields(eng_b)
+    eng_b.close()
+    del eng_b
+    _release_probe(probe_eng, status_hold_s)
+    return {
+        "metric": "serve_journal_recovered_requests",
+        "value": len(resumed),
+        "unit": (f"in-flight requests recovered token-exactly after a "
+                 f"mid-decode kill ({live_at_kill} live at kill)"),
+        "vs_baseline": (round(len(resumed) / live_at_kill, 4)
+                        if live_at_kill else 1.0),
+        "detail": {
+            "config": _config_name(config),
+            "workload": "journal",
+            "n_requests": n_requests,
+            "n_slots": n_slots,
+            "max_new_tokens": max_new,
+            "decode_block": decode_block,
+            "prompt_lens": list(prompt_lens),
+            "mean_interarrival_s": mean_interarrival_s,
+            "reps": reps,
+            "journal_overhead_pct": round((1.0 - on_rps / off_rps) * 100.0, 2),
+            "journal_on_requests_per_sec": round(float(on_rps), 2),
+            "journal_off_requests_per_sec": round(float(off_rps), 2),
+            "journal_records": jstats["records"],
+            "journal_bytes": jstats["bytes_written"],
+            "journal_fsyncs": jstats["fsyncs"],
+            "journal_fsync_s": jstats["fsync_s"],
+            "journal_rotations": jstats["rotations"],
+            "kill_after_steps": steps,
+            "finished_before_kill": finished_before,
+            "live_at_kill": live_at_kill,
+            "recovered_requests": len(resumed),
+            "recovery_wall_s": round(recovery_wall_s, 4),
+            "recovered_token_exact": exact,
+            **leak_fields,
+            **kv,
+            **probe_fields,
+            "arms": arms.log,
+        },
+    }
+
+
+# ----------------------------------------------------------------- replay
+
+
+def _train_bench_model(model, config, corpus_ids, steps: int, seed: int = 0):
+    """Briefly fit the bench model on the synthetic corpus (the family's
+    LM loss) at its full context, and load the fitted weights into
+    `model` (cast to its dtype). The fit runs on a float32-master twin in
+    the training layout, on `model`'s device, from the same seed-0
+    initialisation `build_serve_model` draws."""
+    import sys
+
+    from solvingpapers_tpu_torch.configs import dense_twin, get_config
+    from solvingpapers_tpu_torch.configs.factory import build_model, loss_fn_for
+    from solvingpapers_tpu_torch.data.batches import lm_batch_iterator
+    from solvingpapers_tpu_torch.metrics.writer import ConsoleWriter
+    from solvingpapers_tpu_torch.train import OptimizerConfig, TrainConfig, Trainer
+
+    cfg = dense_twin(get_config(config) if isinstance(config, str) else config)
+    seq = min(256, getattr(model, "max_positions", None) or 64)
+    tcfg = dataclasses.replace(
+        TrainConfig(steps=steps, batch_size=16, log_every=10 * steps,
+                    eval_every=0,
+                    optimizer=OptimizerConfig(max_lr=3e-3, warmup_steps=10,
+                                              total_steps=steps)),
+        checkpoint_dir=None, ckpt_every=0, seed=0)
+    twin = build_model(cfg, device=model.device, param_dtype=torch.float32)
+    trainer = Trainer(twin, tcfg, loss_fn=loss_fn_for(cfg), device=model.device)
+    trainer.fit(lm_batch_iterator(corpus_ids, 16, seq, seed=seed),
+                writer=ConsoleWriter(stream=sys.stderr))
+    with torch.no_grad():
+        model.load_state_dict(twin.state_dict())
+    model.eval()
+
+
+def run_replay_bench(
+    config="gpt_tiny_long",
+    n_requests: int = 24,
+    n_slots: int = 8,
+    max_new: int = 48,
+    decode_block: int = 8,
+    prompt_lens=(16, 32, 48, 64),
+    train_steps: int = 200,
+    seed: int = 0,
+    page_size: int = 16,
+    cut_stride: int = 8,
+    journal_dir: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --replay`: the replay observatory's own gate.
+    Journals a seeded workload (greedy and two seeded stochastic shapes,
+    `_journal_params_for`: every stream byte-replayable) on the lane and
+    the paged pool, then replays each journal through
+    `serve.replay.ReplayHarness` at the IDENTICAL config on its pool:
+    `byte_exact_rate` must be 1.0 on both (`replay_byte_exact`, the
+    never-flip gate), and the lane arm's teacher-forced cuts score
+    `identical_agreement_rate` 1.0.
+
+    The reference's third arm, an int8-KV candidate graded by its
+    teacher-forced greedy agreement, waits for the quantized pool (ROADMAP
+    A5): the result leaves out its keys (`replay_agreement_rate` and its
+    seeded and combined twins, `quant_byte_exact_rate`,
+    `replay_first_divergence_p50`), says so under ``notes``, and its
+    headline is the identical-config byte-exact rate. The model is
+    briefly trained first (`train_steps`, 0 = random init), as the
+    reference's is."""
+    import os
+    import tempfile
+
+    from solvingpapers_tpu_torch.data.synthetic import synthetic_text
+    from solvingpapers_tpu_torch.serve.replay import ReplayHarness
+
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    text = synthetic_text(n_chars=80000, seed=seed)
+    ids = np.frombuffer(text.encode("ascii", "replace"),
+                        np.uint8).astype(np.int32) % vocab
+    if train_steps > 0:
+        arms.run("train", _train_bench_model, model, config, ids, train_steps,
+                 seed=seed)
+    # corpus-slice prompts, all up front: replay exactness does not depend
+    # on arrivals
+    rng = np.random.default_rng(seed)
+    requests = []
+    for i in range(n_requests):
+        length = prompt_lens[i % len(prompt_lens)]
+        start = int(rng.integers(0, ids.size - length))
+        requests.append((0.0, ids[start:start + length]))
+    max_prompt = max(len(p) for _, p in requests)
+    max_len = _page_max_len(requests, max_new, page_size)
+    limit = getattr(model, "max_positions", None)
+    if limit is not None and max_len > limit:
+        max_len = limit // page_size * page_size
+    jdir = journal_dir or tempfile.mkdtemp(prefix="serve_replay_bench_")
+    base = dict(n_slots=n_slots, max_len=max_len, decode_block=decode_block,
+                bucket=min(32, max_prompt), max_prefills_per_step=n_slots,
+                max_waiting=max(256, n_requests), seed=seed)
+    lane_rec_cfg = ServeConfig(**base,
+                               journal_path=os.path.join(jdir, "lane.jsonl"))
+    paged_rec_cfg = ServeConfig(**base, paged=True, page_size=page_size,
+                                journal_path=os.path.join(jdir, "paged.jsonl"))
+    probe_fields, probe_eng = _obs_probe(model, _warm_trace(requests),
+                                         ServeConfig(**base), max_new,
+                                         arms=arms, status_port=status_port)
+
+    # record: journaled lane and paged runs
+    lane_eng, _, _ = arms.run("record_lane", _run_engine_arm, model, requests,
+                              lane_rec_cfg, max_new,
+                              params_for=_journal_params_for)
+    lane_eng.journal.sync()
+    jstats = lane_eng.journal.stats()
+    leak_fields = _zero_leak_fields(lane_eng)
+    kv = _kv_entry_fields(lane_eng)
+    lane_eng.close()
+    del lane_eng
+    paged_eng, _, _ = arms.run("record_paged", _run_engine_arm, model,
+                               requests, paged_rec_cfg, max_new,
+                               params_for=_journal_params_for)
+    paged_eng.journal.sync()
+    paged_eng.close()
+    del paged_eng
+
+    # replay: the identical config on each pool
+    harness = ReplayHarness(model)
+    t0 = time.monotonic()
+    lane_report = arms.run(
+        "replay_lane", harness.run, harness.load(lane_rec_cfg.journal_path),
+        ServeConfig(**base), cut_stride=cut_stride,
+        journal_path=lane_rec_cfg.journal_path)
+    paged_report = arms.run(
+        "replay_paged", harness.run, harness.load(paged_rec_cfg.journal_path),
+        ServeConfig(**base, paged=True, page_size=page_size),
+        cut_stride=0,  # agreement is the lane arm's story
+        journal_path=paged_rec_cfg.journal_path)
+    replay_wall_s = time.monotonic() - t0
+    byte_exact = (lane_report["byte_exact_rate"] == 1.0
+                  and paged_report["byte_exact_rate"] == 1.0)
+    rates = [r["byte_exact_rate"] for r in (lane_report, paged_report)
+             if r["byte_exact_rate"] is not None]
+    headline = min(rates) if rates else 0.0
+    _release_probe(probe_eng, status_hold_s)
+    return {
+        "metric": "serve_replay_byte_exact_rate",
+        "value": round(float(headline), 4),
+        "unit": ("byte-exact share of the greedy and seeded streams replayed "
+                 "at the identical config, the lower of the lane and paged "
+                 "pools"),
+        "vs_baseline": round(float(headline), 4),
+        "detail": {
+            "config": _config_name(config),
+            "workload": "replay",
+            "n_requests": n_requests,
+            "n_slots": n_slots,
+            "max_new_tokens": max_new,
+            "decode_block": decode_block,
+            "prompt_lens": list(prompt_lens),
+            "train_steps": train_steps,
+            "cut_stride": cut_stride,
+            "replay_byte_exact": byte_exact,
+            "replay_byte_exact_rate_lane": lane_report["byte_exact_rate"],
+            "replay_byte_exact_rate_paged": paged_report["byte_exact_rate"],
+            "identical_agreement_rate": lane_report["agreement_rate"],
+            "replay_diverged": lane_report["diverged"] + paged_report["diverged"],
+            "replay_streams_compared": lane_report["streams_compared"],
+            "replay_streams_skipped": len(lane_report["skipped"]),
+            "replay_cut_positions": lane_report["cut_positions"],
+            "replay_wall_s": round(replay_wall_s, 4),
+            "journal_records": jstats["records"],
+            "journal_bytes": jstats["bytes_written"],
+            "journal_rotations": jstats["rotations"],
+            "notes": ("the int8-KV candidate arm (replay_agreement_rate, "
+                      "replay_agreement_rate_seeded, replay_agreement_rate_all, "
+                      "quant_byte_exact_rate, replay_first_divergence_p50) "
+                      "waits for the quantized pool, ROADMAP A5"),
+            **leak_fields,
+            **kv,
+            **probe_fields,
+            "arms": arms.log,
+        },
+    }
+
+
+# ------------------------------------------------------------------ fleet
+
+
+def _fleet_engines(model, serve_cfg, n_replicas: int, journal_dir=None,
+                   stem: str = "r"):
+    """`n_replicas` engines on one model (one copy of its weights), each
+    with its own pool and, with `journal_dir`, its own journal."""
+    import os
+
+    engines = []
+    for i in range(n_replicas):
+        cfg = serve_cfg
+        if journal_dir is not None:
+            cfg = dataclasses.replace(
+                serve_cfg, journal_path=os.path.join(journal_dir,
+                                                     f"{stem}{i}.jsonl"))
+        engines.append(ServeEngine(model, cfg, device=model.device))
+    return engines
+
+
+def _step_fleet(router) -> bool:
+    """One step of every replica with work, under its loop lock; True if
+    any stepped."""
+    worked = False
+    for r in router.replicas:
+        if r.engine.has_work():
+            with r.loop.lock:
+                r.engine.step()
+            worked = True
+    return worked
+
+
+def _run_fleet_arm(model, requests, serve_cfg, max_new, n_replicas,
+                   params_for=None, journal_dir=None):
+    """The arrival trace through a manually stepped `FleetRouter`: each
+    submission goes through `router.submit` (the whole ranking), and the
+    replicas step inline under their loop locks, single-threaded like
+    `_run_engine_arm`, so a pairing against the bare engine isolates the
+    router's own cost. Returns (router, handles, makespan)."""
+    from solvingpapers_tpu_torch.serve.fleet import FleetRouter
+
+    router = FleetRouter(_fleet_engines(model, serve_cfg, n_replicas,
+                                        journal_dir), start=False)
+    pending = sorted(requests, key=lambda r: r[0])
+    handles = []
+    t0 = time.monotonic()
+    i = 0
+    while i < len(pending) or any(r.engine.has_work() for r in router.replicas):
+        elapsed = time.monotonic() - t0
+        while i < len(pending) and pending[i][0] <= elapsed:
+            _, req = router.submit(
+                pending[i][1], max_new_tokens=max_new,
+                params=params_for(i) if params_for is not None else None)
+            assert req is not None and req.state != "rejected", \
+                "the fleet arm is sized to admit everything"
+            handles.append(req)
+            i += 1
+        if not _step_fleet(router) and i < len(pending):
+            time.sleep(max(0.0, pending[i][0] - (time.monotonic() - t0)))
+    makespan = (time.monotonic() - t0) - pending[0][0]
+    return router, handles, makespan
+
+
+def _migrated_trail_fields(handles, successors) -> dict:
+    """The fleet trail's invariant on every migrated stream: the phase
+    walls from the request stamps (route, then queue, prefill and decode
+    on the drained replica, the migration hop, then the peer's queue,
+    prefill and decode), each clamped at zero as `/v1/requests/<id>`
+    clamps them, must partition the route-start to peer-finish wall.
+    With the router and every engine on one clock no clamp fires and the
+    error is zero; `trail_partition_err_pct` is the worst stream's."""
+    worst = 0.0
+    n = 0
+    for h in handles:
+        succ = successors.get(h.trace_id)
+        if succ is None:
+            continue
+        n += 1
+        route_s = max(getattr(h, "fleet_route_s", 0.0) or 0.0, 0.0)
+        phases = [route_s]
+        for r in (h, succ):
+            admit = r.admit_time if r.admit_time is not None else r.submit_time
+            first = (r.first_token_time if r.first_token_time is not None
+                     else r.finish_time)
+            phases.append(max(admit - r.submit_time, 0.0))
+            phases.append(max(first - admit, 0.0))
+            phases.append(max(r.finish_time - first, 0.0))
+        phases.append(max(succ.submit_time - h.finish_time, 0.0))
+        e2e = max(succ.finish_time - h.submit_time + route_s, 1e-9)
+        worst = max(worst, abs(sum(phases) - e2e) / e2e * 100.0)
+    return {"trail_partition_ok": n > 0 and worst <= 5.0,
+            "trail_partition_err_pct": round(worst, 3),
+            "trail_partition_streams": n}
+
+
+def run_fleet_bench(
+    config="llama3_shakespeare",
+    n_requests: int = 32,
+    n_slots: int = 8,
+    max_new: int = 64,
+    decode_block: int = 16,
+    prompt_lens=(16, 32, 48, 64),
+    mean_interarrival_s: float = 0.001,
+    n_replicas: int = 2,
+    seed: int = 0,
+    reps: int = 4,
+    journal_dir: str | None = None,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    trace_out: str | None = None,
+    device=None,
+) -> dict:
+    """`cli serve-bench --fleet`: the fleet workload, three arms.
+
+    * router overhead: ABBA-paired req/s of the Poisson trace through a
+      ONE-replica `FleetRouter` (manually stepped, no journal) against the
+      bare `_run_engine_arm` on the same engine config: the routing tax
+      alone (`router_overhead_pct`).
+    * fleet trace overhead: a one-replica fleet on both sides, tracing on
+      against off (`fleet_trace_overhead_pct`).
+    * drain migration: every request submitted up front through an
+      `n_replicas`-way journaled, traced fleet (greedy and seeded
+      sampling); after a third of the requests finish, replica r0 is
+      drained MID-DECODE and its peers adopt its live streams; the fleet
+      then drains. `migrated_token_exact` holds every migrated stream
+      (prefix before the drain and suffix after the adoption) equal to an
+      uninterrupted single-engine reference, `fleet_token_exact` every
+      stream; `migration_wall_s` runs from the gate's close to the last
+      adoption; `zero_leak` holds on the drained replica and its peers;
+      the migrated trails partition their walls (`trail_partition_ok`).
+      With `trace_out`, the stitched fleet trace is written there for
+      `cli trace-summary --fleet`."""
+    import tempfile
+
+    from solvingpapers_tpu_torch.serve.fleet import FleetRouter
+
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    requests = synthetic_requests(
+        n_requests, vocab, prompt_lens=prompt_lens,
+        mean_interarrival_s=mean_interarrival_s, seed=seed)
+    max_prompt = max(len(p) for _, p in requests)
+    jdir = journal_dir or tempfile.mkdtemp(prefix="serve_fleet_bench_")
+    base_cfg = ServeConfig(
+        n_slots=n_slots, max_len=_page_max_len(requests, max_new),
+        decode_block=decode_block, bucket=min(32, max_prompt),
+        max_prefills_per_step=n_slots, max_waiting=max(256, n_requests),
+        seed=seed)
+    probe_fields, probe_eng = _obs_probe(model, _warm_trace(requests),
+                                         base_cfg, max_new, arms=arms,
+                                         status_port=status_port)
+    # the reference first: the uninterrupted single-engine oracle of both
+    # exactness claims, and the warm-up of every sampling shape
+    upfront = [(0.0, p) for _, p in requests]
+    ref_eng, ref_handles, _ = arms.run(
+        "reference", _run_engine_arm, model, upfront, base_cfg, max_new,
+        params_for=_journal_params_for)
+    kv = _kv_entry_fields(ref_eng)
+    del ref_eng
+
+    def paired(label_a, run_a, label_b, run_b):
+        mk = {label_a: [], label_b: []}
+        for rep in range(reps):
+            order = ((label_a, run_a), (label_b, run_b))
+            for label, run in (order if rep % 2 == 0 else order[::-1]):
+                out = arms.run(f"{label}[{rep}]", run)
+                mk[label].append(out[-1])
+                del out
+        return (n_requests / np.mean(mk[label_a]),
+                n_requests / np.mean(mk[label_b]))
+
+    fleet_rps, bare_rps = paired(
+        "fleet", lambda: _run_fleet_arm(model, requests, base_cfg, max_new, 1),
+        "bare", lambda: _run_engine_arm(model, requests, base_cfg, max_new))
+    tcfg = dataclasses.replace(base_cfg, trace=True)
+    traced_rps, plain_rps = paired(
+        "fleet_traced",
+        lambda: _run_fleet_arm(model, requests, tcfg, max_new, 1),
+        "fleet_untraced",
+        lambda: _run_fleet_arm(model, requests, base_cfg, max_new, 1))
+
+    # drain migration: a journaled, traced fleet
+    router = FleetRouter(
+        _fleet_engines(model, tcfg, max(2, n_replicas), jdir, "migrate_r"),
+        start=False)
+    arms.begin()
+    t_arm = time.monotonic()
+    handles = []
+    for i, (_, p) in enumerate(requests):
+        _, req = router.submit(p, max_new_tokens=max_new,
+                               params=_journal_params_for(i))
+        assert req is not None and req.state != "rejected"
+        handles.append(req)
+    finish_target = max(1, n_requests // 3)
+    while _step_fleet(router):
+        if finish_target <= sum(1 for h in handles if h.done) < n_requests:
+            break
+    report = router.drain("r0")
+    while _step_fleet(router):
+        pass
+    assert all(r.done for r in report.migrated), \
+        "the drain left adopted streams unfinished"
+    arms.log["drain_fleet"] = {"wall_s": round(time.monotonic() - t_arm, 4),
+                               **({"peak_bytes": arms.peak()}
+                                  if arms.card else {})}
+    oracle = {h.trace_id: r.tokens for h, r in zip(handles, ref_handles)}
+    successors = {old: router.replica(peer).engine._recovered[new]
+                  for old, (peer, new) in report.targets.items()}
+    migrated_exact = all(successors[t].tokens == oracle[t] for t in successors)
+    fleet_exact = all(
+        (successors[h.trace_id].tokens if h.trace_id in successors
+         else h.tokens) == oracle[h.trace_id] for h in handles)
+    leak0 = _zero_leak_fields(router.replica("r0").engine)
+    leak_peers = [_zero_leak_fields(r.engine) for r in router.replicas
+                  if r.rid != "r0"]
+    trail_fields = _migrated_trail_fields(handles, successors)
+    trace_fields = {}
+    if trace_out:
+        router.export_chrome_fleet(trace_out)
+        trace_fields["fleet_trace_out"] = trace_out
+    routing = dict(router.stats)
+    n_reps = len(router.replicas)
+    router.close()
+    del router
+    _release_probe(probe_eng, status_hold_s)
+    live_at_drain = report.entries
+    zero_peers = all(f["zero_leak"] for f in leak_peers)
+    return {
+        "metric": "serve_fleet_migrated_streams",
+        "value": len(report.migrated),
+        "unit": (f"live streams migrated token-exactly by a mid-decode drain "
+                 f"({live_at_drain} live at drain, {n_reps} replicas)"),
+        "vs_baseline": (round(len(report.migrated) / live_at_drain, 4)
+                        if live_at_drain else 1.0),
+        "detail": {
+            "config": _config_name(config),
+            "workload": "fleet",
+            "n_requests": n_requests,
+            "n_slots": n_slots,
+            "n_replicas": n_reps,
+            "max_new_tokens": max_new,
+            "decode_block": decode_block,
+            "prompt_lens": list(prompt_lens),
+            "mean_interarrival_s": mean_interarrival_s,
+            "reps": reps,
+            "router_overhead_pct": round((1.0 - fleet_rps / bare_rps) * 100.0,
+                                         2),
+            "fleet_requests_per_sec": round(float(fleet_rps), 2),
+            "bare_requests_per_sec": round(float(bare_rps), 2),
+            "fleet_trace_overhead_pct": round(
+                (1.0 - traced_rps / plain_rps) * 100.0, 2),
+            "fleet_traced_requests_per_sec": round(float(traced_rps), 2),
+            "fleet_untraced_requests_per_sec": round(float(plain_rps), 2),
+            "live_at_drain": live_at_drain,
+            "migrated_streams": len(report.migrated),
+            "migration_errors": len(report.errors),
+            "migration_wall_s": round(report.wall_s, 4),
+            "migrated_token_exact": migrated_exact,
+            "fleet_token_exact": fleet_exact,
+            "zero_leak_drained": leak0["zero_leak"],
+            "zero_leak_peers": zero_peers,
+            "zero_leak": leak0["zero_leak"] and zero_peers,
+            "routing": routing,
+            **trail_fields,
+            **trace_fields,
+            **kv,
+            **probe_fields,
+            "arms": arms.log,
+        },
+    }
+
+
 __all__ = [
     "BENCH_SCHEMA_VERSION",
     "bench_provenance",
     "build_serve_model",
+    "chaos_fault_plan",
     "poisson_serve_config",
+    "run_chaos_bench",
+    "run_fleet_bench",
     "run_http_bench",
+    "run_journal_bench",
     "run_paged_bench",
     "run_prefix_bench",
+    "run_replay_bench",
     "run_sampling_bench",
     "run_serve_bench",
     "run_slo_bench",

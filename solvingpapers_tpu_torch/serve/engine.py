@@ -85,10 +85,13 @@ and output copies the engine makes anyway: with the fault plane, the
 journal and tracing off, a decode block makes the same host-device
 copies as without the planes.
 
+The replay harness and the fleet router ride two entry points:
+`replay_submit` (serve/replay.py's shadow traffic) and `adopt`
+(serve/fleet.py's drain migration), both through the preemption-resume
+path `recover()` uses.
+
 Not in this slice (kept by the reference, listed in ROADMAP.md): the
-quantized pools, speculative decoding, `replay_submit` and `adopt` (the
-replay harness and the fleet router, ROADMAP A4), and the compile
-observatory.
+quantized pools, speculative decoding, and the compile observatory.
 """
 
 from __future__ import annotations
@@ -344,6 +347,18 @@ class ServeConfig:
 
 
 _UNSET = object()
+
+
+def journaled_params(recorded: dict) -> SamplingParams:
+    """A journal record's SamplingParams (either package's: the stop
+    fields back as tuples, and the reference's `kv_exact`, a no-op on the
+    port's unquantized pools, dropped); raises TypeError or ValueError
+    for a record it cannot rebuild."""
+    p = dict(recorded)
+    p.pop("kv_exact", None)
+    p["stop_token_ids"] = tuple(p.get("stop_token_ids") or ())
+    p["stop"] = tuple(p.get("stop") or ())
+    return SamplingParams(**p)
 
 
 def _inject_fault(logits, fault):
@@ -903,6 +918,56 @@ class ServeEngine:
                        ts=req.submit_time, prompt_len=prompt.size, **rid)
             if self._mon is not None:
                 self._mon.observe_accept()
+        return req
+
+    def replay_submit(self, prompt, max_new_tokens: int = 64, *,
+                      eos_id=_UNSET, params: SamplingParams | None = None,
+                      committed=()) -> Request:
+        """Shadow-traffic submission for the replay harness
+        (serve/replay.py): `submit`'s validation and admission without
+        the side effects a re-serve must not have. No deadline is armed;
+        no journal record is written (the engine must be journal-off:
+        shadow traffic in a live journal would replay itself at the next
+        recovery); the recorded `params.max_tokens` never overrides the
+        harness's budget (replay budgets to the recorded stream's length,
+        so comparisons stay prefix-aligned); and an SLO class this engine
+        does not track is dropped, not refused (`_entry_request`'s rule).
+
+        `committed` pre-loads recorded tokens through the
+        preemption-resume path: admission re-prefills prompt +
+        committed[:-1], discards the resampled token, and the next draw
+        lands at sample index ``len(committed)``, so with
+        ``max_new_tokens = len(committed) + 1`` the engine produces
+        exactly one token, comparable with the recorded token at that
+        offset (the teacher-forced cut). Raises `ValueError` for a
+        rejected submission (size `max_waiting` to the corpus)."""
+        if self.journal is not None:
+            raise ValueError(
+                "replay_submit needs a journal-off engine: shadow traffic "
+                "must not write journal records (build the replay engine "
+                "from serve.replay.sanitize_config)")
+        params = params or SamplingParams()
+        if params.max_tokens is not None:
+            params = dataclasses.replace(params, max_tokens=None)
+        if params.slo is not None and (
+                self._slo is None or params.slo not in self._slo.targets):
+            params = dataclasses.replace(params, slo=None)
+        committed = [int(t) for t in committed]
+        if committed and len(committed) >= max_new_tokens:
+            raise ValueError(
+                f"committed prefix ({len(committed)} tokens) must leave "
+                f"budget to generate (max_new_tokens {max_new_tokens})")
+        req = self.submit(prompt, max_new_tokens, eos_id=eos_id, params=params)
+        if req.state == REJECTED:
+            raise ValueError(
+                f"replay submission rejected ({req.reject_reason or 'queue full'}): "
+                "size the replay config's max_waiting to the corpus")
+        if committed:
+            # the request is queued and cannot be admitted before the
+            # owner's next step(): the safe window to pre-load it
+            req.tokens = committed
+            if params.logprobs:
+                req.logprobs = [None] * len(committed)
         return req
 
     def cancel(self, req: Request) -> None:
@@ -1598,11 +1663,7 @@ class ServeEngine:
             err = "grammar stepper state is not journaled"
         else:
             try:
-                p = dict(e.params)
-                p.pop("kv_exact", None)
-                p["stop_token_ids"] = tuple(p.get("stop_token_ids") or ())
-                p["stop"] = tuple(p.get("stop") or ())
-                params = SamplingParams(**p)
+                params = journaled_params(e.params)
             except (TypeError, ValueError) as exc:
                 err = f"unreplayable params: {exc}"
         if err is None:
@@ -1639,6 +1700,51 @@ class ServeEngine:
             req.finish_reason = reason
             req.finish_time = smetrics.now()
         return req, None
+
+    def adopt(self, entry) -> Request:
+        """Adopt a live journal entry from ANOTHER replica's journal: the
+        fleet router's stream-migration primitive (serve/fleet.py
+        `FleetRouter.drain`). The drained replica force-finishes the
+        stream "migrated"; this engine continues it through the
+        preemption-resume path `recover()` uses (re-prefill prompt +
+        committed tokens, discard the resampled token), token-exact for
+        greedy and seeded streams in float32, in bfloat16 up to the
+        near-ties `recover()` names. Call with this engine's step lock
+        held (the `EngineLoop` lock): adoption touches the queue and the
+        journal the engine thread owns.
+
+        The request is journaled here (a submit and its committed prefix,
+        so a crash after the migration recovers the stream on this
+        engine; its journal submit re-keys `trace_id` when this journal
+        already holds a live entry of that id: read the id back from the
+        returned request), registered in the recovered set (so a
+        Last-Event-ID reconnect resolves as after a restart) and queued
+        at the FRONT (it predates everything waiting; adopt several
+        newest-first so the oldest ends at the head). An entry whose
+        committed stream already meets a finish condition comes back
+        FINISHED, journaled through to its finish record.
+
+        Raises `ValueError` for an entry this engine cannot resume
+        token-exactly (`_entry_request`); nothing is queued then."""
+        req, err = self._entry_request(entry)
+        if err is not None:
+            raise ValueError(
+                f"journal entry {entry.rid} cannot be adopted ({err})")
+        self._journal_submit(req)
+        self._journal_commit(req, req.tokens)
+        if req.done:
+            self._journal_finish(req)
+        else:
+            # past max_waiting, like a preemption's requeue: the stream
+            # was admitted once already, on the drained peer
+            self._requeue(req)
+        self._recovered[req.trace_id] = req
+        self._recovered_total += 1
+        if self.trace is not None:
+            self.trace.instant("journal_adopt", "engine", "engine",
+                               rid=req.trace_id, committed=len(req.tokens),
+                               done=req.done)
+        return req
 
     def recover(self) -> list[Request]:
         """Replay the journal's unfinished entries through the

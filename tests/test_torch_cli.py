@@ -14,7 +14,13 @@ and the registry it reads.
   `export` writes the checkpoint's model state, read back by
   `load_params`;
 * refused commands and configs exit 2 and name their ROADMAP items;
-  the default device raises without a card.
+  the default device raises without a card;
+* `serve --replicas 2 --journal` serves a fleet behind one port (both
+  replicas answer, a journal each, the merged /metrics, the fleet
+  /statusz, the stitched trace for `trace-summary --fleet`), and `replay`
+  exits 0 on a journal of the same weights, 2 through its divergence gate
+  on a copy with one committed token changed, and 2 naming A5 for a
+  quantized candidate.
 """
 
 import dataclasses
@@ -185,13 +191,16 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--config", "gpt_tiny", "--replicas", "2"], "A4"),
-    (["replay", "--journal", "j.jsonl"], "A4"),
-    (["trace-summary", "t.json", "--fleet"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny", "--chaos"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny", "--journal"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny", "--replay"], "A4"),
-    (["serve-bench", "--config", "gpt_tiny", "--fleet"], "A4"),
+    (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
+      "--kv-quant", "int8"], "A5"),
+    (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
+      "--speculative", "ngram"], "A5"),
+    (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
+      "--kv-exact-lanes=2"], "A5"),
+    (["serve", "--config", "gpt_tiny", "--speculative", "ngram"], "A5"),
+    (["serve-bench", "--config", "gpt_tiny", "--spec-k", "4"], "A5"),
+    (["serve-bench", "--config", "gpt_tiny", "--quant-train-steps", "3"], "A5"),
+    (["serve-bench", "--config", "gpt_tiny", "--obs-hlo-dir", "d"], "A8"),
     (["serve-bench", "--config", "gpt_tiny", "--obs"], "A8"),
     (["kernel-bench"], "A5"),
     (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
@@ -262,3 +271,138 @@ def test_the_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--config", "gpt_tiny", "--steps", "1"])
+
+
+# ------------------------------------------------------ fleet and replay
+
+
+def test_serve_replicas_serves_a_fleet_behind_one_port(tmp_path, monkeypatch,
+                                                       capsys):
+    """`serve --replicas 2 --journal PATH --trace --trace-out`: concurrent
+    SSE clients reach both replicas (X-Replica-Id), each journals to
+    PATH.rN, /metrics' merged counts are the labelled ones' sum, /statusz
+    has the fleet section, and SIGINT writes the stitched fleet trace."""
+    import signal
+    import threading
+    import urllib.request
+
+    from solvingpapers_tpu_torch import serve
+
+    servers = []
+
+    class Recorded(serve.ApiServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(serve, "ApiServer", Recorded)
+    journal, trace = str(tmp_path / "j.jsonl"), str(tmp_path / "t.json")
+    seen, errors = {}, []
+
+    def post(i):
+        body = json.dumps({"prompt": "ab" * (i + 1), "max_tokens": 16,
+                           "temperature": 0, "stream": True}).encode()
+        req = urllib.request.Request(servers[0].url("/v1/completions"),
+                                     data=body, method="POST", headers={
+                                         "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            seen[i] = r.headers["X-Replica-Id"]
+            assert r.read().endswith(b"data: [DONE]\n\n")
+
+    def drive():
+        try:
+            while not servers:
+                time.sleep(0.01)
+            clients = [threading.Thread(target=post, args=(i,)) for i in range(6)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            with urllib.request.urlopen(servers[0].url("/statusz")) as r:
+                seen["fleet"] = json.loads(r.read())["fleet"]
+            with urllib.request.urlopen(servers[0].url("/metrics")) as r:
+                seen["metrics"] = r.read().decode().splitlines()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)
+
+    import time
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    t = threading.Thread(target=drive)
+    t.start()
+    try:
+        rc = cli.main(["serve", "--config", "gpt_tiny", "--device", "cpu",
+                       "--port", "0", "--replicas", "2", "--slots", "2",
+                       "--journal", journal, "--trace", "--trace-out", trace])
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        t.join()
+    assert rc == 0 and not errors, errors
+    assert {seen[i] for i in range(6)} == {"r0", "r1"}
+    assert sorted(seen["fleet"]["replicas"]) == ["r0", "r1"]
+    assert seen["fleet"]["routing"]["routed"] == 6
+    lines = seen["metrics"]
+    merged = sum(float(ln.rsplit(" ", 1)[1]) for ln in lines
+                 if ln.startswith("serve_ttft_s_count "))
+    labelled = sum(float(ln.rsplit(" ", 1)[1]) for ln in lines
+                   if ln.startswith("serve_ttft_s_count{"))
+    assert merged == labelled == 6
+    assert os.path.exists(journal + ".r0") and os.path.exists(journal + ".r1")
+    assert not os.path.exists(journal)
+    capsys.readouterr()
+    assert cli.main(["trace-summary", trace, "--fleet"]) == 0
+    assert "fleet: 3 sections (router, r0, r1)" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def recorded_journal(tmp_path_factory):
+    """A journal of greedy and seeded streams served on `cli replay`'s
+    model (gpt_tiny, random weights from seed 0) at its engine defaults."""
+    from solvingpapers_tpu_torch.serve import SamplingParams, ServeConfig, ServeEngine
+
+    path = str(tmp_path_factory.mktemp("replay") / "j.jsonl")
+    args = cli.build_parser().parse_args([
+        "replay", "--config", "gpt_tiny", "--device", "cpu", "--journal", path])
+    _, model, *_ = cli._serve_model(args, torch.device("cpu"))
+    eng = ServeEngine(model, ServeConfig(n_slots=8, max_len=64, decode_block=8,
+                                         bucket=32, journal_path=path),
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        eng.submit(rng.integers(0, 50, 10), max_new_tokens=12,
+                   params=SamplingParams(temperature=0.9, seed=i) if i % 2
+                   else None)
+    eng.run()
+    eng.close()
+    return path
+
+
+@pytest.mark.parametrize("case", ["identical", "altered", "quant_override"])
+def test_replay_gates_on_divergence(capsys, tmp_path, recorded_journal, case):
+    path = recorded_journal
+    if case == "altered":
+        lines = open(path).read().splitlines()
+        k = next(i for i, ln in enumerate(lines) if '"commit"' in ln)
+        rec = json.loads(lines[k])
+        rec["tokens"][0] = (rec["tokens"][0] + 1) % 50
+        lines[k] = json.dumps(rec)
+        path = str(tmp_path / "altered.jsonl")
+        open(path, "w").write("\n".join(lines) + "\n")
+    extra = (["--config-overrides", "kv_quant=int8"]
+             if case == "quant_override" else [])
+    rc, out, err = _run(capsys, "replay", "--config", "gpt_tiny", "--device",
+                        "cpu", "--journal", path, "--cut-stride", "4", *extra)
+    if case == "identical":
+        report = json.loads(out.strip().splitlines()[-1])
+        assert rc == 0 and report["byte_exact_rate"] == 1.0
+        assert report["streams_compared"] == 4 and report["agreement_rate"] == 1.0
+    elif case == "altered":
+        report = json.loads(out.strip().splitlines()[-1])
+        assert rc == 2 and "DIVERGENCE GATE FAILED" in err
+        assert report["byte_exact_rate"] == 0.75
+        assert report["diverged"][0]["first_divergence"] == 0
+    else:
+        assert rc == 2 and "ROADMAP A5" in err and not out

@@ -151,8 +151,10 @@ def test_mla_matches_reference(use_flash, rope_dim):
         out, _ = JMLA(cfg).apply({"params": pp}, xx, jnp.asarray(pos))
         return jnp.sum(out * cot), out
 
-    (_, jout), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
-                                               has_aux=True)(p, jnp.asarray(x))
+    # jitted: the reference as the JAX package runs it, where an eager call
+    # steps the interpret-mode flash kernels' grids op by op
+    (_, jout), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(x))
     model = _port_model(params, moe_state, use_flash=use_flash,
                         rope_dim=rope_dim)
     mla = model.layers[0].mla
@@ -214,8 +216,8 @@ def test_eval_logits_match_reference(use_flash, moe_impl, rope_dim):
     kw = dict(use_flash=use_flash, moe_impl=moe_impl, rope_dim=rope_dim)
     _, jm, params, moe_state = _jax_model(**kw)
     toks = _tokens(5)
-    jlogits, _ = jm.apply({"params": params, "moe_state": moe_state},
-                          jnp.asarray(toks))
+    jlogits, _ = jax.jit(jm.apply)({"params": params, "moe_state": moe_state},
+                                   jnp.asarray(toks))
     model = _port_model(params, moe_state, **kw).eval()
     logits, caches = model(torch.from_numpy(toks))
     assert caches is None and logits.shape == (BATCH, SEQ, 256)

@@ -130,6 +130,19 @@ def _port_prefill(tm, toks, chunk, max_len=32):
     return torch.cat(logits, 1), caches
 
 
+_APPLY = {}
+
+
+def _apply(jm):
+    """`jm.apply` under `jax.jit`, one a model: the reference's forward as
+    the JAX package runs it, compiled once a shape, where an eager call
+    runs the interpret-mode flash kernel's grid op by op (seconds a call)."""
+    if id(jm) not in _APPLY:
+        _APPLY[id(jm)] = (jm, jax.jit(jm.apply, static_argnames=(
+            "deterministic", "attend_len")))
+    return _APPLY[id(jm)][1]
+
+
 def _jax_prefill(jm, variables, toks, chunk, max_len=32):
     b, s = toks.shape
     caches = jm.init_caches(b, max_len)
@@ -138,9 +151,9 @@ def _jax_prefill(jm, variables, toks, chunk, max_len=32):
     for start in range(0, s, step):
         end = min(start + step, s)
         pos = jnp.broadcast_to(jnp.arange(start, end), (b, end - start))
-        out, caches = jm.apply(variables, jnp.asarray(toks[:, start:end]),
-                               positions=pos, caches=caches,
-                               deterministic=True, attend_len=end)
+        out, caches = _apply(jm)(variables, jnp.asarray(toks[:, start:end]),
+                                 positions=pos, caches=caches,
+                                 deterministic=True, attend_len=end)
         logits.append(np.asarray(out))
     return np.concatenate(logits, 1), caches
 
@@ -206,9 +219,9 @@ def test_decode_step_matches_jax(pairs, use_flash):
     nxt = np.array([[5], [77]])
     logits, caches = tm(torch.from_numpy(nxt), positions=torch.full((2, 1), 17),
                         caches=caches)
-    jlogits, jcaches = jm.apply(variables, jnp.asarray(nxt),
-                                positions=jnp.full((2, 1), 17), caches=jcaches,
-                                deterministic=True)
+    jlogits, jcaches = _apply(jm)(variables, jnp.asarray(nxt),
+                                  positions=jnp.full((2, 1), 17),
+                                  caches=jcaches, deterministic=True)
     _close(logits, jlogits)
     for c, jc in zip(caches, jcaches):
         _close(c.c, jc.c)

@@ -43,6 +43,18 @@ def _inputs(seed, b, sq, skv, n, n_kv, d):
             r.standard_normal((b, sq, n, d)).astype(np.float32))
 
 
+def _jax_vjp(fn, primals, cotangent):
+    """(fn(*primals), the cotangent pulled back through `jax.vjp`), the
+    two under one `jax.jit`: the reference as the JAX package runs it,
+    where an eager call steps the interpret-mode kernels' grids op by
+    op."""
+    def both(*args):
+        out, vjp = jax.vjp(fn, *args[:-1])
+        return out, vjp(args[-1])
+
+    return jax.jit(both)(*(jnp.asarray(x) for x in (*primals, cotangent)))
+
+
 @pytest.mark.parametrize("b,sq,skv,n,n_kv,d,causal", [
     pytest.param(2, 32, 32, 4, 4, 16, True, id="mha_causal"),
     pytest.param(1, 32, 48, 4, 2, 16, False, id="gqa2_bidir_sq_lt_skv"),
@@ -58,11 +70,10 @@ def test_flash_grads_match_jax_vjp(b, sq, skv, n, n_kv, d, causal):
     o = tfa.flash_attention(tq, tk, tv, causal=causal)
     grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
 
-    jo, vjp = jax.vjp(
+    jo, jgrads = _jax_vjp(
         lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, causal=causal,
                                                interpret=True),
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    jgrads = vjp(jnp.asarray(do))
+        (q, k, v), do)
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
                                rtol=TOL, atol=TOL)
     for name, g, jg in zip("qkv", grads, jgrads):
@@ -79,13 +90,13 @@ def test_flash_grads_with_k_is_v_match_jax_vjp_at_d16(b, s, n):
     tq, tc = (torch.from_numpy(x).requires_grad_() for x in (q, c))
     o = tfa.flash_attention(tq, tc, tc, causal=True)
     grads = torch.autograd.grad(o, (tq, tc), torch.from_numpy(do))
-    jo, vjp = jax.vjp(
+    jo, jgrads = _jax_vjp(
         lambda q_, c_: jfa.flash_attention(q_, c_, c_, causal=True,
                                            interpret=True),
-        jnp.asarray(q), jnp.asarray(c))
+        (q, c), do)
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), rtol=TOL,
                                atol=TOL)
-    for name, g, jg in zip(("q", "c"), grads, vjp(jnp.asarray(do))):
+    for name, g, jg in zip(("q", "c"), grads, jgrads):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=TOL,
                                    atol=TOL, err_msg=f"d{name}")
 
@@ -102,13 +113,13 @@ def test_transformed_scale_grads_match_jax_vjp(scale):
     qt, st = tfa.positive_scale(tq, scale)
     o = tfa._Flash.apply(qt, tk, tv, True, st, 0.0, 0)
     grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
-    jo, vjp = jax.vjp(
+    jo, jgrads = _jax_vjp(
         lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, causal=True,
                                                scale=scale, interpret=True),
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        (q, k, v), do)
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), rtol=TOL,
                                atol=TOL)
-    for name, g, jg in zip("qkv", grads, vjp(jnp.asarray(do))):
+    for name, g, jg in zip("qkv", grads, jgrads):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=TOL,
                                    atol=TOL, err_msg=f"d{name}")
 

@@ -72,7 +72,7 @@ def _pair(kw, seed=0):
 def test_logits_match_jax(kw):
     jm, params, model = _pair(kw)
     toks = np.random.default_rng(1).integers(0, kw["vocab_size"], (2, 48))
-    want, _ = jm.apply({"params": params}, jnp.asarray(toks, jnp.int32))
+    want, _ = jax.jit(jm.apply)({"params": params}, jnp.asarray(toks, jnp.int32))
     with torch.no_grad():
         got, _ = model(torch.from_numpy(toks))
     want = np.asarray(want)

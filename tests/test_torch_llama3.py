@@ -100,23 +100,26 @@ def test_chunked_cached_prefill_then_decode(pair):
     10 and 24 (end-aligned flash), then two single-token decode steps:
     logits and cache contents match the JAX package at every call."""
     jm, params, tm = pair
+    # jitted: the reference as the JAX package runs it, where an eager call
+    # steps the interpret-mode flash kernel's grid op by op
+    apply = jax.jit(jm.apply, static_argnames=("attend_len",))
     toks = _tokens(2, 2, 26)
     jc = jm.init_caches(2, 40)
     tc = tm.init_caches(2, 40)
     with torch.no_grad():
         for start, end in [(0, 10), (10, 24)]:
             pos = np.broadcast_to(np.arange(start, end), (2, end - start))
-            jl, jc = jm.apply({"params": params}, jnp.asarray(toks[:, start:end]),
-                              positions=jnp.asarray(pos), caches=jc,
-                              attend_len=end)
+            jl, jc = apply({"params": params}, jnp.asarray(toks[:, start:end]),
+                           positions=jnp.asarray(pos), caches=jc,
+                           attend_len=end)
             tl, tc = tm(torch.from_numpy(toks[:, start:end]),
                         positions=torch.from_numpy(pos.copy()), caches=tc,
                         attend_len=end)
             _close(tl, jl)
         for pos in (24, 25):
             p = np.full((2, 1), pos)
-            jl, jc = jm.apply({"params": params}, jnp.asarray(toks[:, pos:pos + 1]),
-                              positions=jnp.asarray(p), caches=jc)
+            jl, jc = apply({"params": params}, jnp.asarray(toks[:, pos:pos + 1]),
+                           positions=jnp.asarray(p), caches=jc)
             tl, tc = tm(torch.from_numpy(toks[:, pos:pos + 1]),
                         positions=torch.from_numpy(p), caches=tc)
             _close(tl, jl)

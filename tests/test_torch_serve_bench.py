@@ -5,9 +5,14 @@ on the CPU at `gpt_tiny`.
 * the request generators equal the JAX package's element for element,
   `sampling_params_mix` field for field;
 * the provenance stamp names torch and CUDA, not jax;
-* each of the five workloads returns the reference's result keys less
+* each of the nine workloads returns the reference's result keys less
   the documented set that rests on XLA's compile registry (or, on the
-  CPU, on the card's allocator), plus the port's `arms`;
+  CPU, on the card's allocator; or, for the replay workload, on the
+  quantized pool), plus the port's `arms`;
+* the chaos, journal, replay and fleet workloads' never-flip booleans
+  hold at a small size: surviving streams token-exact, recovered and
+  migrated streams token-exact, identical-config replays byte-exact,
+  every pool drained without a leak;
 * the engine arm's greedy streams equal one-shot `generate`'s; the paged
   workload's capacity arm holds more streams than the lane pool's slots
   and its page-sharing hits make no device copy; the HTTP streams equal
@@ -124,6 +129,58 @@ REF_DETAIL = {
             "attainment_by_class", "goodput_tokens", "ttft_p95_s",
             "itl_p95_s", "e2e_p95_s", *KV, *PROBE},
 }
+# the post-drain leak facts (`_zero_leak_fields` :2076-2100): the paged
+# pool's page facts only on a paged pool
+LEAK = {"slots_clean", "zero_leak"}
+PAGE_LEAK = {"pages_free", "page_budget", "refcount_sum"}
+REF_DETAIL.update({
+    # run_chaos_bench :2226-2297
+    "chaos": {"config", "workload", "n_requests", "n_slots", "max_new_tokens",
+              "decode_block", "prompt_lens", "mean_interarrival_s", "reps",
+              "fault_plan", "streams_survived", "streams_admitted",
+              "streams_quarantined", "streams_shed_off_arm",
+              "survivors_token_exact", "faults_injected", "fault_retries",
+              "fault_recovery_s", "watchdog_stalls",
+              "journal_degraded_exercised", *LEAK, *PAGE_LEAK,
+              "ladder_zero_leak", "goodput_ladder_on", "goodput_ladder_off",
+              "goodput_ladder_ratio", "ladder_max_shed", "ladder_rung_final",
+              "ladder_transitions", "fault_overhead_pct",
+              "armed_requests_per_sec", "plain_requests_per_sec", *KV,
+              *PROBE},
+    # run_journal_bench :2444-2481
+    "journal": {"config", "workload", "n_requests", "n_slots",
+                "max_new_tokens", "decode_block", "prompt_lens",
+                "mean_interarrival_s", "reps", "journal_overhead_pct",
+                "journal_on_requests_per_sec", "journal_off_requests_per_sec",
+                "journal_records", "journal_bytes", "journal_fsyncs",
+                "journal_fsync_s", "journal_rotations", "kill_after_steps",
+                "finished_before_kill", "live_at_kill", "recovered_requests",
+                "recovery_wall_s", "recovered_token_exact", *LEAK, *KV,
+                *PROBE},
+    # run_replay_bench :2620-2658
+    "replay": {"config", "workload", "n_requests", "n_slots",
+               "max_new_tokens", "decode_block", "prompt_lens", "train_steps",
+               "cut_stride", "replay_byte_exact",
+               "replay_byte_exact_rate_lane", "replay_byte_exact_rate_paged",
+               "replay_agreement_rate", "replay_agreement_rate_seeded",
+               "replay_agreement_rate_all", "identical_agreement_rate",
+               "quant_byte_exact_rate", "replay_first_divergence_p50",
+               "replay_streams_compared", "replay_streams_skipped",
+               "replay_cut_positions", "replay_wall_s", "journal_records",
+               "journal_bytes", "journal_rotations", *LEAK, *KV, *PROBE},
+    # run_fleet_bench :2950-2999 (fleet_trace_out when given)
+    "fleet": {"config", "workload", "n_requests", "n_slots", "n_replicas",
+              "max_new_tokens", "decode_block", "prompt_lens",
+              "mean_interarrival_s", "reps", "router_overhead_pct",
+              "fleet_requests_per_sec", "bare_requests_per_sec",
+              "fleet_trace_overhead_pct", "fleet_traced_requests_per_sec",
+              "fleet_untraced_requests_per_sec", "live_at_drain",
+              "migrated_streams", "migration_errors", "migration_wall_s",
+              "migrated_token_exact", "fleet_token_exact",
+              "zero_leak_drained", "zero_leak_peers", "zero_leak", "routing",
+              "trail_partition_ok", "trail_partition_err_pct",
+              "trail_partition_streams", "fleet_trace_out", *KV, *PROBE},
+})
 # `_traced_arm_fields` :296-307 (trace_out when given), and the status
 # endpoint's port from the probe :390-391
 TRACED = {"trace_overhead_pct", "traced_requests_per_sec", "trace_events",
@@ -135,6 +192,10 @@ STATUS = {"status_port"}
 # reference's e2e latency histogram, which the port's metrics do not keep
 LEFT_OUT = {
     "slo": {"e2e_p95_s"},
+    # the int8-KV candidate arm waits for the quantized pool (ROADMAP A5)
+    "replay": {"replay_agreement_rate", "replay_agreement_rate_seeded",
+               "replay_agreement_rate_all", "quant_byte_exact_rate",
+               "replay_first_divergence_p50"},
     "paged": {"gather_wall_s", "dequant_wall_s", "scatter_wall_s",
               "gather_share_pct", "dequant_share_pct", "scatter_share_pct",
               "attention_share_pct", "anatomy_overhead_pct",
@@ -142,9 +203,15 @@ LEFT_OUT = {
 }
 
 
+# what the port adds beside `arms`: the replay workload says what it
+# left out, and lists the identical-config arms' divergences
+PORT_EXTRA = {"replay": {"notes", "replay_diverged"}}
+
+
 def _cpu_keys(workload: str) -> set:
     return ((REF_DETAIL[workload] - XLA_PROBE - CARD_ONLY
-             - LEFT_OUT.get(workload, set())) | PORT_ONLY)
+             - LEFT_OUT.get(workload, set())) | PORT_ONLY
+            | PORT_EXTRA.get(workload, set()))
 
 
 # ------------------------------------------------------------ generators
@@ -534,16 +601,54 @@ def test_cli_serve_bench_writes_its_line(tmp_path, capsys):
         "serve_requests_per_sec", "serve_sampling_requests_per_sec"]
 
 
+@pytest.mark.parametrize("workload", ["chaos", "journal", "replay", "fleet"])
+def test_durability_workloads_keys_and_invariants(tmp_path, workload):
+    small = dict(SMALL, n_requests=8, max_new=8)
+    if workload == "chaos":
+        result = bench.run_chaos_bench(**small, stall_s=0.3, reps=1,
+                                       mean_interarrival_s=0.001)
+        d = result["detail"]
+        assert d["survivors_token_exact"] and d["ladder_zero_leak"]
+        assert d["journal_degraded_exercised"] in (True, False)
+    elif workload == "journal":
+        result = bench.run_journal_bench(**small, reps=1)
+        d = result["detail"]
+        assert d["recovered_token_exact"] and d["live_at_kill"] > 0
+        assert d["recovered_requests"] == d["live_at_kill"]
+    elif workload == "replay":
+        result = bench.run_replay_bench(**{**small, "prompt_lens": (8, 16)},
+                                        train_steps=2)
+        d = result["detail"]
+        assert d["replay_byte_exact"] and result["value"] == 1.0
+        assert d["identical_agreement_rate"] == 1.0 and not d["replay_diverged"]
+        assert d["replay_streams_compared"] == 8
+        assert set(d["arms"]) >= {"train", "record_lane", "record_paged",
+                                  "replay_lane", "replay_paged"}
+    else:
+        trace = str(tmp_path / "fleet.json")
+        # two slots a replica: a second wave is still live when a third of
+        # the requests have finished
+        result = bench.run_fleet_bench(**{**small, "n_slots": 2}, reps=1,
+                                       trace_out=trace)
+        d = result["detail"]
+        assert d["migrated_token_exact"] and d["fleet_token_exact"]
+        assert d["migrated_streams"] == d["live_at_drain"] > 0
+        assert d["trail_partition_ok"] and d["zero_leak_peers"]
+        assert cli.main(["trace-summary", trace, "--fleet"]) == 0
+    assert d["zero_leak"] and d.get("slots_clean", True)
+    _detail_keys_hold(result, workload)
+
+
 @pytest.mark.parametrize("argv,code,item", [
     (["--speculative"], 2, "ROADMAP A5"),
     (["--kv-quant", "int8"], 2, "ROADMAP A5"),
-    (["--journal-kill-step", "3"], 2, "ROADMAP A4"),
-    (["--chaos"], 2, "ROADMAP A4"),
-    (["--journal"], 2, "ROADMAP A4"),
-    (["--replay"], 2, "ROADMAP A4"),
-    (["--fleet"], 2, "ROADMAP A4"),
-    (["--fleet-replicas", "2"], 2, "ROADMAP A4"),
-    (["--replay-train-steps=3"], 2, "ROADMAP A4"),
+    (["--spec-k", "4"], 2, "ROADMAP A5"),
+    (["--spec-rounds", "2"], 2, "ROADMAP A5"),
+    (["--spec-train-steps", "3"], 2, "ROADMAP A5"),
+    (["--kv-quant-block", "8"], 2, "ROADMAP A5"),
+    (["--quant-train-steps=3"], 2, "ROADMAP A5"),
+    (["--obs"], 2, "ROADMAP A8"),
+    (["--chaos", "--fleet"], 2, "pick one per run"),
     (["--obs-hlo-dir", "d"], 2, "ROADMAP A8"),
     (["--paged", "--http"], 2, "pick one per run"),
     (["--checkpoint-dir", "ck"], 2, "not consumed"),

@@ -215,3 +215,105 @@ def test_cli_trace_summary_round_trip(served_trace, tmp_path, capsys):
     assert cli.main(["trace-summary", str(empty)]) == 1
     err = capsys.readouterr().err
     assert "no trace file" in err and "not valid JSON" in err
+
+
+# ------------------------------------------------------------------ fleet
+
+
+def _fleet_sections(mod):
+    """A router recorder (route, reroute, migrate and drain events) and two
+    replica recorders, in `mod`'s package."""
+    ticks = iter(np.arange(1.0, 9.0, 0.03125))
+    router = mod.FlightRecorder(capacity=64, clock=lambda: float(next(ticks)))
+    router.complete("route", "fleet", "router", ts=0.1, dur=0.01, req=1,
+                    rid="a", replica="r0", attempts=1, scores=[])
+    router.instant("reroute", "fleet", "router", req=2, ts=0.2, rid="b",
+                   rejected_by="r0")
+    router.complete("route", "fleet", "router", ts=0.2, dur=0.02, req=2,
+                    rid="b", replica="r1", attempts=2, scores=[])
+    router.complete("migrate", "fleet", "router", ts=0.6, dur=0.05, req=3,
+                    rid="a", src="r0", dst="r1", old_rid="a")
+    router.complete("drain", "fleet", "router", ts=0.55, dur=0.1,
+                    replica="r0", entries=1, migrated=1, errors=0)
+    r0 = _record(mod, lambda: float(next(ticks)))
+    r0.instant("submit", "request", "queue", req=1, ts=0.12, rid="a")
+    r1 = _record(mod, lambda: float(next(ticks)))
+    r1.instant("submit", "request", "queue", req=2, ts=0.22, rid="b")
+    r1.instant("submit", "request", "queue", req=3, ts=0.65, rid="a")
+    return [("router", router.events()), ("r0", r0.events()),
+            ("r1", r1.events())]
+
+
+def test_fleet_exports_and_summaries_match_the_reference():
+    """The stitched export, its fleet section, the report and the refusal
+    of a partial export are the reference's: one process a section, flows
+    across sections by rid, and a manifest that catches a missing one."""
+    ours = ttrace.fleet_events_to_chrome(_fleet_sections(ttrace))
+    ref = jtrace.fleet_events_to_chrome(_fleet_sections(jtrace))
+    assert ours == ref
+    summary = ttrace.summarize_trace(ours)
+    jsummary = jtrace.summarize_trace(ref)
+    assert jsummary.pop("programs") == {}
+    assert summary == jsummary
+    fleet = summary["fleet"]
+    assert fleet["sections"] == ["router", "r0", "r1"]
+    assert fleet["routing"] == {"route": 2, "attempts": 3, "reroutes": 1,
+                                "migrations": 1, "drains": 1}
+    assert fleet["migrations"] == [{"rid": "a", "from": "r0", "to": "r1"}]
+    assert ttrace.format_summary(summary) == jtrace.format_summary(jsummary)
+    assert "migrated a: r0 -> r1" in ttrace.format_fleet(fleet)
+    assert any(e.get("cat") == "fleet_flow" for e in ours["traceEvents"])
+    partial = [e for e in ours["traceEvents"]
+               if not (e.get("pid") == 3 and e.get("name") == "process_name")]
+    for mod in (ttrace, jtrace):
+        with pytest.raises(ValueError, match="partial fleet export"):
+            mod.summarize_trace(partial)
+    with pytest.raises(ValueError, match="duplicate"):
+        ttrace.fleet_events_to_chrome([("r0", []), ("r0", [])])
+    assert "fleet" not in ttrace.summarize_trace(_record(
+        ttrace, lambda: 0.0).to_chrome())
+
+
+@pytest.mark.parametrize("export", ["stitched", "single", "partial"])
+def test_cli_trace_summary_fleet(tmp_path, capsys, export):
+    """`trace-summary --fleet` on a traced port fleet's drain: the
+    stitched export prints the fleet section; a single-engine trace and a
+    sliced fleet file exit 2, saying why."""
+    from solvingpapers_tpu_torch.serve import FleetRouter
+
+    engines = [port_engine(trace=True,
+                           journal_path=str(tmp_path / f"r{i}.jsonl"))
+               for i in range(2)]
+    router = FleetRouter(engines, start=False)
+    for p in prompts(4, seed=31):
+        router.submit(p, max_new_tokens=NEW)
+    for r in router.replicas:
+        r.engine.step()
+    report = router.drain("r0")
+    for r in router.replicas:
+        drive(r.engine, [], NEW)
+    path = str(tmp_path / "fleet.json")
+    doc = router.to_chrome_fleet()
+    if export == "single":
+        engines[1].trace.export_chrome(path)
+    else:
+        if export == "partial":
+            doc["traceEvents"] = [e for e in doc["traceEvents"] if not (
+                e.get("pid") == 2 and e.get("name") == "process_name")]
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    rc = cli.main(["trace-summary", path, "--fleet"])
+    out, err = capsys.readouterr()
+    if export == "stitched":
+        assert rc == 0 and report.migrated
+        assert out.rstrip("\n") == ttrace.format_summary(
+            ttrace.summarize_trace(path))
+        fleet = ttrace.summarize_trace(path)["fleet"]
+        assert fleet["routing"]["drains"] == 1
+        assert fleet["routing"]["migrations"] == len(report.migrated)
+        assert sum(fleet["requests_by_replica"].values()) == 4 + len(
+            report.migrated)  # each migrated stream finishes twice
+    else:
+        assert rc == 2 and not out
+        assert ("holds no fleet events" if export == "single"
+                else "partial fleet export") in err

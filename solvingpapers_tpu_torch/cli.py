@@ -15,6 +15,8 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--checkpoint-dir ckpts] [--slots 8] [--max-len N]
                [--decode-block 8] [--bucket 32] [--sample-cap 64]
                [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
+               [--kv-quant int8 [--kv-quant-block 16]
+               [--kv-exact-lanes N]]
                [--trace [--trace-out t.json]] [--slo] [--degrade]
                [--step-deadline S] [--journal j.jsonl [--journal-strict]]
                [--timeseries-interval 1.0] [--timeseries-capacity 120]
@@ -25,7 +27,8 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--pace] [--out r.json] [the engine flags of serve]
     cli serve-bench --config llama3_shakespeare [--shared-prefix |
                --sampling | --paged | --http | --slo | --chaos | --journal
-               | --replay | --fleet] [--requests N] [--slots 8]
+               | --replay | --fleet | --kv-quant int8] [--requests N]
+               [--slots 8] [--kv-quant-block 16] [--quant-train-steps 200]
                [--max-new-tokens N] [--prompt-lens 16 32 48 64]
                [--skip-sequential] [--trace [--trace-out
                t.json] [--trace-dump d.jsonl]] [--status-port 0
@@ -75,7 +78,9 @@ the divergence report, and exits 2 past its gate (`--byte-exact-min`,
 `serve-bench` runs one workload of `serve/bench.py` a run — Poisson
 (engine against sequential `generate`, the default), `--shared-prefix`,
 `--sampling`, `--paged`, `--http`, `--slo`, `--chaos`, `--journal`,
-`--replay` or `--fleet` — on random weights, and
+`--replay`, `--fleet` or `--kv-quant int8` (int8 KV storage against
+exact: agreement, overhead, capacity at equal bytes, on a briefly
+trained model) — on random weights, and
 prints one JSON line with a provenance stamp (written to `--out` too when
 given). Beyond the reference's flags it takes `--max-seq-len` (the
 model's position budget, which the prefix stems stretch to) and `--reps`
@@ -91,11 +96,10 @@ status endpoint up for the run (`--status-hold-s` past its end).
 export (`metrics/trace.py`); `--fleet` requires a stitched fleet export
 and prints its fleet section.
 
-Not ported, refused with their ROADMAP items: `kernel-bench`, `sample
---speculative` and the flags of the quantized pool and speculative
-decoding (A5: of `serve`, `serve-bench` and `replay`, whose `--replay`
-workload also leaves out the reference's int8 candidate arm), and the
-compile observatory's (A8); image, KD and Gemma configs (A6) and
+Not ported, refused with their ROADMAP items: `kernel-bench` (A5.3),
+`sample --speculative` (A6.2), the flags of speculative decoding (A5.2:
+of `serve`, `serve-bench` and `replay`), and the compile observatory's
+(A8); image, KD and Gemma configs (A6) and
 pipeline ones (A7) are not registered.
 """
 
@@ -113,7 +117,7 @@ import torch
 # the reference's commands the port refuses, with the ROADMAP item that
 # brings each
 UNPORTED = {
-    "kernel-bench": "A5 (serve/kernel_bench.py)",
+    "kernel-bench": "A5.3 (serve/kernel_bench.py)",
 }
 
 
@@ -339,7 +343,10 @@ def _serve_config(args, model):
     return ServeConfig(
         n_slots=args.slots, max_len=max_len, decode_block=args.decode_block,
         bucket=min(args.bucket, max_len), sample_cap=args.sample_cap,
-        paged=args.paged, api_port=args.port, api_host=args.host,
+        paged=args.paged, kv_quant=args.kv_quant,
+        kv_quant_block=args.kv_quant_block,
+        kv_exact_lanes=args.kv_exact_lanes,
+        api_port=args.port, api_host=args.host,
         api_max_connections=args.max_connections,
         json_mode=not args.no_json_mode,
         drain_timeout_s=args.drain_timeout, max_waiting=args.max_waiting,
@@ -354,12 +361,9 @@ def _serve_config(args, model):
 
 # `serve` flags of the reference that the port refuses, with their items
 SERVE_UNPORTED = {
-    "--kv-quant": "A5 (the quantized KV pool)",
-    "--kv-quant-block": "A5 (the quantized KV pool)",
-    "--kv-exact-lanes": "A5 (the quantized KV pool)",
-    "--speculative": "A5 (speculative decoding)",
-    "--spec-k": "A5 (speculative decoding)",
-    "--spec-rounds": "A5 (speculative decoding)",
+    "--speculative": "A5.2 (speculative decoding)",
+    "--spec-k": "A5.2 (speculative decoding)",
+    "--spec-rounds": "A5.2 (speculative decoding)",
 }
 
 
@@ -474,7 +478,9 @@ def cmd_replay(args) -> int:
     base_cfg = ServeConfig(
         n_slots=args.slots, max_len=max_len, decode_block=args.decode_block,
         bucket=min(args.bucket, max_len), sample_cap=args.sample_cap,
-        paged=args.paged, max_waiting=args.max_waiting)
+        paged=args.paged, kv_quant=args.kv_quant,
+        kv_quant_block=args.kv_quant_block,
+        kv_exact_lanes=args.kv_exact_lanes, max_waiting=args.max_waiting)
     overrides = {}
     for kv in args.config_overrides or []:
         if "=" not in kv:
@@ -537,26 +543,20 @@ def cmd_replay(args) -> int:
 # `serve-bench` flags of the reference that the port refuses, with their
 # items
 BENCH_UNPORTED = {
-    "--speculative": "A5 (speculative decoding)",
-    "--spec-k": "A5 (speculative decoding)",
-    "--spec-rounds": "A5 (speculative decoding)",
-    "--spec-train-steps": "A5 (speculative decoding)",
-    "--kv-quant": "A5 (the quantized KV pool)",
-    "--kv-quant-block": "A5 (the quantized KV pool)",
-    "--quant-train-steps": "A5 (the quantized KV pool)",
+    "--speculative": "A5.2 (speculative decoding)",
+    "--spec-k": "A5.2 (speculative decoding)",
+    "--spec-rounds": "A5.2 (speculative decoding)",
+    "--spec-train-steps": "A5.2 (speculative decoding)",
     "--obs": "A8 (the compile and memory observatory)",
     "--obs-hlo-dir": "A8 (the compile and memory observatory)",
 }
 
 # `replay` flags of the reference that the port refuses: a candidate of
-# the quantized pool or of speculative decoding cannot be built yet
+# speculative decoding cannot be built yet
 REPLAY_UNPORTED = {
-    "--kv-quant": "A5 (the quantized KV pool)",
-    "--kv-quant-block": "A5 (the quantized KV pool)",
-    "--kv-exact-lanes": "A5 (the quantized KV pool)",
-    "--speculative": "A5 (speculative decoding)",
-    "--spec-k": "A5 (speculative decoding)",
-    "--spec-rounds": "A5 (speculative decoding)",
+    "--speculative": "A5.2 (speculative decoding)",
+    "--spec-k": "A5.2 (speculative decoding)",
+    "--spec-rounds": "A5.2 (speculative decoding)",
 }
 
 
@@ -579,19 +579,20 @@ def cmd_serve_bench(args) -> int:
     prompts, with --sampling a per-request SamplingParams mix against
     all-greedy, with --paged the paged KV pool against the lane pool
     (throughput, equal-bytes capacity, page-sharing prefix TTFT), with
-    --http SSE clients through the front door against direct submit;
-    prints the result as one JSON line and writes it to --out when
-    given."""
+    --http SSE clients through the front door against direct submit, with
+    --kv-quant int8 KV storage against exact; prints the result as one
+    JSON line and writes it to --out when given."""
     if args.checkpoint_dir or args.data_path:
         print("serve-bench benchmarks scheduling throughput on random-init "
               "params; --checkpoint-dir/--data-path are not consumed",
               file=sys.stderr)
         return 2
     if sum((args.shared_prefix, args.sampling, args.paged, args.http,
-            args.slo, args.chaos, args.journal, args.fleet, args.replay)) > 1:
+            args.slo, args.chaos, args.journal, args.fleet, args.replay,
+            args.kv_quant is not None)) > 1:
         print("--shared-prefix, --sampling, --paged, --http, --slo, --chaos, "
-              "--journal, --fleet and --replay are separate workloads; pick "
-              "one per run", file=sys.stderr)
+              "--journal, --fleet, --replay and --kv-quant are separate "
+              "workloads; pick one per run", file=sys.stderr)
         return 2
     from solvingpapers_tpu_torch.serve.bench import (
         bench_provenance,
@@ -601,6 +602,7 @@ def cmd_serve_bench(args) -> int:
         run_journal_bench,
         run_paged_bench,
         run_prefix_bench,
+        run_quant_bench,
         run_replay_bench,
         run_sampling_bench,
         run_serve_bench,
@@ -659,7 +661,12 @@ def cmd_serve_bench(args) -> int:
             prompt_lens=prompt_lens, max_new=args.max_new_tokens or 48,
             decode_block=args.decode_block or 8,
             train_steps=args.replay_train_steps, page_size=args.page_size,
-            **replay_common)
+            kv_quant_block=args.kv_quant_block, **replay_common)
+    elif args.kv_quant:
+        result = run_quant_bench(
+            prompt_lens=prompt_lens, page_size=args.page_size,
+            kv_quant_block=args.kv_quant_block,
+            train_steps=args.quant_train_steps, **reps, **common)
     elif args.chaos:
         result = run_chaos_bench(
             prompt_lens=prompt_lens, stall_s=args.chaos_stall, **reps,
@@ -769,7 +776,7 @@ def cmd_sample(args) -> int:
     from solvingpapers_tpu_torch.models import init_params_for
 
     if args.speculative:
-        raise Refused("sample --speculative is not ported yet (ROADMAP A5: "
+        raise Refused("sample --speculative is not ported yet (ROADMAP A6.2: "
                       "MTP and n-gram drafters)")
     device = _device(args)
     # the sampling layout: weights stored in the compute dtype
@@ -841,6 +848,23 @@ def cmd_export(args) -> int:
     return 0
 
 
+def _add_kv_quant(p, exact: bool) -> None:
+    """The quantized pool's engine flags (`ServeConfig.kv_quant`,
+    `kv_quant_block`, `kv_exact_lanes`)."""
+    p.add_argument("--kv-quant", default=None, choices=["int8"],
+                   help="hold the KV pool as symmetric int8 with per-block "
+                        "absmax scales (about half the bf16 bytes; quality "
+                        "measured by serve-bench --kv-quant, not exact)")
+    p.add_argument("--kv-quant-block", type=int, default=16,
+                   help="[--kv-quant] lane-pool scale block in tokens (must "
+                        "divide max-len; the paged pool scales per page)")
+    if exact:
+        p.add_argument("--kv-exact-lanes", type=int, default=0,
+                       help="[--kv-quant] full-precision sidecar lanes for "
+                            "SamplingParams.kv_exact requests (0 refuses "
+                            "them)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The command line's parser (every command and its flags)."""
     parser = argparse.ArgumentParser(prog="solvingpapers_tpu_torch")
@@ -869,7 +893,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_sample.add_argument("--temperature", type=float, default=1.0)
     p_sample.add_argument("--greedy", action="store_true")
     p_sample.add_argument("--speculative", action="store_true",
-                          help="not ported (ROADMAP A5)")
+                          help="not ported (ROADMAP A6.2)")
     p_sample.add_argument("--seed", type=int, default=0)
 
     p_eval = sub.add_parser("eval")
@@ -896,6 +920,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--max-waiting", type=int, default=256)
     p_srv.add_argument("--paged", action="store_true",
                        help="serve over the paged KV pool")
+    _add_kv_quant(p_srv, exact=True)
     p_srv.add_argument("--no-json-mode", action="store_true",
                        help="reject response_format json_object instead of "
                             "grammar-constraining the decode")
@@ -1054,11 +1079,23 @@ def build_parser() -> argparse.ArgumentParser:
                               "both pools and replay each through "
                               "serve/replay.py at the identical config: "
                               "replay_byte_exact, the never-flip gate "
-                              "(run_replay_bench; the int8 candidate arm "
-                              "waits for ROADMAP A5)")
+                              "and the int8 candidate's teacher-forced "
+                              "agreement (run_replay_bench)")
     p_bench.add_argument("--replay-train-steps", type=int, default=150,
                          help="[--replay] brief training steps before "
                               "journaling (0 = random init)")
+    p_bench.add_argument("--kv-quant", default=None, choices=["int8"],
+                         help="quantized-KV workload instead: int8 storage "
+                              "against exact on a briefly trained model: "
+                              "teacher-forced greedy agreement, ABBA-paired "
+                              "overhead, and slots booked at the float32 "
+                              "paged pool's bytes (run_quant_bench)")
+    p_bench.add_argument("--kv-quant-block", type=int, default=16,
+                         help="[--kv-quant, --replay] lane-pool scale block "
+                              "in tokens (the paged pool scales per page)")
+    p_bench.add_argument("--quant-train-steps", type=int, default=200,
+                         help="[--kv-quant] brief training steps before the "
+                              "arms (0 = random init)")
     p_bench.add_argument("--fleet", action="store_true",
                          help="fleet workload instead: router_overhead_pct "
                               "(a one-replica FleetRouter against the bare "
@@ -1152,6 +1189,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_rep.add_argument("--sample-cap", type=int, default=64)
     p_rep.add_argument("--max-waiting", type=int, default=256)
     p_rep.add_argument("--paged", action="store_true")
+    _add_kv_quant(p_rep, exact=True)
     p_rep.add_argument("--seed", type=int, default=0,
                        help="model-init seed: must match the recording "
                             "server's for byte-exactness without a "

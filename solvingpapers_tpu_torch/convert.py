@@ -45,10 +45,19 @@ Flax shapes):
 
 Every Dense `kernel` (in, out) becomes a `weight` (out, in); a Dense
 `bias` keeps its shape and is split like its kernel.
+
+Quantized KV state (`ServeConfig.kv_quant`): `quant_store_from_reference`
+and `quant_segment_from_reference` carry the reference's `QuantStore` /
+`QuantSegment` (their leaves as numpy arrays, e.g. ``jax.tree.map(
+np.asarray, store)``) into the port's `serve.kv_pool` classes: each
+layer's cache node becomes the port's cache class of the same name
+(`KVCache` k/v, `LatentCache` c), tensors keep their dtype (bfloat16
+included) and land on `device`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
@@ -111,3 +120,46 @@ def flax_to_torch(params: dict, model_state: dict | None = None
     if model_state is not None:
         _walk("", model_state.get("moe_state", model_state), out)
     return out
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "int8": torch.int8}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (ml_dtypes' bfloat16 included) as a torch tensor."""
+    a = np.ascontiguousarray(a)
+    name = a.dtype.name
+    if name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def _caches(nodes, device) -> list:
+    from solvingpapers_tpu_torch.infer import cache as port_cache
+
+    return [getattr(port_cache, type(n).__name__)(**{
+                f.name: _tensor(getattr(n, f.name), device)
+                for f in dataclasses.fields(n)})
+            for n in nodes]
+
+
+def quant_store_from_reference(store, device="cpu"):
+    """A reference `QuantStore` (numpy leaves) as the port's."""
+    from solvingpapers_tpu_torch.serve.kv_pool import QuantStore
+
+    return QuantStore(
+        q=_caches(store.q, device), scale=_caches(store.scale, device),
+        exact=None if store.exact is None else _caches(store.exact, device),
+        block=int(store.block), dtype=_TORCH_DTYPES[np.dtype(store.dtype).name])
+
+
+def quant_segment_from_reference(segment, device="cpu"):
+    """A reference `QuantSegment` (numpy leaves) as the port's."""
+    from solvingpapers_tpu_torch.serve.kv_pool import QuantSegment
+
+    return QuantSegment(q=_caches(segment.q, device),
+                        scale=_caches(segment.scale, device),
+                        block=int(segment.block))

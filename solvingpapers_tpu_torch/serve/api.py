@@ -779,7 +779,9 @@ class ApiServer:
             phases["sse_drain"] = max(rec["t_done"] - req.finish_time, 0.0)
         phases = {k: round(v, 6) for k, v in phases.items()}
         facts: dict = {"prompt_tokens": int(req.prompt.size),
-                       "completion_tokens": len(req.tokens)}
+                       "completion_tokens": len(req.tokens),
+                       "kv_quant": cfg.kv_quant,
+                       "kv_exact": bool(req.params.kv_exact)}
         if cfg.paged:
             facts["pages_held"] = req.pages_held
             facts["page_size"] = self.engine.pool.page_size

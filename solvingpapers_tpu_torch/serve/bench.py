@@ -39,9 +39,11 @@ reference's requests element for element.
   one, every stream token-exact with an uninterrupted run.
 * `run_replay_bench` — a journaled greedy and seeded workload replayed
   through `serve/replay.py` at the identical config on the lane and the
-  paged pool: byte-exact on both. The reference's int8-KV candidate arm
-  waits for the quantized pool (ROADMAP A5); the result says so under
-  ``notes`` and leaves out that arm's keys.
+  paged pool (byte-exact on both), and through an int8-KV candidate,
+  graded by its teacher-forced greedy agreement.
+* `run_quant_bench` — int8 KV storage against exact on a briefly trained
+  model: teacher-forced and rollout greedy agreement, the ABBA-paired
+  overhead, and the slots the plain paged pool's bytes buy quantized.
 * `run_fleet_bench` — a one-replica `FleetRouter` against the bare
   engine (the routing tax), traced against untraced, and a drain of
   replica r0 while streams are live: migrated and every other stream
@@ -241,14 +243,20 @@ def _round_if_present(snap: dict, key: str, out_key: str, digits: int) -> dict:
 
 def _kv_entry_fields(eng, agreement: float = 1.0) -> dict:
     """The KV-storage triple every entry records: `kv_dtype` (the pool's
-    storage dtype, as the reference names it), `kv_pool_bytes` (resident
-    pool bytes) and `greedy_agreement_rate` (1.0: the port's pools are
-    exact, the reference's definition for them)."""
+    storage dtype, as the reference names it: "int8" for a quantized
+    pool), `kv_pool_bytes` (resident pool bytes, scale rows and exact
+    lanes included) and `greedy_agreement_rate` (against the
+    full-precision pool; 1.0 for an exact pool, the reference's
+    definition)."""
     pool = eng.pool
-    caches = pool.phys if hasattr(pool, "phys") else pool.caches
-    first = next(iter(kv_pool._tensors(caches[0]).values()))
+    if getattr(pool, "quant", None):
+        dtype = pool.quant
+    else:
+        caches = pool.phys if hasattr(pool, "phys") else pool.caches
+        first = next(iter(kv_pool._tensors(caches[0]).values()))
+        dtype = str(first.dtype).removeprefix("torch.")
     return {
-        "kv_dtype": str(first.dtype).removeprefix("torch."),
+        "kv_dtype": dtype,
         "kv_pool_bytes": int(pool.nbytes),
         "greedy_agreement_rate": round(float(agreement), 4),
     }
@@ -1794,6 +1802,7 @@ def run_replay_bench(
     train_steps: int = 200,
     seed: int = 0,
     page_size: int = 16,
+    kv_quant_block: int = 16,
     cut_stride: int = 8,
     journal_dir: str | None = None,
     status_port: int | None = None,
@@ -1809,14 +1818,16 @@ def run_replay_bench(
     never-flip gate), and the lane arm's teacher-forced cuts score
     `identical_agreement_rate` 1.0.
 
-    The reference's third arm, an int8-KV candidate graded by its
-    teacher-forced greedy agreement, waits for the quantized pool (ROADMAP
-    A5): the result leaves out its keys (`replay_agreement_rate` and its
-    seeded and combined twins, `quant_byte_exact_rate`,
-    `replay_first_divergence_p50`), says so under ``notes``, and its
-    headline is the identical-config byte-exact rate. The model is
-    briefly trained first (`train_steps`, 0 = random init), as the
-    reference's is."""
+    The third arm replays the lane journal through an int8-KV candidate
+    (`kv_quant_block`), the config canary's lossy direction: byte
+    exactness is expected to break (`quant_byte_exact_rate`, and how
+    soon, `replay_first_divergence_p50`), while the teacher-forced greedy
+    `replay_agreement_rate`, the headline, grades each step. Seeded cuts
+    re-draw through the pinned seed chain, where int8 flips sampled
+    tokens far more readily (`replay_agreement_rate_seeded`, not graded).
+    The model is briefly trained first (`train_steps`, 0 = random init),
+    as the reference's is: on random weights agreement measures argmax
+    tie-breaking."""
     import os
     import tempfile
 
@@ -1840,10 +1851,7 @@ def run_replay_bench(
         start = int(rng.integers(0, ids.size - length))
         requests.append((0.0, ids[start:start + length]))
     max_prompt = max(len(p) for _, p in requests)
-    max_len = _page_max_len(requests, max_new, page_size)
-    limit = getattr(model, "max_positions", None)
-    if limit is not None and max_len > limit:
-        max_len = limit // page_size * page_size
+    max_len = _quant_max_len(model, requests, max_new, page_size, kv_quant_block)
     jdir = journal_dir or tempfile.mkdtemp(prefix="serve_replay_bench_")
     base = dict(n_slots=n_slots, max_len=max_len, decode_block=decode_block,
                 bucket=min(32, max_prompt), max_prefills_per_step=n_slots,
@@ -1873,32 +1881,35 @@ def run_replay_bench(
     paged_eng.close()
     del paged_eng
 
-    # replay: the identical config on each pool
+    # replay: the identical config on each pool, and the int8 candidate
     harness = ReplayHarness(model)
+    lane_entries = harness.load(lane_rec_cfg.journal_path)
     t0 = time.monotonic()
     lane_report = arms.run(
-        "replay_lane", harness.run, harness.load(lane_rec_cfg.journal_path),
+        "replay_lane", harness.run, lane_entries,
         ServeConfig(**base), cut_stride=cut_stride,
         journal_path=lane_rec_cfg.journal_path)
     paged_report = arms.run(
         "replay_paged", harness.run, harness.load(paged_rec_cfg.journal_path),
         ServeConfig(**base, paged=True, page_size=page_size),
-        cut_stride=0,  # agreement is the lane arm's story
+        cut_stride=0,  # agreement is the lane arms' story
         journal_path=paged_rec_cfg.journal_path)
+    quant_report = arms.run(
+        "replay_quant", harness.run, lane_entries,
+        ServeConfig(**base, kv_quant="int8", kv_quant_block=kv_quant_block),
+        cut_stride=cut_stride, journal_path=lane_rec_cfg.journal_path)
     replay_wall_s = time.monotonic() - t0
     byte_exact = (lane_report["byte_exact_rate"] == 1.0
                   and paged_report["byte_exact_rate"] == 1.0)
-    rates = [r["byte_exact_rate"] for r in (lane_report, paged_report)
-             if r["byte_exact_rate"] is not None]
-    headline = min(rates) if rates else 0.0
+    agreement = quant_report["agreement_rate_greedy"]
     _release_probe(probe_eng, status_hold_s)
     return {
-        "metric": "serve_replay_byte_exact_rate",
-        "value": round(float(headline), 4),
-        "unit": ("byte-exact share of the greedy and seeded streams replayed "
-                 "at the identical config, the lower of the lane and paged "
-                 "pools"),
-        "vs_baseline": round(float(headline), 4),
+        "metric": "serve_replay_agreement_rate",
+        "value": round(float(agreement), 4),
+        "unit": ("teacher-forced greedy agreement of the int8-kv candidate "
+                 "replayed from the lane journal (identical-config replays "
+                 "must be byte-exact on both pools)"),
+        "vs_baseline": round(float(agreement) / 0.99, 4),
         "detail": {
             "config": _config_name(config),
             "workload": "replay",
@@ -1912,24 +1923,263 @@ def run_replay_bench(
             "replay_byte_exact": byte_exact,
             "replay_byte_exact_rate_lane": lane_report["byte_exact_rate"],
             "replay_byte_exact_rate_paged": paged_report["byte_exact_rate"],
+            "replay_agreement_rate": round(float(agreement), 4),
+            "replay_agreement_rate_seeded": quant_report["agreement_rate_seeded"],
+            "replay_agreement_rate_all": quant_report["agreement_rate"],
             "identical_agreement_rate": lane_report["agreement_rate"],
+            "quant_byte_exact_rate": quant_report["byte_exact_rate"],
+            "replay_first_divergence_p50": quant_report["first_divergence_p50"],
             "replay_diverged": lane_report["diverged"] + paged_report["diverged"],
             "replay_streams_compared": lane_report["streams_compared"],
             "replay_streams_skipped": len(lane_report["skipped"]),
-            "replay_cut_positions": lane_report["cut_positions"],
+            "replay_cut_positions": quant_report["cut_positions"],
             "replay_wall_s": round(replay_wall_s, 4),
             "journal_records": jstats["records"],
             "journal_bytes": jstats["bytes_written"],
             "journal_rotations": jstats["rotations"],
-            "notes": ("the int8-KV candidate arm (replay_agreement_rate, "
-                      "replay_agreement_rate_seeded, replay_agreement_rate_all, "
-                      "quant_byte_exact_rate, replay_first_divergence_p50) "
-                      "waits for the quantized pool, ROADMAP A5"),
             **leak_fields,
             **kv,
             **probe_fields,
             "arms": arms.log,
         },
+    }
+
+
+# ---------------------------------------------------------------- quant
+
+# the quant workload's reference fields the port leaves out, with the
+# ROADMAP items that bring them
+QUANT_LEFT_OUT = {
+    "capacity_program_temp_bytes": "A8 (the XLA compile registry's program "
+                                   "temp; the capacity arm's measured peak "
+                                   "is arms.capacity.peak_bytes)",
+    "anatomy_overhead_pct": "A8 (the anatomy arm)",
+    "anatomy_requests_per_sec": "A8 (the anatomy arm)",
+    "gather_wall_s": "A5.3 (paged_decode_decomposition)",
+    "dequant_wall_s": "A5.3 (paged_decode_decomposition)",
+    "scatter_wall_s": "A5.3 (paged_decode_decomposition)",
+    "gather_share_pct": "A5.3 (paged_decode_decomposition)",
+    "dequant_share_pct": "A5.3 (paged_decode_decomposition)",
+    "scatter_share_pct": "A5.3 (paged_decode_decomposition)",
+    "attention_share_pct": "A5.3 (paged_decode_decomposition)",
+}
+
+
+def _quant_max_len(model, requests, max_new: int, page_size: int,
+                   block: int) -> int:
+    """The longest prompt and its new tokens, rounded up to whole pages
+    AND whole quant blocks (their lcm; `max()` of the two breaks the
+    pools where neither divides the other, e.g. block 12 and page 16),
+    cut to the model's positions."""
+    import math
+
+    grain = math.lcm(page_size, block)
+    max_prompt = max(len(p) for _, p in requests)
+    max_len = -(-(max_prompt + max_new) // grain) * grain
+    limit = getattr(model, "max_positions", None)
+    if limit is not None and max_len > limit:
+        max_len = limit // grain * grain
+    return max_len
+
+
+def run_quant_bench(
+    config="gpt_tiny_long",
+    n_requests: int = 32,
+    n_slots: int = 8,
+    max_new: int = 64,
+    decode_block: int = 16,
+    prompt_lens=(16, 32, 48, 64),
+    mean_interarrival_s: float = 0.001,
+    page_size: int = 16,
+    kv_quant_block: int = 16,
+    train_steps: int = 200,
+    seed: int = 0,
+    reps: int = 2,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --kv-quant int8`: int8 KV storage against exact,
+    on a briefly trained model (`train_steps`, 0 = random init: on random
+    weights greedy agreement under any perturbation measures tie-breaking
+    over near-uniform logits, not quality). Three arms, as the
+    reference's:
+
+    1. Quality: greedy agreement between the quantized and exact lane
+       pools, TEACHER-FORCED (`greedy_agreement_rate`): the exact arm's
+       streams are cut every 8 positions and each prefix goes through the
+       quantized engine for one token. Free-running agreement is recorded
+       too (`rollout_agreement_rate`): one flip at a near-tie cascades
+       over the rest of a stream.
+    2. Overhead (ABBA-paired, lane pool, same slots): Poisson req/s with
+       kv_quant on against off (`quant_overhead_pct`).
+    3. Capacity at equal bytes (paged pools): the plain paged pool's bytes
+       buy ``budget // quant_page_nbytes - 1`` quantized pages, the
+       quantized engine books the slots they cover, and a short-stream
+       flood drives them live (`capacity_peak_active_slots` against
+       `n_slots`). Both pools' bytes are pinned analytically
+       (`quant_pool_bytes` must give `pool.nbytes` exactly, and the
+       quantized pool must fit the budget). The lane views the programs
+       dequantize into are transient memory beside the pool: on the card
+       the capacity arm's measured peak (`arms.capacity.peak_bytes`)
+       discloses them.
+
+    The reference's XLA program-temp field, its anatomy arm and its paged
+    decode decomposition are left out and named under ``notes``
+    (`QUANT_LEFT_OUT`)."""
+    from solvingpapers_tpu_torch.data.synthetic import synthetic_text
+
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    text = synthetic_text(n_chars=80000, seed=seed)
+    ids = np.frombuffer(text.encode("ascii", "replace"),
+                        np.uint8).astype(np.int32) % vocab
+    if train_steps > 0:
+        arms.run("train", _train_bench_model, model, config, ids, train_steps,
+                 seed=seed)
+    # prompts are slices of the training corpus: agreement is measured
+    # where the model models its input
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(mean_interarrival_s, size=n_requests))
+    requests = []
+    for i in range(n_requests):
+        length = prompt_lens[i % len(prompt_lens)]
+        start = int(rng.integers(0, ids.size - length))
+        requests.append((float(arrivals[i]), ids[start:start + length]))
+    max_prompt = max(len(p) for _, p in requests)
+    max_len = _quant_max_len(model, requests, max_new, page_size, kv_quant_block)
+    base = dict(n_slots=n_slots, max_len=max_len, decode_block=decode_block,
+                bucket=min(32, max_prompt), max_prefills_per_step=n_slots,
+                max_waiting=max(256, n_requests), seed=seed)
+    exact_cfg = ServeConfig(**base)
+    quant_cfg = ServeConfig(**base, kv_quant="int8",
+                            kv_quant_block=kv_quant_block)
+    warm = _warm_trace(requests)
+    probe_fields, probe_eng = _obs_probe(model, warm, quant_cfg, max_new,
+                                         arms=arms, status_port=status_port)
+    arms.run("warm_exact", _engine_arm_stats, model, warm, exact_cfg, max_new)
+    arms.run("warm_quant", _engine_arm_stats, model, warm, quant_cfg, max_new)
+
+    # ---- 1. quality: rollout and teacher-forced agreement
+    quant_eng, q_handles, _ = arms.run("quality_quant", _run_engine_arm, model,
+                                       requests, quant_cfg, max_new)
+    kv = _kv_entry_fields(quant_eng)
+    q_bytes, s_bytes, e_bytes, base_bytes = kv_pool.quant_pool_bytes(
+        quant_eng.pool.caches)
+    if quant_eng.pool.nbytes != q_bytes + e_bytes:
+        raise AssertionError(
+            f"quantized lane pool nbytes {quant_eng.pool.nbytes} != analytic "
+            f"int8 + scales + exact {q_bytes + e_bytes}")
+    del quant_eng
+    x_handles = arms.run("quality_exact", _engine_arm_stats, model,
+                         requests, exact_cfg, max_new)[3]
+    rollout = _token_agreement(x_handles, q_handles)
+    # teacher-forced cuts: the exact stream at prefix (prompt + gen[:j])
+    # continues with gen[j] by construction (greedy), so each cut prefix
+    # goes through the quantized engine for one token
+    cuts, expected = [], []
+    for (_, p), h in zip(requests, x_handles):
+        seq = np.concatenate([p, np.asarray(h.tokens, np.int32)])
+        for j in range(0, len(h.tokens), 8):
+            cuts.append((0.0, seq[:len(p) + j]))
+            expected.append(h.tokens[j])
+    cut_cfg = dataclasses.replace(quant_cfg,
+                                  max_waiting=max(quant_cfg.max_waiting, len(cuts)))
+    cut_handles = arms.run("quality_cuts", _engine_arm_stats, model, cuts,
+                           cut_cfg, 1)[3]
+    agreement = sum(int(h.tokens[0] == e)
+                    for h, e in zip(cut_handles, expected)) / len(expected)
+
+    # ---- 2. overhead: ABBA-paired quant against exact, same slots
+    runs, kvs = _paired_arm_stats(model, requests, quant_cfg, exact_cfg,
+                                  max_new, reps=reps, arms=arms,
+                                  names=("quant", "exact"))
+    quant_rps = len(requests) / (sum(mk for mk, _ in runs["on"]) / len(runs["on"]))
+    exact_rps = len(requests) / (sum(mk for mk, _ in runs["off"]) / len(runs["off"]))
+
+    # ---- 3. capacity at the plain paged pool's bytes
+    plain = kv_pool.PagedKVPool(model, n_slots, max_len, page_size)
+    budget_bytes = int(plain.nbytes)
+    del plain
+    # the per-page cost of int8 codes and their scale rows, read off a
+    # minimal pool (one lane and the trash page): the accounting the
+    # gauges use
+    quant_page_nbytes = kv_pool.PagedKVPool(model, 1, page_size, page_size,
+                                            quant="int8").page_nbytes
+    pages_per_lane = max_len // page_size
+    # the pages the budget buys, less the trash page the pool books on top
+    cap_budget = budget_bytes // quant_page_nbytes - 1
+    cap_slots = cap_budget // pages_per_lane
+    cap_new = max(8, max_new // 4)  # short streams: many live contexts
+    cap_n = max(n_requests, cap_slots + 2)
+    cap_arrivals = np.cumsum(rng.exponential(mean_interarrival_s, size=cap_n))
+    cap_requests = []
+    for i in range(cap_n):
+        length = prompt_lens[i % len(prompt_lens)]
+        start = int(rng.integers(0, ids.size - length))
+        cap_requests.append((float(cap_arrivals[i]), ids[start:start + length]))
+    cap_cfg = ServeConfig(**{**base, "n_slots": cap_slots,
+                             "max_prefills_per_step": cap_slots,
+                             "max_waiting": max(256, cap_n)},
+                          paged=True, page_size=page_size,
+                          page_budget=cap_budget, kv_quant="int8")
+    arms.run("warm_capacity", _engine_arm_stats, model, warm, cap_cfg, cap_new)
+    cap_eng, cap_handles, cap_mk = arms.run("capacity", _run_engine_arm, model,
+                                            cap_requests, cap_cfg, cap_new)
+    cap_resident = int(cap_eng.pool.nbytes)
+    if cap_resident > budget_bytes:
+        raise AssertionError(
+            f"quantized paged pool resident bytes {cap_resident} exceed the "
+            f"plain pool's {budget_bytes}")
+    cap_snap = cap_eng.metrics.snapshot()
+    del cap_eng
+    _release_probe(probe_eng, status_hold_s)
+    detail = {
+        "config": _config_name(config),
+        "workload": "quant-kv",
+        "n_requests": n_requests,
+        "n_slots": n_slots,
+        "max_new_tokens": max_new,
+        "decode_block": decode_block,
+        "page_size": page_size,
+        "kv_quant_block": kv_quant_block,
+        "max_len": max_len,
+        "train_steps": train_steps,
+        "prompt_lens": list(prompt_lens),
+        "mean_interarrival_s": mean_interarrival_s,
+        "reps": reps,
+        "quant_requests_per_sec": round(quant_rps, 2),
+        "exact_requests_per_sec": round(exact_rps, 2),
+        "quant_overhead_pct": round((1.0 - quant_rps / exact_rps) * 100.0, 2),
+        "agreement_cuts": len(expected),
+        "rollout_agreement_rate": round(rollout, 4),
+        # int8 codes and scale rows over the same pool at the compute dtype
+        "kv_bytes_ratio": round(q_bytes / base_bytes, 4),
+        "kv_scale_bytes": int(s_bytes),
+        "exact_kv_pool_bytes": int(kvs["off"]["kv_pool_bytes"]),
+        "f32_paged_kv_pool_bytes": budget_bytes,
+        "quant_page_nbytes": int(quant_page_nbytes),
+        "capacity_n_slots": cap_slots,
+        "capacity_page_budget": cap_budget,
+        "capacity_n_requests": cap_n,
+        "capacity_max_new_tokens": cap_new,
+        "capacity_peak_active_slots": _peak_concurrency(cap_handles),
+        "capacity_kv_pool_bytes": cap_resident,
+        "capacity_requests_per_sec": round(cap_n / cap_mk, 2),
+        "capacity_preemptions": int(cap_snap.get("serve/preemptions", 0.0)),
+        **kv,
+        "greedy_agreement_rate": round(float(agreement), 4),
+        **probe_fields,
+        "notes": "left out: " + "; ".join(
+            f"{k}: ROADMAP {v}" for k, v in QUANT_LEFT_OUT.items()),
+        "arms": arms.log,
+    }
+    return {
+        "metric": "serve_quant_slots_at_equal_hbm",
+        "value": detail["capacity_peak_active_slots"],
+        "unit": "concurrent slots (the plain paged pool's bytes)",
+        "vs_baseline": round(detail["capacity_peak_active_slots"] / n_slots, 2),
+        "detail": detail,
     }
 
 

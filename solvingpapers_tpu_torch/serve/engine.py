@@ -90,8 +90,19 @@ The replay harness and the fleet router ride two entry points:
 (serve/fleet.py's drain migration), both through the preemption-resume
 path `recover()` uses.
 
-Not in this slice (kept by the reference, listed in ROADMAP.md): the
-quantized pools, speculative decoding, and the compile observatory.
+Quantized KV storage (`ServeConfig.kv_quant`, serve/kv_pool.py
+`QuantStore`): either pool holds int8 codes and f32 absmax scales. Each
+program dequantizes the lanes it reads into a fresh compute-dtype view,
+runs the same forwards on it, and requantizes only the blocks or pages it
+wrote. A `kv_exact` request reads and writes a full-precision sidecar
+lane instead, in the same calls as quantized slots, and stays
+byte-identical to the unquantized engine. Every quantized branch is taken
+only when the pool holds a `QuantStore`: the unquantized paths are the
+same code as without the knob.
+
+Not in this slice (kept by the reference, listed in ROADMAP.md):
+speculative decoding (A5.2; the MTP drafter, A6.2) and the compile
+observatory (A8).
 """
 
 from __future__ import annotations
@@ -123,9 +134,20 @@ from solvingpapers_tpu_torch.serve.kv_pool import (
     TRASH_PAGE,
     KVSlotPool,
     PagedKVPool,
+    QuantStore,
     extract_lane,
     gather_lane,
     gather_lanes,
+    quant_gather_lane,
+    quant_gather_lanes,
+    quant_lane_view,
+    quant_lanes_view,
+    quant_pool_bytes,
+    quant_scatter_lane_pages,
+    quant_scatter_written_pages,
+    quant_store_exact_lanes,
+    quant_store_lane,
+    quant_store_written,
     scatter_lane_pages,
     scatter_written_pages,
     scrub_lane,
@@ -170,7 +192,7 @@ def weak_method(method, dead=None):
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Engine shape/policy knobs (the reference's, without its quantized,
+    """Engine shape/policy knobs (the reference's, without its
     speculative and compile-observatory knobs).
 
     `decode_block` amortizes host work: each decode call advances all
@@ -188,6 +210,23 @@ class ServeConfig:
     must divide `max_len`; `page_budget` None is the lane-pool
     equivalent, n_slots * max_len / page_size. Shrink it (or raise
     n_slots) to trade worst-case room for concurrency.
+
+    Quantized KV storage (serve/kv_pool.py `QuantStore`): `kv_quant`
+    None keeps exact storage; "int8" holds either pool as symmetric int8
+    codes with f32 absmax scales, about half the bf16 bytes (a quarter of
+    float32), so about twice the slots or context in the same memory.
+    Quality is measured, not exact: `cli serve-bench --kv-quant int8`
+    reports the greedy agreement with the exact pool. `kv_quant_block`
+    is the lane pool's scale granularity (one scale per slot, block of
+    tokens and head; it must divide `max_len`, and `prefix_page` when the
+    lane pool's prefix cache is on); the paged pool always scales per
+    (page, head), so scales ride the page tables. The prefix cache keeps
+    int8 segments or pages. `kv_exact_lanes` books that many
+    full-precision sidecar lanes (and a trash lane) for requests with
+    `SamplingParams.kv_exact`: they serve byte-identical to the
+    unquantized engine, in the same decode blocks as quantized traffic,
+    bypass the prefix cache and hold no pages; 0 books none, and then a
+    kv_exact submission is refused.
 
     Prefix cache: `prefix_cache` reuses cached page-aligned prompt
     prefixes of `prefix_page` tokens; `prefix_cache_bytes` caps what the
@@ -298,6 +337,9 @@ class ServeConfig:
     paged: bool = False
     page_size: int | None = None
     page_budget: int | None = None
+    kv_quant: str | None = None
+    kv_quant_block: int = 16
+    kv_exact_lanes: int = 0
     prefix_cache: bool = False
     prefix_page: int = 16
     prefix_cache_bytes: int = 64 << 20
@@ -350,12 +392,11 @@ _UNSET = object()
 
 
 def journaled_params(recorded: dict) -> SamplingParams:
-    """A journal record's SamplingParams (either package's: the stop
-    fields back as tuples, and the reference's `kv_exact`, a no-op on the
-    port's unquantized pools, dropped); raises TypeError or ValueError
-    for a record it cannot rebuild."""
+    """A journal record's SamplingParams (either package's, the stop
+    fields back as tuples; `kv_exact` is kept, so a recovered, adopted
+    or replayed exact stream stays on full-precision storage); raises
+    TypeError or ValueError for a record it cannot rebuild."""
     p = dict(recorded)
-    p.pop("kv_exact", None)
     p["stop_token_ids"] = tuple(p.get("stop_token_ids") or ())
     p["stop"] = tuple(p.get("stop") or ())
     return SamplingParams(**p)
@@ -406,7 +447,7 @@ def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
 
 def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
                      length, packed, generator, allow=None, need_lp=False,
-                     fault=None):
+                     fault=None, eidx=0):
     """Prefill one request into lane `slot` and sample its first token
     (sample index 0 of its chain); returns the caches, the (2,) head
     [token, finite flag] (one host read gives both) and the token's
@@ -417,13 +458,26 @@ def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
     spliced prefix, and positions and `attend_len` shift by `start` (0
     is a full prefill). `allow` is the request's (1, cap) grammar
     allow-list for the first token, or None. `fault` is the fault plane's
-    0-d poison code on the device, or None with the plane off."""
-    lane = extract_lane(caches, slot)
+    0-d poison code on the device, or None with the plane off.
+
+    Quantized pools (`caches` a `QuantStore`): the lane is dequantized out
+    of the slot's codes and scale rows (a kv_exact slot, `eidx` > 0,
+    reads its exact sidecar lane instead), and the store requantizes only
+    the written span [start, start + padded), with the pad positions past
+    the real tokens zeroed: spliced prefix blocks below `start` keep their
+    producer's codes."""
+    quant = isinstance(caches, QuantStore)
+    lane = (quant_lane_view(caches, slot, eidx) if quant
+            else extract_lane(caches, slot))
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
     head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
                              fault)
-    caches = store_lane(caches, lane, slot)
+    if quant:
+        caches = quant_store_lane(caches, lane, slot, eidx, start,
+                                  start + padded, hi=start + length)
+    else:
+        caches = store_lane(caches, lane, slot)
     return caches, head, lp
 
 
@@ -442,20 +496,33 @@ def _sample_first(last, cap, packed, generator, allow, need_lp, fault):
 
 def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
                            row, length, packed, generator, allow=None,
-                           need_lp=False, fault=None):
+                           need_lp=False, fault=None, eidx=0):
     """Paged-pool prefill: `_prefill_program`'s contract over a lane
     GATHERED from the slot's page-table `row`, with only the pages the
     prefill may have written going back. On a prefix hit pages [0,
     start // page) hold shared prefix KV the gather reads; the scatter
     starts at ``start // page``, so shared pages are read, never
-    written."""
-    lane = gather_lane(phys, row)
+    written.
+
+    Quantized pools: the gather dequantizes the int8 pages through their
+    per-(page, head) scale rows, a kv_exact slot's view is its exact
+    sidecar lane (its table rests at the trash page: exact streams own no
+    pages), and the scatter requantizes only the written pages, pads
+    zeroed."""
+    quant = isinstance(phys, QuantStore)
+    lane = (quant_gather_lane(phys, row, eidx) if quant
+            else gather_lane(phys, row))
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
     head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
                              fault)
-    page = phys[0].max_len
-    phys = scatter_lane_pages(phys, lane, row, start // page)
+    if quant:
+        page = phys.q[0].max_len
+        phys = quant_scatter_lane_pages(phys, lane, row, start // page, eidx,
+                                        hi=start + length)
+    else:
+        page = phys[0].max_len
+        phys = scatter_lane_pages(phys, lane, row, start // page)
     return phys, head, lp
 
 
@@ -466,7 +533,8 @@ def pooled_decode_kwargs(model) -> dict:
 
 
 def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
-                    generators, allow=None, need_lp=False, fault=None):
+                    generators, allow=None, need_lp=False, fault=None,
+                    eidx=None):
     """Advance every slot `block` tokens; inactive slots run masked.
 
     toks/pos/eos are (S,) int64 and active (S,) bool device tensors;
@@ -482,7 +550,19 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
     tokens, then each slot's finite-logits flag over the whole block (the
     guard rides the token copy the host makes anyway) — and, with
     `need_lp`, the tokens' (block, S) logprobs (else None).
+
+    Quantized pools: the block runs on the DEQUANTIZED (S, max_len, ...)
+    view of the whole pool (kv_exact slots, by `eidx` the host's per-slot
+    exact-lane row, on their exact lanes), so reads within the block are
+    full precision and quantization happens at the block boundary: the
+    store requantizes only the blocks each slot's write window [pos, pos
+    + block) touched.
     """
+    if isinstance(caches, QuantStore):
+        lanes, out, lps = _decode_program(
+            model, block, cap, quant_lanes_view(caches, eidx), toks, pos,
+            active, eos, packed, generators, allow, need_lp, fault)
+        return quant_store_written(caches, lanes, pos, block, eidx), out, lps
     out, lps = [], []
     ok = torch.ones_like(active)
     kw = pooled_decode_kwargs(model)
@@ -509,7 +589,7 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
 
 def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
                           eos, packed, generators, allow=None, need_lp=False,
-                          fault=None):
+                          fault=None, eidx=None):
     """Paged-pool decode block: `_decode_program` over the lanes gathered
     once from the (S, pages_per_lane) page `table`, then only each slot's
     write window goes back. The block writes positions [pos, pos +
@@ -519,16 +599,29 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
     its own. Idle slots' tables rest at the trash page, so their masked
     dummy writes land there, as does an active slot's discarded
     overshoot past its allocation. A window clamped at the lane's end
-    rewrites the last page with its own content."""
-    lanes = gather_lanes(phys, table)
+    rewrites the last page with its own content.
+
+    Quantized pools: the gather dequantizes (kv_exact slots read their
+    exact lanes), only [pos, pos + block) of each touched page takes the
+    block's values while the rest re-encodes from its own f32 codes, and
+    the kv_exact slots' lanes go back to their exact lanes."""
+    quant = isinstance(phys, QuantStore)
+    lanes = (quant_gather_lanes(phys, table, eidx) if quant
+             else gather_lanes(phys, table))
     lanes, out, lps = _decode_program(model, block, cap, lanes, toks, pos,
                                       active, eos, packed, generators, allow,
                                       need_lp, fault)
-    page = phys[0].max_len
+    page = (phys.q if quant else phys)[0].max_len
     limit = table.shape[1] * page - 1
     for w in range((block - 1) // page + 2):
         pos_w = torch.clamp(pos + w * page, 0, limit)
-        phys = scatter_written_pages(phys, lanes, table, pos_w)
+        if quant:
+            phys = quant_scatter_written_pages(phys, lanes, table, pos_w,
+                                               lo=pos, hi=pos + block)
+        else:
+            phys = scatter_written_pages(phys, lanes, table, pos_w)
+    if quant:
+        phys = quant_store_exact_lanes(phys, lanes, eidx)
     return phys, out, lps
 
 
@@ -617,6 +710,32 @@ class ServeEngine:
                 "would hold nothing"
             )
         self._paged = cfg.paged
+        # quantized KV storage: int8 codes and scales in the pool; kv_exact
+        # requests ride full-precision sidecar lanes in the same calls
+        self._quant = cfg.kv_quant is not None
+        if cfg.kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be 'int8' or None, got {cfg.kv_quant!r}")
+        if cfg.kv_quant_block < 1:
+            raise ValueError(f"kv_quant_block must be >= 1, got {cfg.kv_quant_block}")
+        if cfg.kv_exact_lanes < 0:
+            raise ValueError(f"kv_exact_lanes must be >= 0, got {cfg.kv_exact_lanes}")
+        if cfg.kv_exact_lanes and not self._quant:
+            raise ValueError(
+                "kv_exact_lanes books full-precision sidecar lanes for "
+                "kv_exact requests inside a QUANTIZED pool, which needs "
+                "kv_quant set: an unquantized pool is exact everywhere "
+                "already, so the knob would silently do nothing")
+        if (self._quant and cfg.prefix_cache and not cfg.paged
+                and cfg.prefix_page % cfg.kv_quant_block):
+            raise ValueError(
+                f"prefix_page {cfg.prefix_page} is not a multiple of "
+                f"kv_quant_block {cfg.kv_quant_block}: quantized lane "
+                "segments carry whole scale rows, so splice offsets (page "
+                "multiples) must be block-aligned")
+        # the exact-lane sidecar's bookkeeping: each slot's lane index (0 =
+        # quantized) and a LIFO free list of lanes [1, kv_exact_lanes]
+        self._eidx = np.zeros(cfg.n_slots, np.int64)
+        self._exact_free = list(range(cfg.kv_exact_lanes, 0, -1))
         if cfg.paged:
             page = cfg.page_size or cfg.prefix_page
             if cfg.prefix_cache and page != cfg.prefix_page:
@@ -635,6 +754,9 @@ class ServeEngine:
                 "nothing"
             )
         self.pool = self._make_pool()
+        if self._quant:
+            # present iff the pool is quantized, as the paged gauges are
+            self.metrics.add_gauge_provider(weak_method(self._kv_quant_gauges, {}))
         self.prefix_cache = self._make_prefix_cache()
         # SLO accounting: host-side, on the finish path; its gauges ride
         # the snapshot iff slo_targets is configured
@@ -708,7 +830,7 @@ class ServeEngine:
             prefix_lookup=(weak_method(self._match_len, 0)
                            if cfg.prefix_cache else None),
             can_admit=(weak_method(self._can_admit, False)
-                       if cfg.paged else None),
+                       if cfg.paged or cfg.kv_exact_lanes else None),
             trace=self.trace,
         )
         self._slot_req: list[Request | None] = [None] * cfg.n_slots
@@ -779,9 +901,10 @@ class ServeEngine:
         gather out of range kills the process), budgets < 1, top_k above
         `sample_cap`, prompt + budget beyond the engine capacity,
         non-positive deadlines, stop strings without a `detokenize`
-        callable, a grammar alongside an explicit eos_id, and a budget
-        too small for the grammar's shortest complete document, and an
-        SLO class (`params.slo`) the engine does not track. A full
+        callable, a grammar alongside an explicit eos_id, a budget too
+        small for the grammar's shortest complete document, an SLO class
+        (`params.slo`) the engine does not track, and `params.kv_exact` on
+        a quantized engine with no exact lanes. A full
         waiting queue, an unhealthy (draining) engine, or a degradation
         rung that sheds the request's SLO class returns the request
         ``rejected`` (`reject_reason` None, "unhealthy" or
@@ -826,6 +949,12 @@ class ServeEngine:
                 f"top_k {params.top_k} exceeds ServeConfig.sample_cap "
                 f"{self.config.sample_cap}"
             )
+        if params.kv_exact and self._quant and not self.config.kv_exact_lanes:
+            raise ValueError(
+                "kv_exact requests need full-precision sidecar lanes on a "
+                "quantized pool: construct the engine with "
+                "ServeConfig.kv_exact_lanes >= 1 (on an unquantized engine "
+                "kv_exact is a no-op and always accepted)")
         if params.slo is not None:
             if self._slo is None:
                 raise ValueError(
@@ -1031,8 +1160,9 @@ class ServeEngine:
         """The /statusz document from host-side mirrors only: the engine's
         shape and queue, every slot's request and position, the metrics
         snapshot, the health state machine, and (present iff enabled) the
-        journal, the page pool, the SLO classes, the prefix cache and the
-        time series' sparklines."""
+        journal, the page pool, the quantized pool's bytes and exact
+        lanes, the SLO classes, the prefix cache and the time series'
+        sparklines."""
         pool = self.pool
         d = {
             "engine": {
@@ -1080,6 +1210,23 @@ class ServeEngine:
                 "pages_active": pool.pages_active,
                 "fragmentation": pool.fragmentation,
                 "per_slot_pages": pool.n_alloc.tolist(),
+            }
+        store = pool.phys if self._paged else pool.caches
+        if self._quant and store is not None:  # None: lost in a rebuild
+            pool_bytes, scale_bytes, exact_bytes, base_bytes = \
+                quant_pool_bytes(store)
+            d["kv_quant"] = {
+                "mode": self.config.kv_quant,
+                "quant_block": pool.quant_block,
+                "kv_pool_bytes": pool_bytes + exact_bytes,
+                "quant_bytes": pool_bytes,
+                "scale_bytes": scale_bytes,
+                "exact_bytes": exact_bytes,
+                "baseline_bytes": base_bytes,
+                "bytes_ratio": round(pool_bytes / base_bytes, 4),
+                "exact_lanes": pool.exact_lanes,
+                "exact_lanes_free": len(self._exact_free),
+                "exact_slots": [i for i, e in enumerate(self._eidx) if e],
             }
         if self._slo is not None:
             d["slo"] = self._slo.statusz()
@@ -1420,8 +1567,11 @@ class ServeEngine:
         if self._paged:
             return PagedKVPool(self.model, cfg.n_slots, cfg.max_len,
                                cfg.page_size or cfg.prefix_page,
-                               page_budget=cfg.page_budget)
-        return KVSlotPool(self.model, cfg.n_slots, cfg.max_len)
+                               page_budget=cfg.page_budget, quant=cfg.kv_quant,
+                               exact_lanes=cfg.kv_exact_lanes)
+        return KVSlotPool(self.model, cfg.n_slots, cfg.max_len,
+                          quant=cfg.kv_quant, quant_block=cfg.kv_quant_block,
+                          exact_lanes=cfg.kv_exact_lanes)
 
     def _make_prefix_cache(self):
         cfg = self.config
@@ -1437,7 +1587,8 @@ class ServeEngine:
         active stream returns to the queue head, oldest first, and
         resumes by recompute, token-exactly (the preemption argument).
         The prefix cache is dropped whole (its lane segments or page ids
-        belong to the old pool).
+        belong to the old pool), and so are the exact lanes' assignments
+        (the new pool's sidecar is fresh).
 
         Every reference to the old pool's device memory is dropped BEFORE
         the new pool is allocated — the pool, the tree (lane segments;
@@ -1467,6 +1618,9 @@ class ServeEngine:
         self._seed[:] = -1
         self._need_lp[:] = False
         self._fault_row[:] = 0
+        # the new pool's exact sidecar is fresh: every lane is free
+        self._eidx[:] = 0
+        self._exact_free = list(range(cfg.kv_exact_lanes, 0, -1))
         old = self.pool
         self.prefix_cache = None
         # the old pool object keeps only host bookkeeping from here on
@@ -1528,14 +1682,17 @@ class ServeEngine:
         the paged pool zeroes the slot's own pages (refcount 1) — shared
         prefix pages hold KV written before the poisoned step and other
         holders read them — and the trash page, where the slot's masked
-        overshoot lands and which every idle slot's table points at."""
+        overshoot lands and which every idle slot's table points at. A
+        quantized pool zeroes codes and scale rows, and a kv_exact slot's
+        exact lane too."""
+        eidx = int(self._eidx[slot])
         if self._paged:
             pool = self.pool
             n = int(pool.n_alloc[slot])
             own = [int(p) for p in pool.table[slot, :n] if pool.refcount[p] == 1]
-            scrub_pages(pool.phys, own + [TRASH_PAGE])
+            scrub_pages(pool.phys, own + [TRASH_PAGE], eidx)
         else:
-            scrub_lane(self.pool.caches, slot)
+            scrub_lane(self.pool.caches, slot, eidx)
 
     def _ladder_step(self) -> None:
         """One degradation-ladder evaluation a step: gather the pressure
@@ -1653,8 +1810,9 @@ class ServeEngine:
         token-exactly: a grammar request, unparseable params, a prompt
         beyond the capacity, stop strings without `detokenize`. An SLO
         class this engine does not track is dropped (accounting, not
-        semantics), as is the reference's `kv_exact` (a no-op on an
-        unquantized pool, the only pool the port has)."""
+        semantics). A `kv_exact` entry keeps its flag: on a quantized
+        engine it resumes on an exact lane, and one with no exact lanes
+        cannot take it (the reference's reason)."""
         limit = getattr(self.model, "max_positions", None)
         cap = min(self.config.max_len, limit or self.config.max_len)
         err = None
@@ -1671,6 +1829,9 @@ class ServeEngine:
                 err = f"beyond this engine's capacity {cap}"
             elif params.stop and self.detokenize is None:
                 err = "stop strings need a detokenize callable"
+            elif (params.kv_exact and self._quant
+                  and not self.config.kv_exact_lanes):
+                err = "kv_exact needs exact sidecar lanes"
             elif params.slo is not None and (
                     self._slo is None or params.slo not in self._slo.targets):
                 params = dataclasses.replace(params, slo=None)
@@ -1852,7 +2013,11 @@ class ServeEngine:
             seq = req.prompt
         length = int(seq.size)
         matched = 0
-        pc = self.prefix_cache
+        # kv_exact streams bypass the (quantized) prefix cache: a spliced
+        # int8 prefix would break their byte-exactness, and their sidecar
+        # lanes own no segment or page the tree could share
+        exact = self._quant and req.params.kv_exact
+        pc = None if exact else self.prefix_cache
         tr = self.trace
         if pc is not None and length > 1:
             match = pc.match(seq[:length - 1])
@@ -1878,14 +2043,22 @@ class ServeEngine:
                                 matched=matched, pages=matched // pc.page)
         suffix = length - matched
         padded, chunk = self._prefill_shape(suffix, matched)
-        if self._paged and not self._ensure_pages(slot, matched + padded):
+        if ((self._paged and not exact
+             and not self._ensure_pages(slot, matched + padded))
+                or (exact and not self._exact_free)):
             # even with the tree and every other stream shed, the pool
-            # cannot cover this prefill: hand the slot back, retry later
+            # cannot cover this prefill, or the gate's estimate of the free
+            # exact lanes went stale (several exact picks in one step):
+            # hand the slot back, retry later
             self._slot_req[slot] = None
             self.pool.release(slot)
             req.slot = None
             self._requeue(req)
             return False
+        eidx = 0
+        if exact:
+            eidx = self._exact_free.pop()
+            self._eidx[slot] = eidx
         if not resumed:
             self.metrics.record_admit(req, now)
         if pc is not None and length > 1:
@@ -1930,11 +2103,11 @@ class ServeEngine:
             if self._paged:
                 self.pool.phys, head, logprob = _paged_prefill_program(
                     *args, self.pool.phys, ids[:padded], ids[padded:table_end],
-                    suffix, *sample)
+                    suffix, *sample, eidx=eidx)
             else:
                 self.pool.caches, head, logprob = _prefill_program(
                     *args, self.pool.caches, ids[:padded], slot, suffix,
-                    *sample)
+                    *sample, eidx=eidx)
             # one read, the token and the finite flag together; it waits
             # for the device, so the clock readings after it are
             # device-true
@@ -2133,14 +2306,17 @@ class ServeEngine:
         ctl = (state[0], state[1], state[2].bool(), state[3],
                self._packed(slice(None)), generators, allow, need_lp,
                state[rows] if armed else None)
+        # quantized pools: the exact-lane row (host ints: selecting the
+        # kv_exact slots reads nothing back from the device)
+        eidx = self._eidx if self._quant else None
         with scope(self.profile, "serve/decode_block"):
             if self._paged:
                 self.pool.phys, out, lps = _paged_decode_program(
                     self.model, block, cap, self.pool.phys,
-                    state[4:4 + pages].T, *ctl)
+                    state[4:4 + pages].T, *ctl, eidx=eidx)
             else:
                 self.pool.caches, out, lps = _decode_program(
-                    self.model, block, cap, self.pool.caches, *ctl)
+                    self.model, block, cap, self.pool.caches, *ctl, eidx=eidx)
             # the fault plane's scatter site: after the dispatch, before
             # the read where a device error would surface
             self._poke_site("scatter")
@@ -2319,6 +2495,11 @@ class ServeEngine:
         self._seed[slot] = -1
         self._allow[slot] = -1
         self._need_lp[slot] = False
+        if self._eidx[slot]:
+            # the exact lane goes back (the pools' stale-data contract: the
+            # next exact prefill overwrites it before anything reads it)
+            self._exact_free.append(int(self._eidx[slot]))
+            self._eidx[slot] = 0
         self.pool.release(slot)
 
     # -------------------------------------------------- prefix, pages
@@ -2339,6 +2520,27 @@ class ServeEngine:
             "serve/page_fragmentation": float(pool.fragmentation),
         }
 
+    def _kv_quant_gauges(self) -> dict[str, float]:
+        """The quantized pool's byte gauges (registered iff `kv_quant`),
+        analytic shape sums, never a device read."""
+        pool = self.pool
+        store = pool.phys if self._paged else pool.caches
+        if store is None:  # the pool's device memory was lost in a rebuild
+            return {}
+        pool_bytes, scale_bytes, _, base_bytes = quant_pool_bytes(store)
+        out = {
+            # resident bytes a bookable cache position costs (codes and
+            # scales; the exact lanes are a fixed surcharge of their own)
+            "serve/kv_bytes_per_token": pool_bytes / pool.token_capacity,
+            "serve/kv_quant_scale_bytes": float(scale_bytes),
+            "serve/kv_quant_bytes_saved": float(base_bytes - pool_bytes),
+        }
+        if pool.exact_lanes:
+            out["serve/kv_quant_exact_lanes_free"] = float(len(self._exact_free))
+            out["serve/kv_quant_exact_active"] = float(
+                pool.exact_lanes - len(self._exact_free))
+        return out
+
     def _page_need(self, req: Request) -> int:
         """Pages a waiting request needs to start: prefill coverage of its
         (resume-aware) sequence net of the cached prefix, plus one decode
@@ -2357,9 +2559,15 @@ class ServeEngine:
         return pool.pages_for(need) - matched // pool.page_size
 
     def _can_admit(self, req: Request) -> bool:
-        """The scheduler's gate beyond free slots: free pages must cover
-        the request's prompt + a decode reservation."""
-        return self.pool.pages_free >= self._page_need(req)
+        """The scheduler's gate beyond free slots: on the paged pool free
+        pages must cover the request's prompt + a decode reservation; a
+        kv_exact request on a quantized pool needs a free exact lane
+        instead (it holds no pages)."""
+        if self._quant and req.params.kv_exact:
+            return bool(self._exact_free)
+        if self._paged:
+            return self.pool.pages_free >= self._page_need(req)
+        return True
 
     def _unblock_head(self) -> None:
         """Shed prefix-tree references for a page-starved queue head
@@ -2372,6 +2580,8 @@ class ServeEngine:
         if not self.scheduler.queue or self.pool.n_active > 0 or pc is None:
             return
         head = self.scheduler.queue[0]
+        if self._quant and head.params.kv_exact:
+            return  # blocked on exact lanes, not pages: the tree cannot help
         shed = False
         while not self._can_admit(head) and pc.evict_one():
             shed = True
@@ -2402,6 +2612,8 @@ class ServeEngine:
         for r in self._slot_req:
             if r is None or r.slot in protect:
                 continue
+            if self._quant and r.params.kv_exact:
+                continue  # exact streams hold no pages: nothing to free
             if victim is None or r.admit_time > victim.admit_time:
                 victim = r
         if victim is None:
@@ -2437,6 +2649,8 @@ class ServeEngine:
                 continue  # preempted by an earlier slot's reclaim
             slot = req.slot
             covered.add(slot)
+            if self._quant and req.params.kv_exact:
+                continue  # exact streams write sidecar lanes, not pages
             target = min(int(self._pos[slot]) + block, self.config.max_len)
             ok = self.pool.ensure(slot, target)
             while not ok and self._reclaim_one(protect=covered):

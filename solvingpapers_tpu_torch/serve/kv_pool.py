@@ -1,8 +1,9 @@
 """KV cache pools for the serving engine (port of
-`solvingpapers_tpu/serve/kv_pool.py` without its quantized store): the
-contiguous lane pool (`KVSlotPool`, with the prefix cache's splice and
-extract) and the block-paged pool (`PagedKVPool`, second half of this
-module).
+`solvingpapers_tpu/serve/kv_pool.py`): the contiguous lane pool
+(`KVSlotPool`, with the prefix cache's splice and extract), the
+block-paged pool (`PagedKVPool`, second half of this module), and the
+quantized store both can hold instead of plain caches (`QuantStore`,
+`ServeConfig.kv_quant`).
 
 Layout: the pool is the model's own per-layer cache list with batch =
 n_slots — slot s is batch row s of every tensor of every layer's cache
@@ -31,6 +32,13 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from solvingpapers_tpu_torch.ops.quant import (
+    dequantize,
+    dequantize_tree,
+    quantize,
+    scale_shape,
+)
 
 
 def _tensors(cache) -> dict:
@@ -66,14 +74,453 @@ def store_lane(caches: list, lane: list, slot: int) -> list:
     return caches
 
 
-def scrub_lane(caches: list, slot: int) -> None:
+def scrub_lane(caches, slot: int, eidx: int = 0) -> None:
     """Zero slot `slot`'s lane in every tensor of every layer's cache, in
     place: the quarantine of a poisoned slot. Masked attention gives a
     stale FINITE value probability 0, but ``0 * NaN`` is NaN, so a
-    non-finite value left in the lane would reach its next occupant."""
+    non-finite value left in the lane would reach its next occupant. On a
+    `QuantStore` the slot's codes and scale rows are zeroed, and so is
+    exact lane `eidx` (0, the trash lane, is harmless to clear)."""
+    if isinstance(caches, QuantStore):
+        for t in _leaves(caches.q) + _leaves(caches.scale):
+            t[slot].zero_()
+        if caches.exact is not None:
+            for t in _leaves(caches.exact):
+                t[int(eidx)].zero_()
+        return
     for c in caches:
         for t in _tensors(c).values():
             t[slot].zero_()
+
+
+# ======================================================================
+# Quantized storage (`ServeConfig.kv_quant`, ops/quant.py)
+# ======================================================================
+#
+# Both pools can hold their cache bytes as symmetric int8 with per-block
+# absmax scales instead of the model's compute dtype: a `QuantStore`
+# replaces the plain cache list as the pool's device payload. The
+# serving programs DEQUANTIZE ON READ (the view and gather helpers below
+# materialize the familiar compute-dtype lane view, a fresh tensor, so
+# the models serve unmodified and write into it in place) and QUANTIZE ON
+# WRITE (the store and scatter helpers requantize exactly the blocks or
+# pages the program wrote; untouched blocks are never rewritten, and
+# within a touched block committed positions outside the written window
+# re-encode from their own f32-dequantized codes rather than from the
+# lossy compute-dtype lane view, so old entries cannot drift step to step
+# on any compute dtype; see ops/quant.py).
+#
+# Exact traffic shares the store: `exact` is a small sidecar lane pool in
+# the ORIGINAL dtype, ``kv_exact_lanes + 1`` lanes, lane 0 a trash lane
+# (the paged pool's trash page, mirrored). A slot serving a
+# `SamplingParams.kv_exact` request carries a nonzero exact-lane index:
+# its reads take that full-precision lane instead of the dequantized view
+# (per slot, so one batch mixes exact and quantized slots), and its
+# writes land in both stores (the int8 shadow is harmless; the exact lane
+# is authoritative). The reference writes every quantized slot's lane
+# into trash lane 0 as well, so that one compiled program serves every
+# mix; nothing ever reads lane 0, and the port, which compiles no
+# program, skips those writes. Exact streams are byte-identical to the
+# unquantized engine's because every value the model reads for them is.
+#
+# The exact-lane indices (`eidx`, `eidx_row`) are host integers (the
+# engine's numpy mirror), so selecting the exact slots costs no device
+# read.
+
+
+@dataclasses.dataclass
+class QuantStore:
+    """Quantized pool payload: the int8 per-layer cache list `q`, its f32
+    scale list `scale` (the same cache dataclasses, `ops.quant.scale_shape`
+    tensors), the optional exact-lane sidecar `exact` (a plain cache list
+    of ``exact_lanes + 1`` lanes), the time-block length `block` the scales
+    tile, and the compute `dtype` the dequantized views take."""
+
+    q: list
+    scale: list
+    exact: list | None
+    block: int
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class QuantSegment:
+    """Quantized prefix-cache segment (lane pools): the batch-1 int8 and
+    scale slices `extract_prefix` snapshots and `splice_prefix` writes
+    back. Cached prefixes stay quantized at rest, so the radix tree's byte
+    budget holds about twice the tokens."""
+
+    q: list
+    scale: list
+    block: int
+
+    @property
+    def length(self) -> int:
+        return next(iter(_tensors(self.q[0]).values())).shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return cache_bytes(self.q) + cache_bytes(self.scale)
+
+    def time_slice(self, start: int, end: int) -> "QuantSegment":
+        """Token-axis sub-segment [start, end) as a copy; the bounds must
+        be block multiples (they are page multiples, and the engine holds
+        page % block == 0)."""
+        if start % self.block or end % self.block:
+            raise ValueError(
+                f"quantized segment slice [{start}, {end}) is not aligned "
+                f"to the quant block {self.block}")
+        b = self.block
+        return QuantSegment(q=_time_slice(self.q, start, end),
+                            scale=_time_slice(self.scale, start // b, end // b),
+                            block=b)
+
+
+def _time_slice(caches: list, start: int, end: int) -> list:
+    """Time span [start, end) of every tensor of a cache list, as copies."""
+    return [dataclasses.replace(c, **{name: t[:, start:end].clone()
+                                      for name, t in _tensors(c).items()})
+            for c in caches]
+
+
+def _leaves(caches: list) -> list:
+    """Every tensor of a per-layer cache list, layer by layer, field by
+    field (the order both lists of a store share)."""
+    return [t for c in caches for t in _tensors(c).values()]
+
+
+def _rebuild(caches: list, tensors) -> list:
+    """`caches`' dataclasses holding `tensors` (in `_leaves` order)."""
+    it = iter(tensors)
+    return [dataclasses.replace(c, **{name: next(it) for name in _tensors(c)})
+            for c in caches]
+
+
+def _leaf_dtype(caches: list) -> torch.dtype:
+    """The single compute dtype of a cache list (the dequantized views
+    take one dtype)."""
+    dtypes = {t.dtype for t in _leaves(caches)}
+    if len(dtypes) != 1:
+        raise ValueError(
+            f"kv_quant needs a single cache dtype, got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def make_quant_store(model, batch: int, time: int, block: int,
+                     exact_lanes: int = 0,
+                     exact_time: int | None = None) -> QuantStore:
+    """A pool's quantized payload: int8 zeros and zero scales shaped like
+    ``model.init_caches(batch, time)``, plus the exact-lane sidecar
+    (``exact_lanes + 1`` full-precision lanes of `exact_time`; lane 0 is
+    the trash lane). Zero scales dequantize to exact zeros, so a fresh
+    quantized pool reads back as a fresh plain one. The shapes come from a
+    one-block probe of `init_caches`: the full-precision pool is never
+    allocated, not even for a moment."""
+    probe = model.init_caches(1, block)
+    dtype = _leaf_dtype(probe)
+    dev = _leaves(probe)[0].device
+
+    def full(t, dt, shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    q = _rebuild(probe, [full(t, torch.int8, (batch, time) + tuple(t.shape[2:]))
+                         for t in _leaves(probe)])
+    scale = _rebuild(probe, [
+        full(t, torch.float32,
+             scale_shape((batch, time) + tuple(t.shape[2:]), block))
+        for t in _leaves(probe)])
+    exact = None
+    if exact_lanes > 0:
+        exact = model.init_caches(exact_lanes + 1, exact_time or time)
+    return QuantStore(q=q, scale=scale, exact=exact, block=block, dtype=dtype)
+
+
+def quant_pool_bytes(store: QuantStore) -> tuple[int, int, int, int]:
+    """(payload + scale bytes, scale bytes, exact sidecar bytes, baseline
+    bytes): the analytic byte split the kv_quant gauges report.
+    `baseline` is what the same pool would hold unquantized (the int8
+    element count times the compute dtype's width)."""
+    itemsize = torch.empty((), dtype=store.dtype).element_size()
+    q_bytes = sum(t.numel() for t in _leaves(store.q))
+    s_bytes = cache_bytes(store.scale)
+    e_bytes = 0 if store.exact is None else cache_bytes(store.exact)
+    return q_bytes + s_bytes, s_bytes, e_bytes, q_bytes * itemsize
+
+
+# ------------------------------------------------------------ read helpers
+
+
+def _exact_select1(lane: list, store: QuantStore, eidx: int) -> list:
+    """Batch-1 exact override: a kv_exact slot (eidx > 0) reads its exact
+    lane, as VIEWS of the sidecar (the model's in-place writes land there
+    directly); eidx 0 keeps the dequantized view."""
+    if store.exact is None or not eidx:
+        return lane
+    return extract_lane(store.exact, int(eidx))
+
+
+def _exact_slots(eidx_row, device) -> tuple:
+    """(slot index tensor, exact-lane index tensor) of the kv_exact slots
+    of a host row, or None when there is none (or no row)."""
+    if eidx_row is None:
+        return None
+    row = np.asarray(eidx_row)
+    slots = np.flatnonzero(row)
+    if not slots.size:
+        return None
+    return (torch.as_tensor(slots, dtype=torch.long, device=device),
+            torch.as_tensor(row[slots], dtype=torch.long, device=device))
+
+
+def _exact_select(lanes: list, store: QuantStore, eidx_row) -> list:
+    """Batched exact override for the (S, ...) lane view, in place on the
+    fresh view: kv_exact slots take their exact lanes."""
+    if store.exact is None:
+        return lanes
+    sel = _exact_slots(eidx_row, _leaves(lanes)[0].device)
+    if sel is None:
+        return lanes
+    slots, lanes_idx = sel
+    for a, ex in zip(_leaves(lanes), _leaves(store.exact)):
+        a[slots] = ex[lanes_idx]
+    return lanes
+
+
+def quant_lane_view(store: QuantStore, slot: int, eidx: int = 0) -> list:
+    """Batch-1 compute-dtype lane view of a quantized LANE pool slot:
+    `extract_lane` + dequantize + the exact override."""
+    lane = dequantize_tree(extract_lane(store.q, slot),
+                           extract_lane(store.scale, slot), store.dtype)
+    return _exact_select1(lane, store, eidx)
+
+
+def quant_lanes_view(store: QuantStore, eidx_row) -> list:
+    """All-slot (S, max_len, ...) view of a quantized lane pool: what the
+    decode block runs on."""
+    lanes = dequantize_tree(store.q, store.scale, store.dtype)
+    return _exact_select(lanes, store, eidx_row)
+
+
+def _gather_dequant(qt: torch.Tensor, st: torch.Tensor, table: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    pages = qt[table].to(torch.float32)  # (S, PPL, page, ...)
+    sc = st[table][..., None]            # (S, PPL, 1[, H], 1)
+    x = (pages * sc).to(dtype)
+    s, ppl, page = x.shape[:3]
+    return x.reshape((s, ppl * page) + tuple(x.shape[3:]))
+
+
+def quant_gather_lanes(store: QuantStore, table: torch.Tensor, eidx_row) -> list:
+    """(S, max_len, ...) view of a quantized PAGE pool through the (S,
+    pages_per_lane) page table: the int8 pages and their per-page scale
+    rows gathered through the same table, dequantized, with the exact
+    override."""
+    lanes = _rebuild(store.q, [
+        _gather_dequant(qt, st, table, store.dtype)
+        for qt, st in zip(_leaves(store.q), _leaves(store.scale))])
+    return _exact_select(lanes, store, eidx_row)
+
+
+def quant_gather_lane(store: QuantStore, row: torch.Tensor, eidx: int = 0) -> list:
+    """Batch-1 lane view of a quantized page pool slot through its page-
+    table `row`, with the exact override."""
+    lane = _rebuild(store.q, [
+        _gather_dequant(qt, st, row[None], store.dtype)
+        for qt, st in zip(_leaves(store.q), _leaves(store.scale))])
+    return _exact_select1(lane, store, eidx)
+
+
+# ----------------------------------------------------------- write helpers
+
+
+def _zero_past(x: torch.Tensor, t0: int, hi) -> torch.Tensor:
+    """`x` (B, T, ...) covering positions [t0, t0 + T) with positions >=
+    `hi` zeroed: right-padding must never widen a block's absmax (zeros
+    cannot)."""
+    tcol = torch.arange(t0, t0 + x.shape[1], device=x.device)
+    m = (tcol < hi).reshape((1, x.shape[1]) + (1,) * (x.ndim - 2))
+    return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _store_exact(store: QuantStore, lane: list, eidx: int) -> None:
+    if store.exact is not None and eidx:
+        store_lane(store.exact, lane, int(eidx))
+
+
+def quant_store_lane(store: QuantStore, lane: list, slot: int, eidx: int,
+                     t0: int, t1: int, hi: int | None = None) -> QuantStore:
+    """Quantize-on-write for a batch-1 lane (the lane prefill's store):
+    requantize ONLY the written span [t0, t1) (`t0` block-aligned, since
+    prefix-hit starts are page multiples and page % block == 0; `t1`
+    rounds up to the block) into the slot's int8 and scale rows, and
+    mirror the full-precision lane into exact lane `eidx` (a kv_exact
+    slot). Blocks below `t0` hold spliced prefix codes the prefill never
+    touched, and are not rewritten: that keeps the quantized prefix
+    cache's contents stable under reuse. `hi` is the end of the REAL
+    tokens: prompts are right-padded, and a pad activation sharing the
+    tail block would inflate its absmax and coarsen the last committed
+    tokens' codes, so positions past `hi` are zeroed before quantizing
+    (they lie beyond `attend_len`, are never attended, and decode
+    overwrites them)."""
+    b = store.block
+    t_max = _leaves(store.q)[0].shape[1]
+    if t0 % b:
+        raise ValueError(f"write start {t0} is not a multiple of the quant "
+                         f"block {b}")
+    t1 = min(-(-t1 // b) * b, t_max)
+    for qt, st, lt in zip(_leaves(store.q), _leaves(store.scale), _leaves(lane)):
+        span = lt[:, t0:t1]
+        if hi is not None:
+            span = _zero_past(span, t0, hi)
+        qv, sv = quantize(span, b)
+        qt[slot:slot + 1, t0:t1] = qv
+        st[slot:slot + 1, t0 // b:t1 // b] = sv
+    _store_exact(store, lane, eidx)
+    return store
+
+
+def quant_store_written(store: QuantStore, lanes: list, pos0: torch.Tensor,
+                        span: int, eidx_row, hi: torch.Tensor | None = None,
+                        tail_garbage: bool = False) -> QuantStore:
+    """Quantize-on-write for the decode block's (S, max_len, ...) lane
+    view: slot s wrote positions ``[pos0[s], pos0[s] + span)``, which
+    touch at most ``(span - 1) // block + 2`` quant blocks; requantize
+    exactly those and leave the rest of the payload as it was (a window
+    clipped at the lane's end rewrites the same block with the same
+    content). Within a rewritten block only the written positions take
+    the lane view; the rest re-encode from their OWN f32-dequantized
+    codes. That merge matters twice: on bf16 pools the lane view is a
+    lossy cast, and requantizing committed entries through it would walk
+    their codes step to step; and when the lane past a per-slot `hi`
+    holds rejected-draft garbage (`tail_garbage=True`, the speculative
+    write-back; `hi` is the committed end, default pos0 + span), leaving
+    it out keeps a garbage outlier from widening the block's absmax for
+    good. On f32 pools with a trustworthy tail the merge reproduces the
+    lane bit for bit, so it is skipped. Each kv_exact slot's full lane
+    goes to its exact lane."""
+    b = store.block
+    t_max = _leaves(store.q)[0].shape[1]
+    nb = t_max // b
+    n_slots = pos0.shape[0]
+    dev = pos0.device
+    rows = torch.arange(n_slots, device=dev)
+    pos0 = pos0.to(torch.long)
+    end = (pos0 + span) if hi is None else hi.to(torch.long)
+    merge = tail_garbage or store.dtype != torch.float32
+    offs = torch.arange(b, device=dev)
+    for w in range((span - 1) // b + 2):
+        bidx = torch.clamp(torch.div(pos0 + w * b, b, rounding_mode="floor"),
+                           0, nb - 1)                         # (S,)
+        tcol = bidx[:, None] * b + offs[None, :]              # (S, b)
+        for qt, st, lt in zip(_leaves(store.q), _leaves(store.scale),
+                              _leaves(lanes)):
+            vals = lt[rows[:, None], tcol]                    # (S, b, ...)
+            if merge:
+                old = dequantize(qt[rows[:, None], tcol],
+                                 st[rows, bidx][:, None], torch.float32)
+                wr = (tcol >= pos0[:, None]) & (tcol < end[:, None])
+                wr = wr.reshape(wr.shape + (1,) * (vals.ndim - 2))
+                vals = torch.where(wr, vals.to(torch.float32), old)
+            qv, sv = quantize(vals, b)                        # scale (S, 1[, H])
+            qt[rows[:, None], tcol] = qv
+            st[rows, bidx] = sv[:, 0]
+    return quant_store_exact_lanes(store, lanes, eidx_row)
+
+
+def quant_scatter_lane_pages(store: QuantStore, lane: list, row: torch.Tensor,
+                             start_page: int, eidx: int = 0,
+                             hi: int | None = None) -> QuantStore:
+    """`scatter_lane_pages` for a quantized page pool (the paged
+    prefill's write-back): quantize the batch-1 lane's pages
+    [start_page:], one absmax scale row per (page, head), and scatter
+    codes and scales to their physical ids; mirror the lane into exact
+    lane `eidx`. `hi` zeroes the right-padding positions before
+    quantizing, as `quant_store_lane` does."""
+    ppl = row.shape[0]
+    ids = row[start_page:]
+    for qt, st, lt in zip(_leaves(store.q), _leaves(store.scale), _leaves(lane)):
+        page = qt.shape[1]
+        pages = lt.reshape((ppl, page) + tuple(lt.shape[2:]))[start_page:]
+        if hi is not None:
+            flat = pages.reshape((1, -1) + tuple(pages.shape[2:]))
+            pages = _zero_past(flat, start_page * page, hi).reshape(pages.shape)
+        qv, sv = quantize(pages, page)
+        qt[ids] = qv
+        st[ids] = sv
+    _store_exact(store, lane, eidx)
+    return store
+
+
+def quant_scatter_written_pages(store: QuantStore, lanes: list,
+                                table: torch.Tensor, pos: torch.Tensor,
+                                lo: torch.Tensor | None = None,
+                                hi: torch.Tensor | None = None,
+                                tail_garbage: bool = False) -> QuantStore:
+    """`scatter_written_pages` for a quantized page pool: take each slot's
+    written page out of the compute-dtype lane view, quantize it (fresh
+    per-(page, head) scales) and scatter codes and scale rows to the
+    physical ids. `lo` / `hi` (per-slot logical positions, `hi`
+    exclusive) bound the window the program wrote: positions outside it
+    re-encode from their OWN f32-dequantized codes, on lossy compute
+    dtypes (the bf16 drift `quant_store_written` describes) and, with
+    `tail_garbage=True` (the speculative write-back), on every dtype. An
+    f32 pool with a trustworthy tail skips the merge. Exact lanes are
+    written once a program (`quant_store_exact_lanes`): this runs in a
+    loop over page windows."""
+    s, ppl = table.shape
+    rows = torch.arange(s, device=table.device)
+    merge = lo is not None and (tail_garbage or store.dtype != torch.float32)
+    for qt, st, lt in zip(_leaves(store.q), _leaves(store.scale), _leaves(lanes)):
+        page = qt.shape[1]
+        pg = torch.clamp(pos.to(torch.long) // page, 0, ppl - 1)
+        ids = table[rows, pg]
+        pages = lt.reshape((s, ppl, page) + tuple(lt.shape[2:]))[rows, pg]
+        if merge:
+            tcol = pg[:, None] * page + torch.arange(page, device=pg.device)[None, :]
+            old = dequantize(qt[ids], st[ids], torch.float32)
+            wr = (tcol >= lo.to(torch.long)[:, None]) & (tcol < hi.to(torch.long)[:, None])
+            wr = wr.reshape(wr.shape + (1,) * (pages.ndim - 2))
+            pages = torch.where(wr, pages.to(torch.float32), old)
+        qv, sv = quantize(pages, page)  # (S, page, ...), (S, 1[, H])
+        qt[ids] = qv
+        st[ids] = sv
+    return store
+
+
+def quant_scatter_window_pages(store: QuantStore, lanes: list,
+                               table: torch.Tensor, start: torch.Tensor,
+                               last: torch.Tensor, span: int) -> QuantStore:
+    """The speculative decode's write-back on a quantized page pool: the
+    clamped page walk of the reference's `scatter_window_pages` over the
+    quantized payload. [start, last] is the committed window, whose
+    positions take the lane's values; committed pages below `start` keep
+    their own codes, and the stale tail past `last` keeps its old codes
+    instead of rejected draws on every dtype (`tail_garbage`: a rejected
+    outlier would otherwise coarsen the whole page's scale)."""
+    page = _leaves(store.q)[0].shape[1]
+    limit = table.shape[1] * page - 1
+    last = torch.maximum(last, start)
+    for w in range((span - 1) // page + 2):
+        pos_w = torch.clamp(torch.minimum(start + w * page, last), 0, limit)
+        store = quant_scatter_written_pages(store, lanes, table, pos_w,
+                                            lo=start, hi=last + 1,
+                                            tail_garbage=True)
+    return store
+
+
+def quant_store_exact_lanes(store: QuantStore, lanes: list,
+                            eidx_row) -> QuantStore:
+    """Write every kv_exact slot's full-precision lane view into its
+    exact lane (the decode block's exact write-back)."""
+    if store.exact is None:
+        return store
+    sel = _exact_slots(eidx_row, _leaves(lanes)[0].device)
+    if sel is None:
+        return store
+    slots, lanes_idx = sel
+    for ex, ln in zip(_leaves(store.exact), _leaves(lanes)):
+        ex[lanes_idx] = ln[slots].to(ex.dtype)
+    return store
 
 
 class _SlotBook:
@@ -137,14 +584,31 @@ class KVSlotPool(_SlotBook):
     prompt plus every emitted token except the newest (a sampled token's
     KV is written when it is fed back)."""
 
-    def __init__(self, model, n_slots: int, max_len: int):
+    def __init__(self, model, n_slots: int, max_len: int,
+                 quant: str | None = None, quant_block: int = 16,
+                 exact_lanes: int = 0):
         self._init_slots(n_slots)
         self.max_len = max_len
-        self.caches = model.init_caches(n_slots, max_len)
+        self.quant = quant
+        self.quant_block = quant_block
+        self.exact_lanes = exact_lanes if quant else 0
+        if quant:
+            if max_len % quant_block:
+                raise ValueError(
+                    f"max_len {max_len} is not a multiple of the quant block "
+                    f"{quant_block}: scale rows must tile the lane")
+            self.caches = make_quant_store(model, n_slots, max_len,
+                                           quant_block, exact_lanes=exact_lanes)
+        else:
+            self.caches = model.init_caches(n_slots, max_len)
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of every lane of the pool."""
+        """Device bytes of every lane of the pool (quantized: int8 codes,
+        scale rows and the exact lanes)."""
+        if self.quant:
+            pool_bytes, _, exact_bytes, _ = quant_pool_bytes(self.caches)
+            return pool_bytes + exact_bytes
         return cache_bytes(self.caches)
 
     @property
@@ -159,29 +623,53 @@ class KVSlotPool(_SlotBook):
 
     # --------------------------------------------------- prefix segments
 
-    def splice_prefix(self, slot: int, segment: list, offset: int = 0) -> None:
+    def _check_quant_span(self, offset: int, length: int, op: str) -> None:
+        b = self.quant_block
+        if offset % b or length % b:
+            raise ValueError(
+                f"{op}: span [{offset}, {offset + length}) is not aligned to "
+                f"the quant block {b}: quantized segments carry whole scale "
+                "rows")
+
+    def splice_prefix(self, slot: int, segment, offset: int = 0) -> None:
         """Copy a cached batch-1 prefix `segment` into lane `slot` at time
         offset `offset` (the lane owns the copy). Runs before the suffix
-        prefill that continues at ``offset + segment length``."""
+        prefill that continues at ``offset + segment length``. A quantized
+        pool splices `QuantSegment`s only: their codes land at `offset`
+        and their scale rows at ``offset // quant_block``, so the spliced
+        bytes are the producer's (no dequantize and requantize)."""
         if not 0 <= slot < self.n_slots:
             raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
-        length = segment_length(segment)
+        if self.quant:
+            if not isinstance(segment, QuantSegment):
+                raise TypeError(
+                    "a quantized pool splices QuantSegment payloads, got a "
+                    f"{type(segment).__name__}: the prefix cache and the pool "
+                    "must agree on kv_quant")
+            length = segment.length
+        else:
+            length = segment_length(segment)
         if offset < 0 or offset + length > self.max_len:
             raise ValueError(
                 f"segment span [{offset}, {offset + length}) exceeds the "
                 f"lane capacity {self.max_len}"
             )
-        for c, seg in zip(self.caches, segment):
-            seg_ts = _tensors(seg)
-            for name, pool_t in _tensors(c).items():
-                seg_t = seg_ts[name]
+        if self.quant:
+            self._check_quant_span(offset, length, "splice_prefix")
+            b = self.quant_block
+            pairs = [(self.caches.q, segment.q, offset, length),
+                     (self.caches.scale, segment.scale, offset // b, length // b)]
+        else:
+            pairs = [(self.caches, segment, offset, length)]
+        for pool, seg, off, n in pairs:
+            for pool_t, seg_t in zip(_leaves(pool), _leaves(seg)):
                 if seg_t.dtype != pool_t.dtype:
                     raise TypeError(
                         f"splice_prefix: segment dtype {seg_t.dtype} != pool "
                         f"dtype {pool_t.dtype}; implicit casts are not "
                         "performed"
                     )
-                pool_t[slot:slot + 1, offset:offset + length].copy_(seg_t)
+                pool_t[slot:slot + 1, off:off + n].copy_(seg_t)
         PREFIX_COPIES["splice"] += 1
 
     def extract_prefix(self, slot: int, offset: int, length: int) -> list:
@@ -196,10 +684,19 @@ class KVSlotPool(_SlotBook):
                 f"lane capacity {self.max_len}"
             )
         PREFIX_COPIES["extract"] += 1
-        return [dataclasses.replace(c, **{
-                    name: t[slot:slot + 1, offset:offset + length].clone()
-                    for name, t in _tensors(c).items()})
-                for c in self.caches]
+        if self.quant:
+            # the int8 span and its scale rows: half the copy (and tree
+            # budget) bytes of a bf16 segment
+            self._check_quant_span(offset, length, "extract_prefix")
+            b = self.quant_block
+            return QuantSegment(
+                q=_time_slice(extract_lane(self.caches.q, slot), offset,
+                              offset + length),
+                scale=_time_slice(extract_lane(self.caches.scale, slot),
+                                  offset // b, (offset + length) // b),
+                block=b)
+        return _time_slice(extract_lane(self.caches, slot), offset,
+                           offset + length)
 
 
 def cache_bytes(caches: list) -> int:
@@ -316,20 +813,27 @@ def scatter_written_pages(phys: list, lanes: list, table: torch.Tensor,
 TRASH_PAGE = 0  # physical page 0: reserved write sink, never allocated
 
 
-def scrub_pages(phys: list, page_ids) -> None:
+def scrub_pages(phys, page_ids, eidx: int = 0) -> None:
     """Zero physical pages `page_ids` in every tensor of every layer's
     cache, in place (the paged twin of `scrub_lane`). The engine passes a
     poisoned slot's own pages (refcount 1) and the trash page: shared
     prefix pages hold KV written before the poisoned step, while the
     slot's masked overshoot lands in the trash page, which every idle
-    slot's table points at."""
+    slot's table points at. On a `QuantStore` the pages' codes and scale
+    rows are zeroed, and so is exact lane `eidx`."""
+    if isinstance(phys, QuantStore):
+        if phys.exact is not None:
+            for t in _leaves(phys.exact):
+                t[int(eidx)].zero_()
+        tensors = _leaves(phys.q) + _leaves(phys.scale)
+    else:
+        tensors = _leaves(phys)
     if not len(page_ids):
         return
-    dev = next(iter(_tensors(phys[0]).values())).device
-    idx = torch.as_tensor(list(page_ids), dtype=torch.long, device=dev)
-    for p in phys:
-        for t in _tensors(p).values():
-            t.index_fill_(0, idx, 0)
+    idx = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=tensors[0].device)
+    for t in tensors:
+        t.index_fill_(0, idx, 0)
 
 
 class PagedKVPool(_SlotBook):
@@ -356,7 +860,8 @@ class PagedKVPool(_SlotBook):
     """
 
     def __init__(self, model, n_slots: int, max_len: int, page_size: int,
-                 page_budget: int | None = None):
+                 page_budget: int | None = None, quant: str | None = None,
+                 exact_lanes: int = 0):
         self._init_slots(n_slots)
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -380,7 +885,17 @@ class PagedKVPool(_SlotBook):
             )
         self.page_budget = page_budget
         self.n_pages = page_budget + 1  # + the trash page
-        self.phys = model.init_caches(self.n_pages, page_size)
+        self.quant = quant
+        self.quant_block = page_size  # one scale row per (page, head)
+        self.exact_lanes = exact_lanes if quant else 0
+        if quant:
+            # exact lanes are LANE-shaped (max_len): a kv_exact stream owns
+            # no pages, its table row rests at the trash page
+            self.phys = make_quant_store(model, self.n_pages, page_size,
+                                         page_size, exact_lanes=exact_lanes,
+                                         exact_time=max_len)
+        else:
+            self.phys = model.init_caches(self.n_pages, page_size)
         self.table = np.full((n_slots, self.pages_per_lane), TRASH_PAGE,
                              np.int64)
         self.n_alloc = np.zeros(n_slots, np.int64)
@@ -393,13 +908,21 @@ class PagedKVPool(_SlotBook):
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the physical pool, constant by construction."""
+        """Device bytes of the physical pool, constant by construction
+        (quantized: codes, scale rows and the exact lanes)."""
+        if self.quant:
+            pool_bytes, _, exact_bytes, _ = quant_pool_bytes(self.phys)
+            return pool_bytes + exact_bytes
         return cache_bytes(self.phys)
 
     @property
     def page_nbytes(self) -> int:
         """Device bytes one page holds across every cache field: what a
-        radix-tree page reference costs in the prefix cache's budget."""
+        radix-tree page reference costs in the prefix cache's budget
+        (quantized: its codes and scale rows; the exact lanes are no
+        page's)."""
+        if self.quant:
+            return quant_pool_bytes(self.phys)[0] // self.n_pages
         return self.nbytes // self.n_pages
 
     @property

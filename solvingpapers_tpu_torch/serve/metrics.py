@@ -36,6 +36,19 @@ a gauge provider):
                                present iff any occurred, with
     serve/recompute_tokens     the tokens re-prefilled by those resumes
 
+Quantized-KV gauges (present iff `ServeConfig.kv_quant`; the engine
+registers a gauge provider; byte values are analytic shape sums, never
+device reads):
+
+    serve/kv_bytes_per_token         resident KV bytes (int8 codes + scale
+                                     rows) per bookable cache position
+    serve/kv_quant_scale_bytes       f32 absmax-scale bytes
+    serve/kv_quant_bytes_saved       the compute-dtype baseline less the
+                                     quantized payload
+    serve/kv_quant_exact_lanes_free  full-precision sidecar lanes free /
+    serve/kv_quant_exact_active      serving kv_exact requests (present
+                                     iff kv_exact_lanes > 0)
+
 Prefix-cache counters (present once the engine's prefix cache looked a
 prompt up):
 

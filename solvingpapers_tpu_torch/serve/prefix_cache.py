@@ -1,7 +1,6 @@
 """Host-side radix tree over token-id prefixes with device-resident KV
 segments: cross-request prefix reuse for the serving engine (port of
-`solvingpapers_tpu/serve/prefix_cache.py` without its quantized
-segments).
+`solvingpapers_tpu/serve/prefix_cache.py`).
 
 A radix tree keyed by token ids whose nodes own batch-1 KV/latent
 segments (per-layer cache lists as `model.init_caches(1, seg_len)` would
@@ -18,6 +17,12 @@ prefill must produce at least one logits row to sample from).
 Page granularity: all edges and match lengths are multiples of `page`,
 so node splits are aligned and never cut a segment at an arbitrary
 offset mid-walk.
+
+Quantized lane pools (`ServeConfig.kv_quant`): segments are
+`QuantSegment`s, int8 codes and their scale rows, kept quantized at rest
+(about half a bf16 segment's budget for the same tokens); their slices
+cut codes and scale rows together, at page multiples that the engine
+holds to be quant-block multiples.
 
 Memory: with the lane pool, segments are COPIES (snapshotted out of a
 lane after prefill by `extract_fn`), accounted against `max_bytes`; LRU
@@ -43,17 +48,36 @@ import weakref
 
 import numpy as np
 
-from solvingpapers_tpu_torch.serve.kv_pool import _tensors, cache_bytes, segment_length
+from solvingpapers_tpu_torch.serve.kv_pool import (
+    QuantSegment,
+    _time_slice,
+    cache_bytes,
+)
+from solvingpapers_tpu_torch.serve.kv_pool import segment_length as _plain_length
 
-# device bytes held by a batch-1 segment (a per-layer cache list)
-segment_bytes = cache_bytes
+
+def segment_bytes(segment) -> int:
+    """Device bytes held by a batch-1 segment (a per-layer cache list; a
+    `QuantSegment` counts its int8 codes and scale rows)."""
+    if isinstance(segment, QuantSegment):
+        return segment.nbytes
+    return cache_bytes(segment)
 
 
-def slice_segment(segment: list, start: int, end: int) -> list:
-    """Time-axis sub-segment [start, end) as a copy (static bounds)."""
-    return [dataclasses.replace(c, **{name: t[:, start:end].clone()
-                                      for name, t in _tensors(c).items()})
-            for c in segment]
+def segment_length(segment) -> int:
+    """Time-axis length of a batch-1 segment."""
+    if isinstance(segment, QuantSegment):
+        return segment.length
+    return _plain_length(segment)
+
+
+def slice_segment(segment, start: int, end: int):
+    """Time-axis sub-segment [start, end) as a copy (static bounds). A
+    quantized segment slices codes and scale rows together (the bounds
+    are page multiples, pages are quant-block multiples)."""
+    if isinstance(segment, QuantSegment):
+        return segment.time_slice(start, end)
+    return _time_slice(segment, start, end)
 
 
 class _Segment:

@@ -33,22 +33,24 @@ Two comparisons, by each stream's replayability class:
   three.
 
 A journal recorded by either package replays on the port: the files read
-the same in both (`read_entries`), and a reference journal's `kv_exact`
-flag, a no-op on the port's unquantized pools, is dropped
-(`engine.journaled_params`, as recovery rebuilds them).
+the same in both (`read_entries`), and a `kv_exact` flag is kept
+(`engine.journaled_params`, as recovery rebuilds them): on a quantized
+candidate the stream replays on an exact lane.
 
 Entries the candidate cannot replay token-exactly (grammar requests,
 stop strings without a detokenizer, prompts beyond the candidate's
-capacity, streams with no committed tokens, finishes that are not a
-faithful prefix) land in the report as ``skipped`` with a reason, never
-as divergences. The report also carries the replayed run's own
+capacity, kv_exact streams on a quantized candidate with no exact lanes,
+streams with no committed tokens, finishes that are not a faithful
+prefix) land in the report as ``skipped`` with a reason, never as
+divergences. A quantized candidate (``kv_quant=int8``) is the config
+canary's lossy direction: its byte-exact rate is expected to fall, and
+its teacher-forced greedy agreement grades the quantization. The report also carries the replayed run's own
 `ServeMetrics` latency and throughput summary and, with a baseline
 config, paired deltas against a second re-serve of the same corpus.
 
 A candidate the port cannot build is refused, never approximated:
-`apply_overrides` raises a `ValueError` naming ROADMAP A5 for the
-reference's quantized-pool and speculative knobs (``kv_quant=int8``
-among them), because `ops/quant.py` and speculative decoding are not
+`apply_overrides` raises a `ValueError` naming ROADMAP A5.2 for the
+reference's speculative knobs, because speculative decoding is not
 ported.
 
 Exposure: `cli replay` (exit 2 past the divergence threshold: the
@@ -90,12 +92,9 @@ _REPLAYABLE_REASONS = ("eos", "length", "stop", "cancelled", "timeout")
 # the reference's ServeConfig knobs of pools and decoders the port does
 # not have yet: a candidate naming one is refused, not approximated
 _UNPORTED_KNOBS = {
-    "kv_quant": "A5 (the quantized KV pool, ops/quant.py)",
-    "kv_quant_block": "A5 (the quantized KV pool, ops/quant.py)",
-    "kv_exact_lanes": "A5 (the quantized KV pool, ops/quant.py)",
-    "speculative": "A5 (speculative decoding)",
-    "spec_k": "A5 (speculative decoding)",
-    "spec_rounds": "A5 (speculative decoding)",
+    "speculative": "A5.2 (speculative decoding)",
+    "spec_k": "A5.2 (speculative decoding)",
+    "spec_rounds": "A5.2 (speculative decoding)",
 }
 
 
@@ -126,8 +125,8 @@ def apply_overrides(cfg: ServeConfig, overrides: dict) -> ServeConfig:
     values (from the CLI) go through `json.loads` first (ints, floats,
     ``true``/``false``, ``null``, lists) and stay raw strings otherwise.
     Unknown keys raise `ValueError` (a mistyped knob must not silently
-    gate nothing), and so do the reference's quantized-pool and
-    speculative knobs, naming the ROADMAP item that ports them."""
+    gate nothing), and so do the reference's speculative knobs, naming
+    the ROADMAP item that ports them."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
     parsed = {}
     for key, val in overrides.items():
@@ -242,7 +241,7 @@ class ReplayHarness:
 
     # -------------------------------------------------------- selection
 
-    def _screen(self, e: JournalEntry, cfg: ServeConfig
+    def _screen(self, e: JournalEntry, cfg: ServeConfig, quant: bool
                 ) -> tuple[SamplingParams | None, str | None]:
         """(params, None) for a replayable finished entry, (None, reason)
         otherwise: `ServeEngine._entry_request`'s checks in its order,
@@ -267,6 +266,8 @@ class ReplayHarness:
             return None, f"beyond the candidate's capacity {cap}"
         if params.stop and self.detokenize is None:
             return None, "stop strings need a detokenize callable"
+        if params.kv_exact and quant and not cfg.kv_exact_lanes:
+            return None, "kv_exact needs exact sidecar lanes"
         if params.top_k > cfg.sample_cap:
             return None, (f"top_k {params.top_k} exceeds the candidate's "
                           f"sample_cap {cfg.sample_cap}")
@@ -340,8 +341,9 @@ class ReplayHarness:
         if max_requests is not None:
             entries = entries[:max_requests]
         corpus, skipped = [], []
+        quant = bool(candidate.kv_quant)
         for e in entries:
-            params, reason = self._screen(e, candidate)
+            params, reason = self._screen(e, candidate, quant)
             if reason is not None:
                 skipped.append({"rid": e.rid, "reason": reason})
             else:
@@ -356,7 +358,7 @@ class ReplayHarness:
                 "max_len": candidate.max_len,
                 "decode_block": candidate.decode_block,
                 "paged": candidate.paged,
-                "kv_quant": None,
+                "kv_quant": candidate.kv_quant,
                 "speculative": None,
                 "prefix_cache": candidate.prefix_cache,
             },

@@ -1,6 +1,5 @@
 """Per-request sampling for the serving engine (port of
-`solvingpapers_tpu/serve/sampling.py`, without the SLO tag and the
-quantized pool's `kv_exact`, which are later slices).
+`solvingpapers_tpu/serve/sampling.py`).
 
 * `SamplingParams` — the per-request knobs, validated at construction so
   a bad request fails at `submit`;
@@ -68,6 +67,13 @@ class SamplingParams:
     logprobs     when True, the chosen token's log-softmax under the
                  model's raw logits goes into `Request.logprobs`, one
                  entry per generated token.
+    kv_exact     escape hatch from `ServeConfig.kv_quant`: the request
+                 serves from a full-precision sidecar lane of the
+                 quantized pool, in the same decode blocks as quantized
+                 slots, byte-identical to unquantized serving; needs
+                 `ServeConfig.kv_exact_lanes` >= 1 (`submit` checks) and
+                 bypasses the quantized prefix cache. A no-op on an
+                 unquantized engine (everything is exact there).
     slo          SLO class the request's latency is accounted under
                  (serve/slo.py: "interactive" / "standard" / "batch" in
                  the default tier set; any class `ServeConfig.slo_targets`
@@ -85,6 +91,7 @@ class SamplingParams:
     stop_token_ids: tuple[int, ...] = ()
     stop: tuple[str, ...] = ()
     logprobs: bool = False
+    kv_exact: bool = False
     slo: str | None = None
 
     def __post_init__(self):

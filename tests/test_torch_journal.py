@@ -211,6 +211,8 @@ def test_last_event_id_resume_and_the_journal_fallback(tmp_path):
             doc = json.loads(r.read())
         assert "source" not in doc and doc["state"] == "finished"
         assert doc["phase_sum_s"] == pytest.approx(doc["e2e_s"], abs=1e-4)
+        # the reference's per-request facts of the KV storage
+        assert (doc["facts"]["kv_quant"], doc["facts"]["kv_exact"]) == (None, False)
         with srv._timeline_lock:
             srv._timelines.clear()
         _, again = _sse(url, {}, {"Last-Event-ID": "jrn-1:5"})

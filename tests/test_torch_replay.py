@@ -7,9 +7,9 @@ its reference fleet.
 
 Exactness: an identical-config replay of a journaled greedy and seeded
 workload is byte-exact on the lane and the paged pool, paced or not, and
-its teacher-forced cuts all agree. A quantized candidate is refused,
-naming ROADMAP A5 (the reference grades one; the port has no quantized
-pool). Screening: entries the candidate cannot replay token-exactly land
+its teacher-forced cuts all agree. A speculative candidate is refused,
+naming ROADMAP A5.2; a quantized one (``kv_quant=int8``) is built.
+Screening: entries the candidate cannot replay token-exactly land
 as skips with reasons, never as divergences. Snapshot loading: a torn
 final line is tolerated, mid-file corruption raises, a journal rotating
 under a concurrent reader never tears a record, and one ENOENT is
@@ -106,12 +106,16 @@ def test_identical_config_replay_byte_exact(tmp_path, candidate, pace):
 
 
 def test_quantized_or_speculative_candidate_is_refused_naming_a5():
-    """The reference grades an int8-KV candidate; the port cannot build
-    one, and says which ROADMAP item will: nothing falls back."""
-    for knob, val in (("kv_quant", "int8"), ("kv_quant_block", "8"),
-                      ("speculative", "ngram")):
-        with pytest.raises(ValueError, match="ROADMAP A5"):
+    """A speculative candidate cannot be built yet, and the refusal says
+    which ROADMAP item will build it: nothing falls back. The quantized
+    pool's knobs build their int8 candidate, as the reference's do."""
+    for knob, val in (("speculative", "ngram"), ("spec_k", "4"),
+                      ("spec_rounds", "2")):
+        with pytest.raises(ValueError, match="ROADMAP A5.2"):
             apply_overrides(_cfg(), {knob: val})
+    cand = apply_overrides(_cfg(), {"kv_quant": "int8", "kv_quant_block": "8",
+                                    "kv_exact_lanes": "2"})
+    assert (cand.kv_quant, cand.kv_quant_block, cand.kv_exact_lanes) == ("int8", 8, 2)
 
 
 def test_baseline_deltas_and_max_requests(tmp_path):
@@ -130,8 +134,8 @@ def test_baseline_deltas_and_max_requests(tmp_path):
 
 
 def test_unreplayable_entries_become_skips(tmp_path):
-    """Skips are never divergences. The reference's `kv_exact` flag is a
-    no-op on the port's unquantized pools, so that entry replays."""
+    """Skips are never divergences. A `kv_exact` entry replays on an
+    unquantized candidate, where the flag is a no-op."""
     path = str(tmp_path / "j.jsonl")
     j = Journal(path)
     for rid, params, commit, reason in (
@@ -335,13 +339,36 @@ def _http(srv, path, body=None, method=None):
         return e.code, json.loads(e.read())
 
 
-@pytest.mark.parametrize("case", ["run", "single_flight"])
+def _await_replay(srv, run_id):
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        code, doc = _http(srv, f"/v1/replay/{run_id}", method="GET")
+        assert code == 200
+        if doc["state"] != "running":
+            return doc
+        time.sleep(0.02)
+    return doc
+
+
+@pytest.mark.parametrize("case", ["run", "single_flight", "quant"])
 def test_http_replay_endpoint(replay_server, case):
-    """Bad overrides 400 (a quantized candidate names A5), an unknown run
+    """Bad overrides 400 (a speculative candidate names A5.2), an unknown run
     404s, a run goes 202 -> running -> finished with a byte-exact report
     and its gauges on the live engine's metrics; a second run while one
-    is in flight answers 409."""
+    is in flight answers 409; a kv_quant=int8 candidate runs, named in its
+    report."""
     srv, eng = replay_server
+    if case == "quant":
+        code, doc = _http(srv, "/v1/replay", {
+            "config_overrides": {"kv_quant": "int8", "kv_quant_block": 8},
+            "cut_stride": 4})
+        assert code == 202, doc
+        doc = _await_replay(srv, doc["id"])
+        assert doc["state"] == "finished", doc.get("error")
+        rep = doc["report"]
+        assert rep["candidate"]["kv_quant"] == "int8"
+        assert rep["streams_compared"] == 4 and rep["cut_positions"] > 0
+        return
     if case == "single_flight":
         with srv._replay_lock:
             srv._replay_active = True
@@ -354,20 +381,13 @@ def test_http_replay_endpoint(replay_server, case):
         return
     code, doc = _http(srv, "/v1/replay", {"config_overrides": {"nope": 1}})
     assert code == 400 and "nope" in doc["error"]["message"]
-    code, doc = _http(srv, "/v1/replay", {"config_overrides": {"kv_quant": "int8"}})
-    assert code == 400 and "ROADMAP A5" in doc["error"]["message"]
+    code, doc = _http(srv, "/v1/replay", {"config_overrides": {"speculative": "ngram"}})
+    assert code == 400 and "ROADMAP A5.2" in doc["error"]["message"]
     code, doc = _http(srv, "/v1/replay/absent0000", method="GET")
     assert code == 404 and doc["error"]["code"] == "replay_not_found"
     code, doc = _http(srv, "/v1/replay", {"cut_stride": 4})
     assert code == 202, doc
-    run_id = doc["id"]
-    deadline = time.monotonic() + 120
-    while time.monotonic() < deadline:
-        code, doc = _http(srv, f"/v1/replay/{run_id}", method="GET")
-        assert code == 200
-        if doc["state"] != "running":
-            break
-        time.sleep(0.02)
+    doc = _await_replay(srv, doc["id"])
     assert doc["state"] == "finished", doc.get("error")
     rep = doc["report"]
     assert rep["byte_exact_rate"] == 1.0 and rep["agreement_rate"] == 1.0

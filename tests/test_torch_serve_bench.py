@@ -7,8 +7,8 @@ on the CPU at `gpt_tiny`.
 * the provenance stamp names torch and CUDA, not jax;
 * each of the nine workloads returns the reference's result keys less
   the documented set that rests on XLA's compile registry (or, on the
-  CPU, on the card's allocator; or, for the replay workload, on the
-  quantized pool), plus the port's `arms`;
+  CPU, on the card's allocator; or, for the quant workload, on the
+  anatomy arm and the kernel bench), plus the port's `arms`;
 * the chaos, journal, replay and fleet workloads' never-flip booleans
   hold at a small size: surviving streams token-exact, recovered and
   migrated streams token-exact, identical-config replays byte-exact,
@@ -168,6 +168,23 @@ REF_DETAIL.update({
                "replay_streams_compared", "replay_streams_skipped",
                "replay_cut_positions", "replay_wall_s", "journal_records",
                "journal_bytes", "journal_rotations", *LEAK, *KV, *PROBE},
+    # run_quant_bench :1453-1497, the decomposition :1435-1439
+    # (kernel_bench.py:556-565), the anatomy arm :1500-1503 (:330-334)
+    "quant": {"config", "workload", "n_requests", "n_slots", "max_new_tokens",
+              "decode_block", "page_size", "kv_quant_block", "max_len",
+              "train_steps", "prompt_lens", "mean_interarrival_s", "reps",
+              "quant_requests_per_sec", "exact_requests_per_sec",
+              "quant_overhead_pct", "agreement_cuts", "rollout_agreement_rate",
+              "kv_bytes_ratio", "kv_scale_bytes", "exact_kv_pool_bytes",
+              "f32_paged_kv_pool_bytes", "quant_page_nbytes",
+              "capacity_n_slots", "capacity_page_budget",
+              "capacity_n_requests", "capacity_max_new_tokens",
+              "capacity_peak_active_slots", "capacity_kv_pool_bytes",
+              "capacity_program_temp_bytes", "capacity_requests_per_sec",
+              "capacity_preemptions", *KV, *PROBE, "gather_wall_s",
+              "dequant_wall_s", "scatter_wall_s", "gather_share_pct",
+              "dequant_share_pct", "scatter_share_pct", "attention_share_pct",
+              "anatomy_overhead_pct", "anatomy_requests_per_sec"},
     # run_fleet_bench :2950-2999 (fleet_trace_out when given)
     "fleet": {"config", "workload", "n_requests", "n_slots", "n_replicas",
               "max_new_tokens", "decode_block", "prompt_lens",
@@ -192,10 +209,9 @@ STATUS = {"status_port"}
 # reference's e2e latency histogram, which the port's metrics do not keep
 LEFT_OUT = {
     "slo": {"e2e_p95_s"},
-    # the int8-KV candidate arm waits for the quantized pool (ROADMAP A5)
-    "replay": {"replay_agreement_rate", "replay_agreement_rate_seeded",
-               "replay_agreement_rate_all", "quant_byte_exact_rate",
-               "replay_first_divergence_p50"},
+    # the program temp and the anatomy arm wait for the compile
+    # observatory (A8), the decode decomposition for the kernel bench (A5.3)
+    "quant": set(bench.QUANT_LEFT_OUT),
     "paged": {"gather_wall_s", "dequant_wall_s", "scatter_wall_s",
               "gather_share_pct", "dequant_share_pct", "scatter_share_pct",
               "attention_share_pct", "anatomy_overhead_pct",
@@ -205,7 +221,7 @@ LEFT_OUT = {
 
 # what the port adds beside `arms`: the replay workload says what it
 # left out, and lists the identical-config arms' divergences
-PORT_EXTRA = {"replay": {"notes", "replay_diverged"}}
+PORT_EXTRA = {"replay": {"replay_diverged"}, "quant": {"notes"}}
 
 
 def _cpu_keys(workload: str) -> set:
@@ -619,8 +635,12 @@ def test_durability_workloads_keys_and_invariants(tmp_path, workload):
         result = bench.run_replay_bench(**{**small, "prompt_lens": (8, 16)},
                                         train_steps=2)
         d = result["detail"]
-        assert d["replay_byte_exact"] and result["value"] == 1.0
+        assert d["replay_byte_exact"] and d["replay_byte_exact_rate_lane"] == 1.0
         assert d["identical_agreement_rate"] == 1.0 and not d["replay_diverged"]
+        # the int8 candidate: graded by its teacher-forced greedy agreement
+        assert result["value"] == d["replay_agreement_rate"]
+        assert 0.0 <= d["replay_agreement_rate"] <= 1.0
+        assert "replay_quant" in d["arms"]
         assert d["replay_streams_compared"] == 8
         assert set(d["arms"]) >= {"train", "record_lane", "record_paged",
                                   "replay_lane", "replay_paged"}
@@ -639,14 +659,33 @@ def test_durability_workloads_keys_and_invariants(tmp_path, workload):
     _detail_keys_hold(result, workload)
 
 
+def test_quant_workload_keys_bytes_and_capacity():
+    """`run_quant_bench` at a tiny size: the reference's keys less the
+    named left-out set, the quantized pool's bytes analytic (int8 codes
+    and scales at most 0.6 of the float32 pool), the capacity arm's pool
+    within the plain paged pool's bytes and holding more live streams
+    than the exact engine's slots."""
+    result = bench.run_quant_bench(**{**SMALL, "max_new": 8}, train_steps=2,
+                                   reps=1)
+    d = result["detail"]
+    assert d["kv_dtype"] == "int8" and d["kv_bytes_ratio"] <= 0.6
+    assert d["capacity_kv_pool_bytes"] <= d["f32_paged_kv_pool_bytes"]
+    assert d["capacity_peak_active_slots"] > d["n_slots"]
+    assert result["value"] == d["capacity_peak_active_slots"]
+    assert 0.0 <= d["greedy_agreement_rate"] <= 1.0
+    assert all(k in d["notes"] for k in bench.QUANT_LEFT_OUT)
+    assert {"quality_quant", "quality_cuts", "capacity"} <= set(d["arms"])
+    _detail_keys_hold(result, "quant")
+
+
 @pytest.mark.parametrize("argv,code,item", [
     (["--speculative"], 2, "ROADMAP A5"),
-    (["--kv-quant", "int8"], 2, "ROADMAP A5"),
+    (["--kv-quant", "int8", "--paged"], 2, "pick one per run"),
     (["--spec-k", "4"], 2, "ROADMAP A5"),
     (["--spec-rounds", "2"], 2, "ROADMAP A5"),
     (["--spec-train-steps", "3"], 2, "ROADMAP A5"),
-    (["--kv-quant-block", "8"], 2, "ROADMAP A5"),
-    (["--quant-train-steps=3"], 2, "ROADMAP A5"),
+    (["--kv-quant-block", "8", "--spec-k", "2"], 2, "ROADMAP A5"),
+    (["--quant-train-steps=3", "--speculative"], 2, "ROADMAP A5"),
     (["--obs"], 2, "ROADMAP A8"),
     (["--chaos", "--fleet"], 2, "pick one per run"),
     (["--obs-hlo-dir", "d"], 2, "ROADMAP A8"),

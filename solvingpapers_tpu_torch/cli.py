@@ -16,7 +16,8 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--decode-block 8] [--bucket 32] [--sample-cap 64]
                [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
                [--kv-quant int8 [--kv-quant-block 16]
-               [--kv-exact-lanes N]]
+               [--kv-exact-lanes N]] [--speculative ngram [--spec-k 4]
+               [--spec-rounds N]]
                [--trace [--trace-out t.json]] [--slo] [--degrade]
                [--step-deadline S] [--journal j.jsonl [--journal-strict]]
                [--timeseries-interval 1.0] [--timeseries-capacity 120]
@@ -27,8 +28,10 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--pace] [--out r.json] [the engine flags of serve]
     cli serve-bench --config llama3_shakespeare [--shared-prefix |
                --sampling | --paged | --http | --slo | --chaos | --journal
-               | --replay | --fleet | --kv-quant int8] [--requests N]
-               [--slots 8] [--kv-quant-block 16] [--quant-train-steps 200]
+               | --replay | --fleet | --kv-quant int8 | --speculative]
+               [--requests N] [--slots 8] [--kv-quant-block 16]
+               [--quant-train-steps 200] [--spec-k 16] [--spec-rounds 6]
+               [--spec-train-steps 300]
                [--max-new-tokens N] [--prompt-lens 16 32 48 64]
                [--skip-sequential] [--trace [--trace-out
                t.json] [--trace-dump d.jsonl]] [--status-port 0
@@ -96,11 +99,16 @@ status endpoint up for the run (`--status-hold-s` past its end).
 export (`metrics/trace.py`); `--fleet` requires a stitched fleet export
 and prints its fleet section.
 
+`serve --speculative ngram` (and `replay`'s) decodes with n-gram
+draft-and-verify blocks (`ServeConfig.speculative`, serve/spec.py);
+`serve-bench --speculative` runs the speculative workload
+(`run_spec_bench`: spec-off against spec-on on a briefly trained model,
+greedy streams checked token-exact, and an adversarial arm).
+
 Not ported, refused with their ROADMAP items: `kernel-bench` (A5.3),
-`sample --speculative` (A6.2), the flags of speculative decoding (A5.2:
-of `serve`, `serve-bench` and `replay`), and the compile observatory's
-(A8); image, KD and Gemma configs (A6) and
-pipeline ones (A7) are not registered.
+`sample --speculative` and `--speculative mtp` (the MTP drafter, A6.2),
+and the compile observatory's flags (A8); image, KD and Gemma configs
+(A6) and pipeline ones (A7) are not registered.
 """
 
 from __future__ import annotations
@@ -346,6 +354,8 @@ def _serve_config(args, model):
         paged=args.paged, kv_quant=args.kv_quant,
         kv_quant_block=args.kv_quant_block,
         kv_exact_lanes=args.kv_exact_lanes,
+        speculative=args.speculative, spec_k=args.spec_k,
+        spec_rounds=args.spec_rounds,
         api_port=args.port, api_host=args.host,
         api_max_connections=args.max_connections,
         json_mode=not args.no_json_mode,
@@ -359,12 +369,15 @@ def _serve_config(args, model):
         timeseries_capacity=args.timeseries_capacity)
 
 
-# `serve` flags of the reference that the port refuses, with their items
-SERVE_UNPORTED = {
-    "--speculative": "A5.2 (speculative decoding)",
-    "--spec-k": "A5.2 (speculative decoding)",
-    "--spec-rounds": "A5.2 (speculative decoding)",
-}
+def _check_drafter(args) -> None:
+    """Refuse, before any model is built, a drafter the port's ServeConfig
+    refuses ("mtp": ROADMAP A6.2)."""
+    from solvingpapers_tpu_torch.serve import ServeConfig
+
+    try:
+        ServeConfig(speculative=args.speculative)
+    except ValueError as e:
+        raise Refused(str(e)) from None
 
 
 def cmd_serve(args) -> int:
@@ -379,6 +392,7 @@ def cmd_serve(args) -> int:
 
     from solvingpapers_tpu_torch.serve import ApiServer, ServeEngine
 
+    _check_drafter(args)
     device = _device(args)
     built = _serve_model(args, device)
     if isinstance(built, int):
@@ -468,6 +482,7 @@ def cmd_replay(args) -> int:
     from solvingpapers_tpu_torch.serve.journal import JournalError
     from solvingpapers_tpu_torch.serve.replay import ReplayHarness, apply_overrides
 
+    _check_drafter(args)
     device = _device(args)
     built = _serve_model(args, device)
     if isinstance(built, int):
@@ -480,7 +495,9 @@ def cmd_replay(args) -> int:
         bucket=min(args.bucket, max_len), sample_cap=args.sample_cap,
         paged=args.paged, kv_quant=args.kv_quant,
         kv_quant_block=args.kv_quant_block,
-        kv_exact_lanes=args.kv_exact_lanes, max_waiting=args.max_waiting)
+        kv_exact_lanes=args.kv_exact_lanes, speculative=args.speculative,
+        spec_k=args.spec_k, spec_rounds=args.spec_rounds,
+        max_waiting=args.max_waiting)
     overrides = {}
     for kv in args.config_overrides or []:
         if "=" not in kv:
@@ -543,20 +560,8 @@ def cmd_replay(args) -> int:
 # `serve-bench` flags of the reference that the port refuses, with their
 # items
 BENCH_UNPORTED = {
-    "--speculative": "A5.2 (speculative decoding)",
-    "--spec-k": "A5.2 (speculative decoding)",
-    "--spec-rounds": "A5.2 (speculative decoding)",
-    "--spec-train-steps": "A5.2 (speculative decoding)",
     "--obs": "A8 (the compile and memory observatory)",
     "--obs-hlo-dir": "A8 (the compile and memory observatory)",
-}
-
-# `replay` flags of the reference that the port refuses: a candidate of
-# speculative decoding cannot be built yet
-REPLAY_UNPORTED = {
-    "--speculative": "A5.2 (speculative decoding)",
-    "--spec-k": "A5.2 (speculative decoding)",
-    "--spec-rounds": "A5.2 (speculative decoding)",
 }
 
 
@@ -580,8 +585,9 @@ def cmd_serve_bench(args) -> int:
     all-greedy, with --paged the paged KV pool against the lane pool
     (throughput, equal-bytes capacity, page-sharing prefix TTFT), with
     --http SSE clients through the front door against direct submit, with
-    --kv-quant int8 KV storage against exact; prints the result as one
-    JSON line and writes it to --out when given."""
+    --kv-quant int8 KV storage against exact, with --speculative n-gram
+    speculative decoding against plain; prints the result as one JSON
+    line and writes it to --out when given."""
     if args.checkpoint_dir or args.data_path:
         print("serve-bench benchmarks scheduling throughput on random-init "
               "params; --checkpoint-dir/--data-path are not consumed",
@@ -589,10 +595,10 @@ def cmd_serve_bench(args) -> int:
         return 2
     if sum((args.shared_prefix, args.sampling, args.paged, args.http,
             args.slo, args.chaos, args.journal, args.fleet, args.replay,
-            args.kv_quant is not None)) > 1:
+            args.kv_quant is not None, args.speculative)) > 1:
         print("--shared-prefix, --sampling, --paged, --http, --slo, --chaos, "
-              "--journal, --fleet, --replay and --kv-quant are separate "
-              "workloads; pick one per run", file=sys.stderr)
+              "--journal, --fleet, --replay, --kv-quant and --speculative "
+              "are separate workloads; pick one per run", file=sys.stderr)
         return 2
     from solvingpapers_tpu_torch.serve.bench import (
         bench_provenance,
@@ -607,6 +613,7 @@ def cmd_serve_bench(args) -> int:
         run_sampling_bench,
         run_serve_bench,
         run_slo_bench,
+        run_spec_bench,
     )
 
     device = _device(args)
@@ -632,6 +639,9 @@ def cmd_serve_bench(args) -> int:
                   max_new=max_new, decode_block=decode_block,
                   mean_interarrival_s=mean_ia, seed=args.seed, device=device)
     prompt_lens = args.prompt_lens
+    if prompt_lens is None and args.speculative:
+        # streams long enough for drafts to find history, as the reference
+        prompt_lens = [24, 32, 40, 48]
     if prompt_lens is None:
         # the default cycle, cut to the lengths that fit the model's
         # position budget with the new tokens (a small config's)
@@ -662,6 +672,12 @@ def cmd_serve_bench(args) -> int:
             decode_block=args.decode_block or 8,
             train_steps=args.replay_train_steps, page_size=args.page_size,
             kv_quant_block=args.kv_quant_block, **replay_common)
+    elif args.speculative:
+        result = run_spec_bench(
+            prompt_lens=prompt_lens, spec_k=args.spec_k,
+            spec_rounds=args.spec_rounds, train_steps=args.spec_train_steps,
+            **reps, **{**common, "max_new": args.max_new_tokens or 160,
+                       "decode_block": args.decode_block or 8})
     elif args.kv_quant:
         result = run_quant_bench(
             prompt_lens=prompt_lens, page_size=args.page_size,
@@ -865,6 +881,21 @@ def _add_kv_quant(p, exact: bool) -> None:
                             "them)")
 
 
+def _add_speculative(p) -> None:
+    """The speculative decoding engine flags (`ServeConfig.speculative`,
+    `spec_k`, `spec_rounds`); the ServeConfig refuses "mtp" (A6.2)."""
+    p.add_argument("--speculative", default=None, choices=["ngram", "mtp"],
+                   help="speculative decoding: n-gram prompt-lookup "
+                        "self-drafting; greedy streams stay token-exact, "
+                        "stochastic distributions unchanged (mtp: not "
+                        "ported, ROADMAP A6.2)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="[--speculative] draft tokens per round")
+    p.add_argument("--spec-rounds", type=int, default=None,
+                   help="[--speculative] draft-verify rounds per decode call "
+                        "(default: decode-block)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The command line's parser (every command and its flags)."""
     parser = argparse.ArgumentParser(prog="solvingpapers_tpu_torch")
@@ -921,6 +952,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_srv.add_argument("--paged", action="store_true",
                        help="serve over the paged KV pool")
     _add_kv_quant(p_srv, exact=True)
+    _add_speculative(p_srv)
     p_srv.add_argument("--no-json-mode", action="store_true",
                        help="reject response_format json_object instead of "
                             "grammar-constraining the decode")
@@ -1096,6 +1128,21 @@ def build_parser() -> argparse.ArgumentParser:
     p_bench.add_argument("--quant-train-steps", type=int, default=200,
                          help="[--kv-quant] brief training steps before the "
                               "arms (0 = random init)")
+    p_bench.add_argument("--speculative", action="store_true",
+                         help="speculative workload instead: n-gram "
+                              "speculative decoding against plain on a "
+                              "briefly trained model, greedy streams checked "
+                              "token-exact, plus an adversarial arm at "
+                              "temperature 2.0 (run_spec_bench)")
+    p_bench.add_argument("--spec-k", type=int, default=16,
+                         help="[--speculative] draft tokens per round")
+    p_bench.add_argument("--spec-rounds", type=int, default=6,
+                         help="[--speculative] draft-verify rounds per decode "
+                              "call")
+    p_bench.add_argument("--spec-train-steps", type=int, default=300,
+                         help="[--speculative] brief training steps before "
+                              "the arms (0 = random init, the all-reject "
+                              "regime)")
     p_bench.add_argument("--fleet", action="store_true",
                          help="fleet workload instead: router_overhead_pct "
                               "(a one-replica FleetRouter against the bare "
@@ -1190,6 +1237,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_rep.add_argument("--max-waiting", type=int, default=256)
     p_rep.add_argument("--paged", action="store_true")
     _add_kv_quant(p_rep, exact=True)
+    _add_speculative(p_rep)
     p_rep.add_argument("--seed", type=int, default=0,
                        help="model-init seed: must match the recording "
                             "server's for byte-exactness without a "
@@ -1208,14 +1256,12 @@ def main(argv=None) -> int:
         print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
               f"{UNPORTED[argv[0]]})", file=sys.stderr)
         return 2
-    refused = {"serve": SERVE_UNPORTED, "serve-bench": BENCH_UNPORTED,
-               "replay": REPLAY_UNPORTED}
-    if argv and argv[0] in refused:
+    if argv and argv[0] == "serve-bench":
         for arg in argv[1:]:
             flag = arg.split("=", 1)[0]
-            if flag in refused[argv[0]]:
+            if flag in BENCH_UNPORTED:
                 print(f"{prog} {argv[0]} {flag}: not ported yet (ROADMAP "
-                      f"{refused[argv[0]][flag]})", file=sys.stderr)
+                      f"{BENCH_UNPORTED[flag]})", file=sys.stderr)
                 return 2
     parser = build_parser()
     args = parser.parse_args(argv)

@@ -83,6 +83,18 @@ def _write_rows(tensors, news, index, max_len: int) -> None:
     discarded overshoot may reach past the lane's end. The reference
     writes such a step at the clamped start; on CUDA an unclamped index
     would be a device-side assert that kills the process.
+
+    A write of S > 1 positions at per-row offsets (the speculative
+    decode's ``1 + k`` chunk) clamps each COLUMN instead: a chunk that
+    starts inside the lane keeps every position at its own slot, and
+    positions past the lane's end collapse onto its last slot. A clamped
+    start would shift the whole chunk left onto the committed KV just
+    before it (the reference pads its lane views with ``k + 1`` slack
+    slots for this; clamping the columns needs neither slack nor a
+    copy). The last slot only ever holds KV that no real token attends:
+    a stream's tokens fill positions [0, max_len), and position
+    ``max_len - 1``'s KV serves only the query that would produce a
+    token past the lane.
     """
     s = news[0].shape[1]
     if s > max_len:
@@ -96,9 +108,11 @@ def _write_rows(tensors, news, index, max_len: int) -> None:
             t[:, start:start + s] = new.to(t.dtype)
         return
     start = index.to(torch.long)
-    start = torch.where(start < 0, start + max_len, start).clamp(0, hi)  # (B,)
+    start = torch.where(start < 0, start + max_len, start)  # (B,)
     rows = torch.arange(news[0].shape[0], device=start.device)[:, None]
-    cols = start[:, None] + torch.arange(s, device=start.device)[None, :]
+    cols = torch.clamp(start.clamp(0, max_len - 1)[:, None]
+                       + torch.arange(s, device=start.device)[None, :],
+                       max=max_len - 1)
     for t, new in zip(tensors, news):
         t[rows, cols] = new.to(t.dtype)
 

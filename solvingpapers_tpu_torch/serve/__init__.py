@@ -1,5 +1,6 @@
 """Continuous-batching serving over a lane pool or a paged pool, with a
-radix prefix cache, per-request sampling, grammar-constrained JSON
+radix prefix cache, per-request sampling, n-gram speculative decoding
+(SpecController), grammar-constrained JSON
 decoding (JsonStepper), an OpenAI-compatible HTTP front door
 (ApiServer), a fleet router over engine replicas (FleetRouter) and a
 journal replay harness (ReplayHarness) (port of
@@ -17,6 +18,7 @@ from solvingpapers_tpu_torch.serve.kv_pool import (
     gather_lane,
     gather_lanes,
     scatter_lane_pages,
+    scatter_window_pages,
     scatter_written_pages,
     store_lane,
 )
@@ -30,6 +32,7 @@ from solvingpapers_tpu_torch.serve.sampling import (
     fused_sample,
 )
 from solvingpapers_tpu_torch.serve.scheduler import FIFOScheduler, Request
+from solvingpapers_tpu_torch.serve.spec import SpecController
 
 __all__ = [
     "TRASH_PAGE",
@@ -49,12 +52,14 @@ __all__ = [
     "ServeConfig",
     "ServeEngine",
     "ServeMetrics",
+    "SpecController",
     "encode_params",
     "extract_lane",
     "fused_sample",
     "gather_lane",
     "gather_lanes",
     "scatter_lane_pages",
+    "scatter_window_pages",
     "scatter_written_pages",
     "store_lane",
 ]

@@ -782,6 +782,14 @@ class ApiServer:
                        "completion_tokens": len(req.tokens),
                        "kv_quant": cfg.kv_quant,
                        "kv_exact": bool(req.params.kv_exact)}
+        if cfg.speculative is not None:
+            facts["spec"] = {
+                "drafter": cfg.speculative,
+                "proposed": req.spec_proposed,
+                "accepted": req.spec_accepted,
+                "rate": round(req.spec_accepted / req.spec_proposed, 4)
+                if req.spec_proposed else None,
+            }
         if cfg.paged:
             facts["pages_held"] = req.pages_held
             facts["page_size"] = self.engine.pool.page_size

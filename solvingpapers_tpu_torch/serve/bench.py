@@ -1,7 +1,7 @@
 """Serving benchmark on the port (port of the Poisson, shared-prefix,
-paged, sampling, HTTP, SLO, chaos, journal, replay and fleet workloads
-of `solvingpapers_tpu/serve/bench.py`, with its traced arm and status
-endpoint).
+paged, sampling, HTTP, SLO, chaos, journal, replay, speculative,
+quantized-KV and fleet workloads of `solvingpapers_tpu/serve/bench.py`,
+with its traced arm and status endpoint).
 
 Synthetic open-loop traffic: request arrivals are a Poisson process
 (exponential interarrivals, seeded), prompts are slices of the
@@ -41,6 +41,10 @@ reference's requests element for element.
   through `serve/replay.py` at the identical config on the lane and the
   paged pool (byte-exact on both), and through an int8-KV candidate,
   graded by its teacher-forced greedy agreement.
+* `run_spec_bench` — n-gram speculative decoding against plain on a
+  briefly trained model: ABBA-paired greedy throughput with every stream
+  checked token-exact, and an adversarial arm (random prompts at
+  temperature 2.0) that measures the adaptive controller's overhead.
 * `run_quant_bench` — int8 KV storage against exact on a briefly trained
   model: teacher-forced and rollout greedy agreement, the ABBA-paired
   overhead, and the slots the plain paged pool's bytes buy quantized.
@@ -1946,6 +1950,151 @@ def run_replay_bench(
 
 
 # ---------------------------------------------------------------- quant
+
+# the period (21 tokens) fits inside the shortest prompt, so every
+# stream's history holds a full cycle for the lookup from its first token
+SPEC_BENCH_TEXT = "the lazy dog sleeps. "
+
+
+def run_spec_bench(
+    config="gpt_tiny_long",
+    n_requests: int = 32,
+    n_slots: int = 8,
+    max_new: int = 160,
+    decode_block: int = 8,
+    spec_k: int = 16,
+    spec_rounds: int | None = 6,
+    prompt_lens=(24, 32, 40, 48),
+    mean_interarrival_s: float = 0.001,
+    train_steps: int = 300,
+    seed: int = 0,
+    reps: int = 2,
+    status_port: int | None = None,
+    status_hold_s: float = 0.0,
+    device=None,
+) -> dict:
+    """`cli serve-bench --speculative`: speculative against plain
+    decoding, two ABBA-paired sub-workloads on one Poisson arrival trace,
+    as the reference's:
+
+    1. GREEDY (the headline): spec-on (`speculative="ngram"`) against
+       spec-off delivered tokens/s on a predictable-continuation
+       workload: the model is briefly fit (`train_steps`) on a repeated
+       sentence (`SPEC_BENCH_TEXT`) it memorizes, so greedy continuations
+       of corpus-slice prompts reuse n-grams the drafter finds.
+       `acceptance_rate` discloses the regime. Every spec-on stream is
+       checked token-exact against its spec-off twin
+       (`greedy_token_exact`).
+    2. ADVERSARIAL: random-token prompts at temperature 2.0 (seeded):
+       continuations the drafter cannot predict, so the controller must
+       settle onto plain blocks with cheap probes;
+       `spec_adversarial_overhead_pct` is what that costs.
+
+    The reference's probe fields that read XLA's compile registry are
+    left out, as in every workload (ROADMAP A8)."""
+    model, vocab = build_serve_model(config, device)
+    arms = _Arms(model.device)
+    text = SPEC_BENCH_TEXT * (80000 // len(SPEC_BENCH_TEXT))
+    ids = np.frombuffer(text.encode("ascii", "replace"),
+                        np.uint8).astype(np.int32) % vocab
+    if train_steps > 0:
+        arms.run("train", _train_bench_model, model, config, ids, train_steps,
+                 seed=seed)
+    # prompts are slices of the training corpus, at the usual Poisson
+    # arrival offsets
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(mean_interarrival_s, size=n_requests))
+    requests = []
+    for i in range(n_requests):
+        length = prompt_lens[i % len(prompt_lens)]
+        start = int(rng.integers(0, ids.size - length))
+        requests.append((float(arrivals[i]), ids[start:start + length]))
+    max_prompt = max(len(p) for _, p in requests)
+    limit = getattr(model, "max_positions", None)
+    max_len = max_prompt + max_new
+    if limit is not None and max_len > limit:
+        raise ValueError(f"prompt + max_new = {max_len} exceeds the model's "
+                         f"max positions {limit}")
+    base = dict(n_slots=n_slots, max_len=max_len, decode_block=decode_block,
+                bucket=min(32, max_prompt), max_prefills_per_step=n_slots,
+                max_waiting=max(256, n_requests), seed=seed)
+    off_cfg = ServeConfig(**base)
+    on_cfg = ServeConfig(**base, speculative="ngram", spec_k=spec_k,
+                         spec_rounds=spec_rounds)
+    warm = _warm_trace(requests)
+    probe_fields, probe_eng = _obs_probe(model, warm, on_cfg, max_new,
+                                         arms=arms, status_port=status_port)
+    arms.run("warm_off", _engine_arm_stats, model, warm, off_cfg, max_new)
+    arms.run("warm_on", _engine_arm_stats, model, warm, on_cfg, max_new)
+
+    # ---- 1. greedy headline: delivered tokens/s, ABBA
+    runs, kvs = _paired_arm_stats(model, requests, on_cfg, off_cfg, max_new,
+                                  reps=reps, arms=arms,
+                                  names=("spec", "plain"))
+    total_tokens = n_requests * max_new
+    on_tps = total_tokens / (sum(mk for mk, _ in runs["on"]) / len(runs["on"]))
+    off_tps = total_tokens / (sum(mk for mk, _ in runs["off"]) / len(runs["off"]))
+    on_snap = runs["on"][-1][1]
+    # token-exactness across arms: both once more on the same trace,
+    # compared handle for handle (greedy: each arm is deterministic)
+    on_handles = arms.run("exact_spec", _engine_arm_stats, model, requests,
+                          on_cfg, max_new)[3]
+    off_handles = arms.run("exact_plain", _engine_arm_stats, model, requests,
+                           off_cfg, max_new)[3]
+    exact = all(a.tokens == b.tokens for a, b in zip(on_handles, off_handles))
+
+    # ---- 2. adversarial: random-token prompts at temperature 2.0
+    def hot(i: int) -> SamplingParams:
+        return SamplingParams(temperature=2.0, seed=seed * 1000 + i)
+
+    adv_requests = [(a, rng.integers(0, vocab, size=len(p)).astype(np.int32))
+                    for a, p in requests]
+    arms.run("warm_adversarial", _engine_arm_stats, model, warm, on_cfg,
+             max_new, params_for=hot)
+    aruns, _ = _paired_arm_stats(model, adv_requests, on_cfg, off_cfg,
+                                 max_new, reps=reps, params_for=hot,
+                                 arms=arms, names=("adv_spec", "adv_plain"))
+    adv_on = total_tokens / (sum(mk for mk, _ in aruns["on"]) / len(aruns["on"]))
+    adv_off = total_tokens / (sum(mk for mk, _ in aruns["off"]) / len(aruns["off"]))
+    adv_snap = aruns["on"][-1][1]
+    _release_probe(probe_eng, status_hold_s)
+    detail = {
+        "config": _config_name(config),
+        "workload": "speculative-decode",
+        "n_requests": n_requests,
+        "n_slots": n_slots,
+        "max_new_tokens": max_new,
+        "decode_block": decode_block,
+        "spec_k": spec_k,
+        "spec_rounds": spec_rounds or decode_block,
+        "train_steps": train_steps,
+        "prompt_lens": list(prompt_lens),
+        "mean_interarrival_s": mean_interarrival_s,
+        "reps": reps,
+        "spec_tokens_per_sec": round(on_tps, 1),
+        "plain_tokens_per_sec": round(off_tps, 1),
+        "spec_speedup": round(on_tps / off_tps, 2),
+        "acceptance_rate": round(on_snap.get("serve/spec_acceptance_rate", 0.0), 3),
+        "spec_tokens_per_step": round(
+            on_snap.get("serve/spec_tokens_per_step", 0.0), 1),
+        "greedy_token_exact": bool(exact),
+        "adversarial_spec_tokens_per_sec": round(adv_on, 1),
+        "adversarial_plain_tokens_per_sec": round(adv_off, 1),
+        "spec_adversarial_overhead_pct": round((1.0 - adv_on / adv_off) * 100.0, 2),
+        "adversarial_acceptance_rate": round(
+            adv_snap.get("serve/spec_acceptance_rate", 0.0), 3),
+        **kvs["on"],
+        **probe_fields,
+        "arms": arms.log,
+    }
+    return {
+        "metric": "serve_speculative_tokens_per_sec",
+        "value": detail["spec_tokens_per_sec"],
+        "unit": "tok/s (greedy Poisson, briefly-trained model)",
+        "vs_baseline": detail["spec_speedup"],
+        "detail": detail,
+    }
+
 
 # the quant workload's reference fields the port leaves out, with the
 # ROADMAP items that bring them

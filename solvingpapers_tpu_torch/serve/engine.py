@@ -100,9 +100,20 @@ byte-identical to the unquantized engine. Every quantized branch is taken
 only when the pool holds a `QuantStore`: the unquantized paths are the
 same code as without the knob.
 
-Not in this slice (kept by the reference, listed in ROADMAP.md):
-speculative decoding (A5.2; the MTP drafter, A6.2) and the compile
-observatory (A8).
+Speculative decoding (`ServeConfig.speculative`, serve/spec.py): the
+decode step becomes `spec_rounds` draft-verify rounds, each one forward
+over a ``1 + spec_k`` chunk a slot (the cached-decode attention with its
+per-query ``kv_index <= position`` mask), the n-gram drafter's history
+riding the step's one control transfer. Greedy streams stay
+token-identical to spec-off serving; the lane pool's rounds write in
+place (a chunk at the lane's end clamps per column, `infer.cache`), the
+paged pool scatters back only each slot's device-committed window, and
+the quantized pools requantize it with the rejected tail kept at its
+old codes. A host-side controller drops the engine to the plain block
+while drafts keep rejecting.
+
+Not in this slice (kept by the reference, listed in ROADMAP.md): the MTP
+drafter (A6.2) and the compile observatory (A8).
 """
 
 from __future__ import annotations
@@ -144,11 +155,13 @@ from solvingpapers_tpu_torch.serve.kv_pool import (
     quant_lanes_view,
     quant_pool_bytes,
     quant_scatter_lane_pages,
+    quant_scatter_window_pages,
     quant_scatter_written_pages,
     quant_store_exact_lanes,
     quant_store_lane,
     quant_store_written,
     scatter_lane_pages,
+    scatter_window_pages,
     scatter_written_pages,
     scrub_lane,
     scrub_pages,
@@ -160,9 +173,10 @@ from solvingpapers_tpu_torch.serve.sampling import (
     GREEDY_ROW,
     PackedSampling,
     SamplingParams,
+    draw_keys,
     encode_params,
     fused_sample,
-    request_generator,
+    request_seed,
 )
 from solvingpapers_tpu_torch.serve.scheduler import (
     ACTIVE,
@@ -173,6 +187,12 @@ from solvingpapers_tpu_torch.serve.scheduler import (
     Request,
 )
 from solvingpapers_tpu_torch.serve.slo import SloTracker
+from solvingpapers_tpu_torch.serve.spec import (
+    DRAFTERS,
+    SpecController,
+    ngram_drafts,
+    spec_verify,
+)
 
 
 def weak_method(method, dead=None):
@@ -193,7 +213,7 @@ def weak_method(method, dead=None):
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine shape/policy knobs (the reference's, without its
-    speculative and compile-observatory knobs).
+    compile-observatory knobs).
 
     `decode_block` amortizes host work: each decode call advances all
     slots `block` tokens before the host looks at the streams again.
@@ -227,6 +247,23 @@ class ServeConfig:
     unquantized engine, in the same decode blocks as quantized traffic,
     bypass the prefix cache and hold no pages; 0 books none, and then a
     kv_exact submission is refused.
+
+    Speculative decoding (serve/spec.py): `speculative` None is off;
+    "ngram" turns each decode step into `spec_rounds` (None =
+    `decode_block`) draft-verify rounds: the prompt-lookup drafter
+    proposes up to `spec_k` tokens a slot from its own history (tail
+    n-grams up to `spec_ngram` long), one forward verifies the whole ``1
+    + spec_k`` window, and each round commits 1 to ``spec_k + 1`` tokens
+    a slot. Greedy streams stay token-identical to spec-off serving;
+    stochastic ones keep their distribution, and a seeded stream its
+    tokens. Grammar-constrained slots draft nothing and keep one token a
+    step. `spec_min_rate` (accepted drafts a round; None = ``max(1,
+    spec_k / 4)``) and `spec_probe_every` configure the adaptive
+    controller (`SpecController`), which drops the engine to plain
+    blocks while acceptance stays below the rate, probing again after a
+    backoff. "mtp" (the DeepSeek-V3 multi-token-prediction heads) is
+    ROADMAP A6.2 and refused when the config is made, so every entry
+    point (`cli serve` and `replay`, replay's overrides) refuses it.
 
     Prefix cache: `prefix_cache` reuses cached page-aligned prompt
     prefixes of `prefix_page` tokens; `prefix_cache_bytes` caps what the
@@ -311,9 +348,9 @@ class ServeConfig:
     below `degrade_free_page_frac` of the budget) or SLO burn (a class's
     burn rate above `degrade_burn_threshold`) the engine climbs a rung
     every `degrade_up_steps` pressured steps and steps down after
-    `degrade_down_steps` clear ones: shed prefix-cache leaves, (hold
-    speculation: a no-op until the port decodes speculatively), shed
-    batch admissions, then standard ones. The reference's third pressure
+    `degrade_down_steps` clear ones: shed prefix-cache leaves, hold
+    speculation (the controller's `hold`), shed batch admissions, then
+    standard ones. The reference's third pressure
     reason, `hbm` (the projected peak against `degrade_headroom_frac` of
     the device), reads its XLA memory ledger, which exists only under
     `xla_obs`; the port has no such ledger until ROADMAP A8, so its
@@ -340,6 +377,12 @@ class ServeConfig:
     kv_quant: str | None = None
     kv_quant_block: int = 16
     kv_exact_lanes: int = 0
+    speculative: str | None = None
+    spec_k: int = 4
+    spec_rounds: int | None = None
+    spec_ngram: int = 3
+    spec_min_rate: float | None = None
+    spec_probe_every: int = 8
     prefix_cache: bool = False
     prefix_page: int = 16
     prefix_cache_bytes: int = 64 << 20
@@ -386,6 +429,19 @@ class ServeConfig:
     # the status endpoint (metrics/http.py)
     status_port: int | None = None
     status_host: str = "127.0.0.1"
+
+    def __post_init__(self):
+        if self.speculative is None:
+            return
+        if self.speculative not in DRAFTERS:
+            raise ValueError(
+                f"speculative must be one of {DRAFTERS} (or None), "
+                f"got {self.speculative!r}")
+        if self.speculative == "mtp":
+            raise ValueError(
+                "speculative='mtp' drafts with DeepSeek-V3's "
+                "multi-token-prediction heads, which the port does not "
+                "have yet (ROADMAP A6.2): use speculative='ngram'")
 
 
 _UNSET = object()
@@ -446,7 +502,7 @@ def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
 
 
 def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
-                     length, packed, generator, allow=None, need_lp=False,
+                     length, packed, key, allow=None, need_lp=False,
                      fault=None, eidx=0):
     """Prefill one request into lane `slot` and sample its first token
     (sample index 0 of its chain); returns the caches, the (2,) head
@@ -471,7 +527,7 @@ def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
             else extract_lane(caches, slot))
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
-    head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
+    head, lp = _sample_first(last, cap, packed, key, allow, need_lp,
                              fault)
     if quant:
         caches = quant_store_lane(caches, lane, slot, eidx, start,
@@ -481,21 +537,21 @@ def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
     return caches, head, lp
 
 
-def _sample_first(last, cap, packed, generator, allow, need_lp, fault):
+def _sample_first(last, cap, packed, key, allow, need_lp, fault):
     """The prefill's first draw from the last real token's logits, with
     the fault poison applied first and the finite guard read beside the
     token: ((2,) [token, ok], logprob or None)."""
     if fault is not None:
         last = _inject_fault(last, fault)
     ok, last = _finite_ok(last)
-    first, lp = fused_sample(last[None], packed, [generator], cap=cap,
+    first, lp = fused_sample(last[None], packed, key, cap=cap,
                              allow=allow, need_lp=need_lp)
     return (torch.stack([first[0], ok.to(first.dtype)]),
             None if lp is None else lp[0])
 
 
 def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
-                           row, length, packed, generator, allow=None,
+                           row, length, packed, key, allow=None,
                            need_lp=False, fault=None, eidx=0):
     """Paged-pool prefill: `_prefill_program`'s contract over a lane
     GATHERED from the slot's page-table `row`, with only the pages the
@@ -514,7 +570,7 @@ def _paged_prefill_program(model, padded, chunk, start, cap, phys, prompt,
             else gather_lane(phys, row))
     lane, last = _prefill_lane(model, padded, chunk, start, lane, prompt,
                                length)
-    head, lp = _sample_first(last, cap, packed, generator, allow, need_lp,
+    head, lp = _sample_first(last, cap, packed, key, allow, need_lp,
                              fault)
     if quant:
         page = phys.q[0].max_len
@@ -533,14 +589,15 @@ def pooled_decode_kwargs(model) -> dict:
 
 
 def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
-                    generators, allow=None, need_lp=False, fault=None,
+                    keys, allow=None, need_lp=False, fault=None,
                     eidx=None):
     """Advance every slot `block` tokens; inactive slots run masked.
 
     toks/pos/eos are (S,) int64 and active (S,) bool device tensors;
-    `generators(t)` gives step t's per-slot generators (None for greedy
-    slots); `allow` is the (S, cap) grammar allow-lists (all -1 =
-    unconstrained; None = no constrained slot), the same at every step
+    `keys` is the (block, S) int64 draw keys of every step (greedy slots'
+    ignored; None when no slot is stochastic); `allow` is the (S, cap)
+    grammar allow-lists (all -1 = unconstrained; None = no constrained
+    slot), the same at every step
     (a constrained slot keeps only the block's first token). EOS padding
     is sticky: a slot whose previous token was its EOS emits EOS again,
     as `generate` pads. `fault` is the fault plane's (S,) poison row, or
@@ -561,7 +618,7 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
     if isinstance(caches, QuantStore):
         lanes, out, lps = _decode_program(
             model, block, cap, quant_lanes_view(caches, eidx), toks, pos,
-            active, eos, packed, generators, allow, need_lp, fault)
+            active, eos, packed, keys, allow, need_lp, fault)
         return quant_store_written(caches, lanes, pos, block, eidx), out, lps
     out, lps = [], []
     ok = torch.ones_like(active)
@@ -574,7 +631,8 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
             logits = _inject_fault(logits, fault)
         step_ok, logits = _finite_ok(logits)
         ok = ok & step_ok
-        nxt, lp = fused_sample(logits, packed, generators(t), cap=cap,
+        nxt, lp = fused_sample(logits, packed, None if keys is None else keys[t],
+                               cap=cap,
                                allow=allow, need_lp=need_lp)
         hit_eos = (eos >= 0) & (toks == eos)
         nxt = torch.where(hit_eos, eos, nxt)
@@ -588,7 +646,7 @@ def _decode_program(model, block, cap, caches, toks, pos, active, eos, packed,
 
 
 def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
-                          eos, packed, generators, allow=None, need_lp=False,
+                          eos, packed, keys, allow=None, need_lp=False,
                           fault=None, eidx=None):
     """Paged-pool decode block: `_decode_program` over the lanes gathered
     once from the (S, pages_per_lane) page `table`, then only each slot's
@@ -609,7 +667,7 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
     lanes = (quant_gather_lanes(phys, table, eidx) if quant
              else gather_lanes(phys, table))
     lanes, out, lps = _decode_program(model, block, cap, lanes, toks, pos,
-                                      active, eos, packed, generators, allow,
+                                      active, eos, packed, keys, allow,
                                       need_lp, fault)
     page = (phys.q if quant else phys)[0].max_len
     limit = table.shape[1] * page - 1
@@ -623,6 +681,133 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
     if quant:
         phys = quant_store_exact_lanes(phys, lanes, eidx)
     return phys, out, lps
+
+
+def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
+                 active, spec_ok, hist, hlen, packed, keys, allow=None,
+                 need_lp=False, fault=None):
+    """The draft-verify rounds both speculative programs share, so the
+    commit semantics cannot drift between pools (the reference's
+    `_spec_rounds_scan`, its scan a Python loop over batched tensors).
+
+    Each round: `ngram_drafts` proposes up to `k` tokens per slot from
+    the (S, H) history `hist` (`hlen` live), slots with a zero gate
+    (`spec_ok`: grammar-constrained and idle slots) propose none; ONE
+    forward over the (S, 1 + k) chunk at positions ``min(p + [0, k],
+    max_len - 1)`` (the cached-decode branch: per-query ``kv_index <=
+    position`` masking makes the chunk causal, and the KV written for
+    rejected drafts is overwritten by the next round's chunk before
+    anything attends it); the fault row and the finite guard; then
+    `spec_verify`, with each slot's draw keys (`keys`, (S, rounds x (k +
+    1)) from the call's first sample index, or None with no stochastic
+    slot) gathered at its running commit count. `commits` are zeroed on
+    inactive slots; tokens, positions, history and the count advance by
+    the committed number. A slot's position freezes at ``max_len - 1`` once its stream overshoots
+    the lane (the host has finished such a stream already).
+
+    Returns ``(lanes, out (rounds, S, k+1), commits (rounds, S), proposed
+    (rounds, S), logprobs (rounds, S, k+1) or None, finite (S,))``: the
+    host keeps ``out[r, s, :commits[r, s]]`` round by round."""
+    dev = toks.device
+    s_n = toks.shape[0]
+    ar = torch.arange(k + 1, device=dev)
+    rows = torch.arange(s_n, device=dev)[:, None]
+    kw = pooled_decode_kwargs(model)
+    cnt = torch.zeros_like(pos)
+    ok = torch.ones_like(active)
+    outs, commits_r, proposed, lps = [], [], [], []
+    for _ in range(rounds):
+        ds, avail = ngram_drafts(hist, hlen, k=k, nmax=nmax)
+        avail = torch.where(spec_ok & active, avail, torch.zeros_like(avail))
+        chunk = torch.cat([toks[:, None], ds], dim=1)
+        poss = torch.clamp(pos[:, None] + ar, max=max_len - 1)
+        logits, lanes = model(chunk, positions=poss, caches=lanes, **kw)
+        if fault is not None:
+            logits = _inject_fault(logits, fault[:, None])
+        step_ok, logits = _finite_ok(logits)
+        ok = ok & step_ok.all(dim=1)
+        kr = None if keys is None else keys[rows, cnt[:, None] + ar]
+        out, commits, lp = spec_verify(logits, ds, avail, packed, kr, cap=cap,
+                                       allow=allow, need_lp=need_lp)
+        commits = torch.where(active, commits, torch.zeros_like(commits))
+        nxt = torch.gather(out, 1, torch.clamp(commits - 1, min=0)[:, None])[:, 0]
+        toks = torch.where(active, nxt, toks)
+        hist[rows, hlen[:, None] + ar] = out
+        hlen = torch.clamp(hlen + commits, max=max_len)
+        pos = torch.clamp(pos + commits, max=max_len - 1)
+        cnt = cnt + commits
+        outs.append(out)
+        commits_r.append(commits)
+        proposed.append(avail)
+        lps.append(lp)
+    return (lanes, torch.stack(outs), torch.stack(commits_r),
+            torch.stack(proposed), torch.stack(lps) if need_lp else None, ok)
+
+
+def _spec_decode_program(model, k, rounds, cap, max_len, nmax, caches, toks,
+                         pos, active, spec_ok, hist, hlen, packed, keys,
+                         allow=None, need_lp=False, fault=None, eidx=None):
+    """Lane-pool speculative decode block: `rounds` n-gram draft-verify
+    rounds (`_spec_rounds`) on the pool's lanes, in place. Returns the
+    caches and `_spec_rounds`' outputs less its lanes.
+
+    Quantized pools: the rounds run on the dequantized view (kv_exact
+    slots on their exact lanes) and the store requantizes each slot's
+    written window bounded by the DEVICE-committed count
+    (``hi = pos0 + max(total, 1)``): draft positions past it hold
+    rejected draws, whose outliers would coarsen the whole block's scale
+    for the committed tokens sharing it, so they keep their old codes
+    (`tail_garbage`)."""
+    quant = isinstance(caches, QuantStore)
+    lanes = quant_lanes_view(caches, eidx) if quant else caches
+    lanes, out, commits, proposed, lps, ok = _spec_rounds(
+        model, k, rounds, cap, max_len, nmax, lanes, toks, pos, active,
+        spec_ok, hist, hlen, packed, keys, allow, need_lp, fault)
+    if quant:
+        total = commits.sum(dim=0)
+        caches = quant_store_written(caches, lanes, pos, rounds * (k + 1),
+                                     eidx, hi=pos + torch.clamp(total, min=1),
+                                     tail_garbage=True)
+    else:
+        caches = lanes
+    return caches, out, commits, proposed, lps, ok
+
+
+def _paged_spec_decode_program(model, k, rounds, cap, max_len, nmax, phys,
+                               table, toks, pos, active, spec_ok, hist, hlen,
+                               packed, keys, allow=None, need_lp=False,
+                               fault=None, eidx=None):
+    """Paged-pool speculative decode block: `_spec_decode_program`'s
+    rounds on the lanes gathered once from the page `table`, then only
+    each slot's DEVICE-committed window [pos0, last] goes back
+    (`scatter_window_pages`): rejected-draft garbage past it never
+    reaches the physical pool, so shared prefix pages stay immutable.
+    The window is bounded by the device's commit count, which can exceed
+    what the host keeps (a grammar slot keeps round 0 only; EOS and stop
+    strings truncate): those tail positions hold stale-draw KV that is
+    sound only because it lies past the slot's attend window and is
+    rewritten before it is ever attended, so no page past a slot's
+    host-accepted length is shared or snapshot.
+
+    Quantized pools: the gather dequantizes, the window's pages
+    requantize with the rejected tail kept at its old codes
+    (`quant_scatter_window_pages`), and the kv_exact slots' lanes go back
+    to their exact lanes."""
+    quant = isinstance(phys, QuantStore)
+    lanes = (quant_gather_lanes(phys, table, eidx) if quant
+             else gather_lanes(phys, table))
+    lanes, out, commits, proposed, lps, ok = _spec_rounds(
+        model, k, rounds, cap, max_len, nmax, lanes, toks, pos, active,
+        spec_ok, hist, hlen, packed, keys, allow, need_lp, fault)
+    total = commits.sum(dim=0)
+    last = torch.clamp(pos + torch.clamp(total, min=1) - 1, max=max_len - 1)
+    span = rounds * (k + 1)
+    if quant:
+        phys = quant_scatter_window_pages(phys, lanes, table, pos, last, span)
+        phys = quant_store_exact_lanes(phys, lanes, eidx)
+    else:
+        phys = scatter_window_pages(phys, lanes, table, pos, last, span)
+    return phys, out, commits, proposed, lps, ok
 
 
 class ServeEngine:
@@ -758,6 +943,38 @@ class ServeEngine:
             # present iff the pool is quantized, as the paged gauges are
             self.metrics.add_gauge_provider(weak_method(self._kv_quant_gauges, {}))
         self.prefix_cache = self._make_prefix_cache()
+        # speculative decoding (serve/spec.py): draft-verify rounds in the
+        # decode step, with the host-side controller that falls back to
+        # the plain block while drafts keep rejecting
+        self._spec = cfg.speculative
+        self._spec_ctl = None
+        if cfg.speculative is None:
+            if cfg.spec_rounds is not None:
+                raise ValueError(
+                    "spec_rounds configures the speculative decode block "
+                    "and needs speculative set: without a drafter it "
+                    "would silently do nothing")
+        else:
+            if cfg.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {cfg.spec_k}")
+            if cfg.spec_rounds is not None and cfg.spec_rounds < 1:
+                raise ValueError(
+                    f"spec_rounds must be >= 1, got {cfg.spec_rounds}")
+            if cfg.spec_ngram < 1:
+                raise ValueError(
+                    f"spec_ngram must be >= 1, got {cfg.spec_ngram}")
+            self._spec_k = cfg.spec_k
+            self._spec_rounds = cfg.spec_rounds or cfg.decode_block
+            min_rate = cfg.spec_min_rate
+            if min_rate is None:
+                min_rate = max(1.0, self._spec_k / 4)
+            self._spec_ctl = SpecController(min_rate=min_rate,
+                                            probe_every=cfg.spec_probe_every)
+            self.metrics.add_gauge_provider(weak_method(self._spec_gauges, {}))
+        # the scheduler's anti-starvation clock in delivered-token block
+        # equivalents: a speculative step can deliver many blocks' worth
+        # (see FIFOScheduler.tick); plain steps leave it at 1
+        self._tick_weight = 1.0
         # SLO accounting: host-side, on the finish path; its gauges ride
         # the snapshot iff slo_targets is configured
         self._slo = None
@@ -1161,8 +1378,8 @@ class ServeEngine:
         shape and queue, every slot's request and position, the metrics
         snapshot, the health state machine, and (present iff enabled) the
         journal, the page pool, the quantized pool's bytes and exact
-        lanes, the SLO classes, the prefix cache and the time series'
-        sparklines."""
+        lanes, speculation, the SLO classes, the prefix cache and the time
+        series' sparklines."""
         pool = self.pool
         d = {
             "engine": {
@@ -1227,6 +1444,22 @@ class ServeEngine:
                 "exact_lanes": pool.exact_lanes,
                 "exact_lanes_free": len(self._exact_free),
                 "exact_slots": [i for i, e in enumerate(self._eidx) if e],
+            }
+        if self._spec is not None:
+            d["spec"] = {
+                "drafter": self._spec,
+                "k": self._spec_k,
+                "rounds": self._spec_rounds,
+                "steps": m.spec_steps,
+                "drafts_proposed": m.spec_proposed,
+                "drafts_accepted": m.spec_accepted,
+                "acceptance_rate": round(
+                    m.spec_accepted / m.spec_proposed, 4
+                ) if m.spec_proposed else 0.0,
+                "tokens_per_step": round(
+                    m.spec_tokens / m.spec_steps, 2
+                ) if m.spec_steps else 0.0,
+                **self._spec_ctl.stats(),
             }
         if self._slo is not None:
             d["slo"] = self._slo.statusz()
@@ -1370,7 +1603,8 @@ class ServeEngine:
         decode_slots = self.pool.n_active
         if decode_slots > 0:
             finished.extend(self._decode_block())
-        self.scheduler.tick()
+        self.scheduler.tick(self._tick_weight)
+        self._tick_weight = 1.0
         self.metrics.record_step(self.pool.occupancy)
         # only steps that did work are traced and monitored: idle polls
         # would spam the ring and collapse the monitor's rolling median
@@ -1699,7 +1933,9 @@ class ServeEngine:
         signals (pages, SLO burn; no `hbm` reason until the port has a
         memory ledger), move at most one rung, and apply the rung's
         effects: from rung 1 shed up to 4 prefix-cache leaves a step;
-        rungs 3 and 4 shed admissions in `submit`."""
+        from rung 2 hold speculation (plain blocks, the controller's
+        adaptive state untouched); rungs 3 and 4 shed admissions in
+        `submit`."""
         cfg = self.config
         reasons = []
         if self._paged and (self.pool.pages_free
@@ -1724,6 +1960,8 @@ class ServeEngine:
                 shed += 1
             if shed:
                 self.metrics.record_prefix_state(pc.bytes_held, pc.evictions)
+        if self._ladder.rung >= 2 and self._spec_ctl is not None:
+            self._spec_ctl.hold(2)
 
     def _slo_gauges(self) -> dict[str, float]:
         return self._slo.gauges(self.metrics.elapsed_s)
@@ -2076,7 +2314,8 @@ class ServeEngine:
         # here; nan / inf poison this prefill's logits through its code)
         pf_fault = self._poke_site("prefill")
         # one transfer carries the suffix ids, paged the table row, a
-        # constrained request's allow-list and, while a fault plan is
+        # constrained request's allow-list, a stochastic request's draw
+        # key (sample index 0 of its chain) and, while a fault plan is
         # armed, the poison code (last)
         parts = [np.zeros(padded, np.int64)]
         parts[0][:suffix] = seq[matched:]
@@ -2084,6 +2323,11 @@ class ServeEngine:
             parts.append(self.pool.table[slot])
         if constrained:
             parts.append(self._allow[slot])
+        stochastic = not req.params.greedy
+        if stochastic:
+            parts.append(np.asarray([request_seed(
+                self.config.seed, self._rng_step, slot, seed, 0)], np.int64))
+        self._rng_step += 1
         armed = self._faults is not None
         if armed:
             parts.append(np.asarray([pf_fault], np.int64))
@@ -2091,12 +2335,10 @@ class ServeEngine:
         table_end = padded + (self.pool.pages_per_lane if self._paged else 0)
         allow_end = table_end + (self.config.sample_cap if constrained else 0)
         allow = ids[None, table_end:allow_end] if constrained else None
+        key = ids[allow_end:allow_end + 1] if stochastic else None
         fault = ids[-1] if armed else None
-        generator = (None if req.params.greedy else request_generator(
-            self.config.seed, self._rng_step, slot, seed, 0, self.device))
-        self._rng_step += 1
         args = (self.model, padded, chunk, matched, self.config.sample_cap)
-        sample = (self._packed([slot]), generator, allow, req.params.logprobs,
+        sample = (self._packed([slot]), key, allow, req.params.logprobs,
                   fault)
         t_pf = smetrics.now() if tr is not None else 0.0
         with scope(self.profile, "serve/prefill"):
@@ -2243,7 +2485,228 @@ class ServeEngine:
         if req.deadline is not None:
             self._waiting_deadlines += 1
 
+    def _spec_gauges(self) -> dict[str, float]:
+        """Speculation gauges riding every metrics snapshot (registered
+        iff `speculative`)."""
+        m = self.metrics
+        rate = (m.spec_accepted / m.spec_proposed) if m.spec_proposed else 0.0
+        per_step = (m.spec_tokens / m.spec_steps) if m.spec_steps else 0.0
+        return {
+            "serve/spec_acceptance_rate": rate,
+            "serve/spec_tokens_per_step": per_step,
+            "serve/spec_drafts_rejected": float(m.spec_proposed
+                                                - m.spec_accepted),
+        }
+
+    def _spec_block(self, probe: bool = False) -> list[Request]:
+        """One speculative decode step: `spec_rounds` draft-verify rounds
+        in one program call, committing a variable number of tokens a
+        slot. The host walk mirrors `_decode_block`'s, token by token
+        (append, grammar advance, logprobs, stop checks), so EOS, budget,
+        stop strings, cancel and timeout behave as in the plain block;
+        only the token source changed. Grammar-constrained slots keep ONE
+        token a step (their allow-list is stale after one draw): they
+        ride the same call draft-free and the host takes round 0's first
+        commit. `probe` runs the controller's short measurement block
+        (two rounds) instead of the full one.
+
+        One transfer carries the control rows, the stochastic slots' draw
+        keys for every sample index the call can commit (`draw_keys`; the
+        rounds gather them by their device-side commit counts, so no
+        round reads back) and every slot's history (the drafter's corpus);
+        one host read takes the tokens, commit counts, draft counts and
+        finite flags together (logprobs a second, only when a slot asked
+        for them)."""
+        cfg = self.config
+        k = self._spec_k
+        rounds = min(2, self._spec_rounds) if probe else self._spec_rounds
+        span = rounds * (k + 1)
+        n, cap = cfg.n_slots, cfg.sample_cap
+        if self._paged:
+            # cover the worst-case committed window (every round sweeps);
+            # reclaim preempts youngest first under pressure, as usual
+            self._cover_decode(min(span, cfg.max_len))
+            if self.pool.n_active == 0:
+                return []
+        # the fault plane's decode site: the speculative block IS the
+        # decode dispatch
+        self._poke_site("decode")
+        armed = self._faults is not None
+        # the history is padded by k + 1 so a round's window write at
+        # hlen <= max_len always fits
+        width = cfg.max_len + k + 1
+        samp0 = np.zeros(n, np.int64)
+        stochastic = np.zeros(n, bool)
+        constrained = False
+        pages = self.pool.pages_per_lane if self._paged else 0
+        for slot, r in enumerate(self._slot_req):
+            if r is not None:
+                samp0[slot] = len(r.tokens)
+                stochastic[slot] = not r.params.greedy
+                constrained = constrained or r.grammar is not None
+        # rows: toks, pos, active, spec gate, hist length, then (paged) the
+        # page tables, (constrained) the allow-lists, (stochastic) the
+        # draw keys, (armed) the fault row, then the history, one column a
+        # slot
+        lists = 5 + pages + (cap if constrained else 0)
+        rows = lists + (span if stochastic.any() else 0)
+        state = np.zeros((rows + armed + width, n), np.int64)
+        state[0] = self._toks
+        state[1] = self._pos
+        for slot, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            state[2, slot] = 1
+            if r.grammar is not None:
+                # constrained slots never draft (gate 0) and refresh their
+                # allow-list as the plain block does
+                self._allow[slot] = self._grammar_allow(r)
+            else:
+                state[3, slot] = 1
+            seq = np.concatenate([r.prompt, np.asarray(r.tokens, np.int64)])
+            m = min(int(seq.size), cfg.max_len)
+            state[rows + armed:rows + armed + m, slot] = seq[:m]
+            state[4, slot] = m
+        if self._paged:
+            state[5:5 + pages] = self.pool.table.T
+        if constrained:
+            state[5 + pages:lists] = self._allow.T
+        if stochastic.any():
+            state[lists:rows] = draw_keys(cfg.seed, self._rng_step, self._seed,
+                                          samp0, stochastic, span)
+        if armed:
+            state[rows] = self._fault_row
+            self._fault_row[:] = 0  # one-shot: this dispatch only
+        need_lp = bool(self._need_lp.any())
+        self._rng_step += 1
+        dev = self.device
+        t0 = smetrics.now()
+        state = torch.as_tensor(state, device=dev)
+        hist = state[rows + armed:].T.contiguous()
+        ctl = (state[0], state[1], state[2].bool(), state[3].bool(), hist,
+               state[4], self._packed(slice(None)),
+               state[lists:rows].T if stochastic.any() else None,
+               state[5 + pages:lists].T if constrained else None, need_lp,
+               state[rows] if armed else None)
+        eidx = self._eidx if self._quant else None
+        statics = (self.model, k, rounds, cap, cfg.max_len, cfg.spec_ngram)
+        with scope(self.profile, "serve/spec_block"):
+            if self._paged:
+                self.pool.phys, out, commits, proposed, lps, ok = \
+                    _paged_spec_decode_program(
+                        *statics, self.pool.phys, state[5:5 + pages].T, *ctl,
+                        eidx=eidx)
+            else:
+                self.pool.caches, out, commits, proposed, lps, ok = \
+                    _spec_decode_program(*statics, self.pool.caches, *ctl,
+                                         eidx=eidx)
+            # the fault plane's scatter site: after the dispatch, before
+            # the read where a device error would surface
+            self._poke_site("scatter")
+            # ONE read: (rounds, S, k + 1) tokens, then the commit and draft
+            # counts, then the finite flags
+            packed_out = torch.cat([out.transpose(1, 2).reshape(-1, n),
+                                    commits,
+                                    proposed, ok.long()[None]]).cpu().numpy()
+            lps = None if lps is None else lps.cpu().numpy()
+        out = packed_out[:rounds * (k + 1)].reshape(rounds, k + 1, n)
+        commits = packed_out[rounds * (k + 1):rounds * (k + 2)]
+        proposed = packed_out[rounds * (k + 2):rounds * (k + 3)]
+        finite = packed_out[-1]
+        now = smetrics.now()
+        self.metrics.record_decode_block(now - t0)
+        tr = self.trace
+        if tr is not None:
+            self._dev_s += now - t0
+        finished: list[Request] = []
+        tot_prop = tot_acc = tot_rounds = delivered = max_appended = 0
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            if tr is not None:
+                tr.complete("spec_block", "engine", f"slot{slot}", ts=t0,
+                            dur=now - t0, req=req.id, rounds=rounds, k=k)
+            if not finite[slot]:
+                finished.append(self._quarantine(req, now))
+                continue
+            if req.cancelled or (req.deadline is not None
+                                 and now >= req.deadline):
+                self._finish(req, "cancelled" if req.cancelled else "timeout",
+                             now)
+                finished.append(req)
+                self._notify(req, 0)
+                continue
+            reason = None
+            base = len(req.tokens)
+            grammar1 = req.grammar is not None
+            new, new_lps = [], []
+            for r in range(rounds):
+                c = int(commits[r, slot])
+                if not grammar1:
+                    tot_prop += int(proposed[r, slot])
+                    tot_acc += max(c - 1, 0)
+                    tot_rounds += 1
+                    # the request's own acceptance fact (engine-wide rates
+                    # hide a single adversarial stream)
+                    req.spec_proposed += int(proposed[r, slot])
+                    req.spec_accepted += max(c - 1, 0)
+                # a grammar slot keeps round 0's first commit only: later
+                # draws went through a stale list (overshoot)
+                take = c if not grammar1 else (1 if r == 0 else 0)
+                for j in range(take):
+                    t = int(out[r, j, slot])
+                    new.append(t)
+                    if grammar1:
+                        req.grammar.advance(t)
+                    if req.params.logprobs:
+                        new_lps.append(float(lps[r, slot, j]))
+                    reason = self._stop_reason(
+                        req, t, req.max_new_tokens - base - len(new))
+                    if grammar1 and req.grammar.done:
+                        reason = "stop"
+                    if reason is not None:
+                        break
+                if reason is not None:
+                    break
+            kk = self._stop_string_at(req, new, base)
+            if kk is not None:
+                last = base + len(new) - 1
+                if reason is None or kk < last or reason == "length":
+                    del new[kk + 1 - base:]
+                    del new_lps[kk + 1 - base:]
+                    reason = "stop"
+            req.logprobs.extend(new_lps)
+            req.tokens.extend(new)
+            appended = len(new)
+            # one commit record a request a call: the rounds' variable
+            # commit counts are invisible to the journal
+            self._journal_commit(req, new)
+            self.metrics.record_tokens(appended, now - self._last_emit[slot],
+                                       now)
+            self._last_emit[slot] = now
+            self.pool.positions[slot] += appended
+            delivered += appended
+            max_appended = max(max_appended, appended)
+            if reason is not None:
+                self._finish(req, reason, now)
+                finished.append(req)
+            else:
+                # an unfinished slot kept every commit, so the mirrors
+                # track the device carry exactly
+                self._toks[slot] = new[-1]
+                self._pos[slot] += appended
+            self._notify(req, appended)
+        self.metrics.record_spec_step(tot_prop, tot_acc, delivered)
+        if tot_rounds:
+            self._spec_ctl.observe(tot_acc, tot_rounds)
+        self._tick_weight = max(1.0, max_appended / cfg.decode_block)
+        return finished
+
     def _decode_block(self) -> list[Request]:
+        if self._spec_ctl is not None:
+            decision = self._spec_ctl.decide()
+            if decision != "off":
+                return self._spec_block(probe=decision == "probe")
         cfg = self.config
         block, n, cap = cfg.decode_block, cfg.n_slots, cfg.sample_cap
         if self._paged:
@@ -2271,10 +2734,12 @@ class ServeEngine:
         armed = self._faults is not None
         # the block's int control values go to the device in ONE transfer:
         # rows toks, pos, active, eos, then (paged) the page tables, then
-        # (with a constrained slot) the allow-lists, then (with a fault
-        # plan armed) the fault row
+        # (with a constrained slot) the allow-lists, then (with a
+        # stochastic slot) every step's draw keys, then (with a fault plan
+        # armed) the fault row
         pages = self.pool.pages_per_lane if self._paged else 0
-        rows = 4 + pages + (cap if constrained else 0)
+        lists = 4 + pages + (cap if constrained else 0)
+        rows = lists + (block if stochastic.any() else 0)
         state = np.zeros((rows + armed, n), np.int64)
         state[0] = self._toks
         state[1] = self._pos
@@ -2287,24 +2752,21 @@ class ServeEngine:
         if self._paged:
             state[4:4 + pages] = self.pool.table.T
         if constrained:
-            state[4 + pages:rows] = self._allow.T
+            state[4 + pages:lists] = self._allow.T
+        if stochastic.any():
+            state[lists:rows] = draw_keys(cfg.seed, self._rng_step, self._seed,
+                                          samp_idx, stochastic, block)
         if armed:
             state[rows] = self._fault_row
             self._fault_row[:] = 0  # one-shot: this dispatch only
-        step_tag = self._rng_step
         self._rng_step += 1
         dev = self.device
-
-        def generators(t):
-            return [request_generator(cfg.seed, step_tag, s, int(self._seed[s]),
-                                      int(samp_idx[s]) + t, dev)
-                    if stochastic[s] else None for s in range(n)]
-
         t0 = smetrics.now()
         state = torch.as_tensor(state, device=dev)
-        allow = state[4 + pages:rows].T if constrained else None
+        allow = state[4 + pages:lists].T if constrained else None
         ctl = (state[0], state[1], state[2].bool(), state[3],
-               self._packed(slice(None)), generators, allow, need_lp,
+               self._packed(slice(None)),
+               state[lists:rows] if stochastic.any() else None, allow, need_lp,
                state[rows] if armed else None)
         # quantized pools: the exact-lane row (host ints: selecting the
         # kv_exact slots reads nothing back from the device)

@@ -44,9 +44,9 @@ correctness-under-failure layer, in three pieces the engine composes:
 
 * `DegradationLadder` — graceful degradation with hysteresis. Under
   page exhaustion or SLO error-budget burn the engine climbs one rung at
-  a time: shed prefix-cache leaves (rung 1), hold speculation (rung 2;
-  the port has no speculative decoding yet, so the rung only names the
-  step), load-shed admissions by SLO class — batch first (rung 3), then
+  a time: shed prefix-cache leaves (rung 1), hold speculation (rung 2:
+  plain decode blocks, the controller's adaptive state untouched),
+  load-shed admissions by SLO class — batch first (rung 3), then
   standard (rung 4) — answering 503 with a JITTERED Retry-After so retry
   herds never synchronize. Escalation needs `up_steps` consecutive
   pressured evaluations, de-escalation `down_steps` clear ones, so the

@@ -810,6 +810,27 @@ def scatter_written_pages(phys: list, lanes: list, table: torch.Tensor,
     return phys
 
 
+def scatter_window_pages(phys: list, lanes: list, table: torch.Tensor,
+                         start: torch.Tensor, last: torch.Tensor,
+                         span: int) -> list:
+    """The speculative decode block's write-back, in place: slot s
+    committed positions ``[start[s], last[s]]`` of its gathered lane view
+    (``last`` the final committed position), so only the pages of that
+    window go to the pool; rejected-draft garbage past it never reaches
+    the physical pool. `span` is the static bound of the window in tokens
+    (rounds x chunk width); the page walk advances in page steps clamped
+    to ``last``, so trailing steps rewrite the last committed page with
+    its own content. Slots with nothing committed (``last < start``, idle
+    lanes) clamp to `start`, whose table entry rests at the trash page."""
+    page = _leaves(phys)[0].shape[1]
+    limit = table.shape[1] * page - 1
+    last = torch.maximum(last, start)
+    for w in range((span - 1) // page + 2):
+        pos_w = torch.clamp(torch.minimum(start + w * page, last), 0, limit)
+        phys = scatter_written_pages(phys, lanes, table, pos_w)
+    return phys
+
+
 TRASH_PAGE = 0  # physical page 0: reserved write sink, never allocated
 
 

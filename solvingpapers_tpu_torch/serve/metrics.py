@@ -25,6 +25,17 @@ histograms themselves, which the `/metrics` exposition
 (`metrics.writer.PrometheusTextWriter.render`) renders as native
 ``_bucket`` / ``_sum`` / ``_count`` series, one ``# TYPE`` line a name.
 
+Speculative-decoding gauges (serve/spec.py; present iff
+`ServeConfig.speculative`; the engine registers a gauge provider):
+
+    serve/spec_acceptance_rate   drafts accepted / drafts proposed
+                                 (lifetime; 0 before any proposal)
+    serve/spec_tokens_per_step   tokens committed per speculative decode
+                                 step (1 per round = speculation idle;
+                                 up to rounds x (1 + spec_k) per slot)
+    serve/spec_drafts_rejected   drafts that failed verification
+                                 (cumulative)
+
 Paged-pool gauges (present iff `ServeConfig.paged`; the engine registers
 a gauge provider):
 
@@ -156,6 +167,10 @@ class ServeMetrics:
         self.recoveries = 0
         self.recovery_s_last = 0.0
         self.degrade_transitions = 0
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_tokens = 0
         self.sheds: dict[str, int] = {}
         self._t_first: float | None = None
         self._t_last: float | None = None
@@ -240,6 +255,17 @@ class ServeMetrics:
         resume: the compute cost of preemption by recompute."""
         self.recompute_tokens += n
         self.prefill_tokens += n
+
+    def record_spec_step(self, proposed: int, accepted: int,
+                         delivered: int) -> None:
+        """One speculative decode step: `proposed` drafts went into the
+        draft-verify rounds, `accepted` of them survived verification,
+        and `delivered` tokens were committed to streams (the engine's
+        gauge provider derives serve/spec_* from these)."""
+        self.spec_steps += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self.spec_tokens += delivered
 
     def record_fault_injected(self) -> None:
         """The fault plan fired one spec at a hot-path site."""

@@ -49,9 +49,11 @@ its teacher-forced greedy agreement grades the quantization. The report also car
 config, paired deltas against a second re-serve of the same corpus.
 
 A candidate the port cannot build is refused, never approximated:
-`apply_overrides` raises a `ValueError` naming ROADMAP A5.2 for the
-reference's speculative knobs, because speculative decoding is not
-ported.
+`apply_overrides` raises the `ServeConfig`'s `ValueError` naming
+ROADMAP A6.2 for ``speculative=mtp``, because the MTP drafter is not
+ported. An n-gram speculative candidate (``speculative=ngram``,
+``spec_k``, ``spec_rounds``) is built: its greedy streams replay
+byte-exact, since speculation never changes a greedy token.
 
 Exposure: `cli replay` (exit 2 past the divergence threshold: the
 canary gate), `POST /v1/replay` and `GET /v1/replay/<id>` on the HTTP
@@ -89,15 +91,6 @@ __all__ = [
 # but never alter produced tokens)
 _REPLAYABLE_REASONS = ("eos", "length", "stop", "cancelled", "timeout")
 
-# the reference's ServeConfig knobs of pools and decoders the port does
-# not have yet: a candidate naming one is refused, not approximated
-_UNPORTED_KNOBS = {
-    "speculative": "A5.2 (speculative decoding)",
-    "spec_k": "A5.2 (speculative decoding)",
-    "spec_rounds": "A5.2 (speculative decoding)",
-}
-
-
 def sanitize_config(cfg: ServeConfig, n_requests: int = 0) -> ServeConfig:
     """A candidate config made safe for a shadow re-serve: no journal of
     its own (shadow traffic must not write journal records), no listening
@@ -125,16 +118,12 @@ def apply_overrides(cfg: ServeConfig, overrides: dict) -> ServeConfig:
     values (from the CLI) go through `json.loads` first (ints, floats,
     ``true``/``false``, ``null``, lists) and stay raw strings otherwise.
     Unknown keys raise `ValueError` (a mistyped knob must not silently
-    gate nothing), and so do the reference's speculative knobs, naming
-    the ROADMAP item that ports them."""
+    gate nothing), and so do the reference's values the port does not
+    build (``speculative=mtp``), naming the ROADMAP item that ports
+    them."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
     parsed = {}
     for key, val in overrides.items():
-        if key in _UNPORTED_KNOBS:
-            raise ValueError(
-                f"config override {key!r} is not ported yet (ROADMAP "
-                f"{_UNPORTED_KNOBS[key]}): the port cannot build that "
-                "candidate")
         if key not in fields:
             raise ValueError(
                 f"unknown ServeConfig field {key!r} in config overrides "
@@ -359,7 +348,7 @@ class ReplayHarness:
                 "decode_block": candidate.decode_block,
                 "paged": candidate.paged,
                 "kv_quant": candidate.kv_quant,
-                "speculative": None,
+                "speculative": candidate.speculative,
                 "prefix_cache": candidate.prefix_cache,
             },
         }

@@ -18,13 +18,19 @@
 Randomness. The reference folds ``(seed, sample index)`` — or, for an
 unseeded request, ``(engine step, slot, sample index)`` — into the
 engine's base key with `jax.random.fold_in`. Here the same words are
-hashed (splitmix64) into the seed of a counter-based `torch.Generator`
-per draw, with the same contract: a seeded request's stream depends
-only on its seed and the sample index (not on its slot, its neighbours
-or how many engine steps ran first), so it repeats run to run; an
-unseeded one draws fresh entropy per (step, slot, sample index). The
-two packages' generators differ, so sampled tokens never match across
-packages — only greedy streams are compared across them.
+hashed (splitmix64, on the host) into a 63-bit key per draw
+(`request_seed`), with the same contract: a seeded request's stream
+depends only on its seed and the sample index (not on its slot, its
+neighbours or how many engine steps ran first), so it repeats run to
+run; an unseeded one draws fresh entropy per (step, slot, sample index).
+A draw's Gumbel noise is a function of its key and each candidate's
+TOKEN ID (`draw_noise`, the same integer hash on the device), never of
+the candidate's rank: near-equal logits that two computations of the
+same distribution rank in another order (a decode step against a
+speculative chunk, a batch of another shape) still meet the same noise,
+so the same draw picks the same token unless the decision itself is a
+near-tie. The two packages' draws differ, so sampled tokens never match
+across packages — only greedy streams are compared across them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import dataclasses
 import operator
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from solvingpapers_tpu_torch import ops
@@ -172,22 +179,65 @@ def _splitmix64(x: int) -> int:
 
 def request_seed(base: int, step_tag: int, slot: int, seed: int,
                  samp_idx: int) -> int:
-    """The generator seed of one draw. ``seed >= 0``: a function of
-    (base, seed, sample index) only — reproducible across runs and slot
-    assignments. ``seed < 0``: of (base, engine step, slot, sample index)."""
+    """The key of one draw. ``seed >= 0``: a function of (base, seed,
+    sample index) only — reproducible across runs and slot assignments.
+    ``seed < 0``: of (base, engine step, slot, sample index)."""
     words = ((base, _SEED_TAG, seed, samp_idx) if seed >= 0
              else (base, _STEP_TAG, step_tag, slot, samp_idx))
     h = 0
     for w in words:
         h = _splitmix64(h ^ (w & _M64))
-    return h >> 1  # non-negative, inside manual_seed's range
+    return h >> 1  # non-negative: an int64 on the device
 
 
-def request_generator(base: int, step_tag: int, slot: int, seed: int,
-                      samp_idx: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(request_seed(base, step_tag, slot, seed, samp_idx))
-    return g
+def draw_keys(base: int, step_tag: int, seeds, samp0, stochastic,
+              width: int) -> np.ndarray:
+    """The (width, S) int64 keys of the draws a decode call can make:
+    row i, column s is slot s's key for sample index ``samp0[s] + i``
+    (`request_seed`; 0 in the columns of greedy slots)."""
+    out = np.zeros((width, len(samp0)), np.int64)
+    for s, stoch in enumerate(stochastic):
+        if stoch:
+            out[:, s] = [request_seed(base, step_tag, s, int(seeds[s]),
+                                      int(samp0[s]) + i) for i in range(width)]
+    return out
+
+
+def _signed(c: int) -> int:
+    """A 64-bit constant as the int64 that holds its bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's `>>` is arithmetic)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+# splitmix64's constants, and the odd multiplier that spreads token ids
+_GOLDEN, _MIX1, _MIX2 = (_signed(0x9E3779B97F4A7C15), _signed(0xBF58476D1CE4E5B9),
+                         _signed(0x94D049BB133111EB))
+_ID_MUL = _signed(0xD1B54A32D192ED03)
+
+
+def noise_bits(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of ``key ^ (id * 0xD1B54A32D192ED03)`` on int64
+    tensors (broadcast), bit for bit the host's `_splitmix64` (int64
+    products wrap modulo 2^64 on the CPU and the card alike)."""
+    x = keys ^ (ids * _ID_MUL)
+    x = x + _GOLDEN
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def draw_noise(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The Gumbel noise of candidate token `ids` (long) in draws of
+    `keys` (long, broadcast against `ids`): the top 24 bits of
+    `noise_bits` as a uniform in (0, 1), then ``-log(-log(u))``. A
+    function of (draw key, token id) only, whatever the candidate's rank
+    among the draw's support."""
+    u = (_srl(noise_bits(keys, ids), 40).to(torch.float32) + 0.5) * 2.0**-24
+    return -torch.log(-torch.log(u))
 
 
 def capped_support(logits32: torch.Tensor, packed: PackedSampling, *,
@@ -215,14 +265,25 @@ def capped_support(logits32: torch.Tensor, packed: PackedSampling, *,
     return masked, top_idx
 
 
+def gumbel_pick(masked: torch.Tensor, top_idx: torch.Tensor,
+                keys: torch.Tensor) -> torch.Tensor:
+    """The Gumbel-max draw from the masked support (`capped_support`'s
+    pair, any leading shape) under per-draw `keys` (the leading shape):
+    the token id whose masked logit plus its `draw_noise` is largest."""
+    noise = draw_noise(keys[..., None], top_idx)
+    sel = torch.argmax(masked + noise, dim=-1, keepdim=True)
+    return torch.gather(top_idx, -1, sel)[..., 0]
+
+
 def fused_sample(logits: torch.Tensor, packed: PackedSampling,
-                 generators, *, cap: int = 64,
+                 keys: torch.Tensor | None, *, cap: int = 64,
                  allow: torch.Tensor | None = None, need_lp: bool = False):
     """Sample one token per slot; returns ``(tokens (S,) int64, logprobs
     (S,) float32 or None)``.
 
-    `logits` is (S, vocab); `generators` holds one `torch.Generator` per
-    STOCHASTIC slot and None for greedy ones. `allow` is the grammar
+    `logits` is (S, vocab); `keys` holds each slot's draw key
+    (`request_seed`; (S,) int64, ignored on greedy rows), or None when
+    every slot is greedy. `allow` is the grammar
     constraint: (S, A) int64 token ids with -1 padding (`serve/grammar.
     py`), or None when no slot is constrained; a row whose first entry
     is >= 0 is constrained, its draw (or its argmax, for a greedy row)
@@ -230,8 +291,8 @@ def fused_sample(logits: torch.Tensor, packed: PackedSampling,
     knows which rows are greedy and which constrained, so an all-greedy
     unconstrained batch is argmax only, with no selection and no masking.
     Stochastic rows draw by Gumbel-max over the masked top-`cap` support
-    (the same categorical the reference draws) and map back through the
-    gathered vocab ids.
+    (the same categorical the reference draws), the noise keyed by token
+    id (`gumbel_pick`).
 
     With `need_lp` (some slot asked for logprobs) the second result is
     the log-softmax of the RAW full-vocab logits at each chosen token;
@@ -239,7 +300,7 @@ def fused_sample(logits: torch.Tensor, packed: PackedSampling,
     """
     logits32 = logits.float()
     greedy_tok = torch.argmax(logits32, dim=-1)
-    stochastic = any(g is not None for g in generators)
+    stochastic = keys is not None
     toks = greedy_tok
     if stochastic or allow is not None:
         cap = min(cap, logits.shape[-1])
@@ -261,15 +322,7 @@ def fused_sample(logits: torch.Tensor, packed: PackedSampling,
                                torch.argmax(masked, dim=-1, keepdim=True))[:, 0]
             toks = torch.where(allow[:, 0] >= 0, dom, greedy_tok)
         if stochastic:
-            tiny = torch.finfo(torch.float32).tiny
-            noise = torch.zeros_like(masked)
-            for row, g in enumerate(generators):
-                if g is not None:
-                    u = torch.rand(masked.shape[-1], generator=g,
-                                   device=logits.device).clamp_min(tiny)
-                    noise[row] = -torch.log(-torch.log(u))
-            sel = torch.argmax(masked + noise, dim=-1, keepdim=True)
-            drawn = torch.gather(top_idx, -1, sel)[:, 0]
+            drawn = gumbel_pick(masked, top_idx, keys)
             toks = torch.where(packed.temperature <= 0.0, toks, drawn)
     lps = None
     if need_lp:

@@ -82,7 +82,10 @@ class Request:
     logprobs: list[float] = dataclasses.field(default_factory=list)
     finish_reason: str | None = None
     slot: int | None = None
-    waited_steps: int = 0
+    # accumulated wait, in BLOCK-EQUIVALENTS of delivered tokens (see
+    # `FIFOScheduler.tick`): a plain engine iteration ages it by 1, a
+    # speculative step that committed w blocks' worth of tokens by w
+    waited_steps: float = 0.0
     # absolute deadline on the engine clock (serve.metrics.now), or None
     deadline: float | None = None
     cancelled: bool = False
@@ -110,6 +113,11 @@ class Request:
     # (the engine is draining) or "shed:<class>" (the degradation ladder
     # load-shed its SLO class); the front door words its 503 from it
     reject_reason: str | None = None
+    # per-request speculative-decoding facts (serve/spec.py): drafts this
+    # request's slot proposed and that survived verification (the
+    # acceptance fact its debug timeline carries)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     # peak pages the request's slot held (paged pool; 0 on lane pools),
     # stamped at finish and preemption
     pages_held: int = 0
@@ -234,7 +242,17 @@ class FIFOScheduler:
         except ValueError:
             return False
 
-    def tick(self) -> None:
-        """One engine iteration elapsed for everything still queued."""
+    def tick(self, weight: float = 1.0) -> None:
+        """One engine iteration elapsed for everything still queued.
+
+        `weight` is the iteration's age in BLOCK-EQUIVALENTS of delivered
+        tokens (the engine passes ``max per-slot delivered tokens /
+        decode_block``, floored at 1). A plain decode block delivers at
+        most one block a slot, so its weight is exactly 1. A speculative
+        step can deliver several blocks' worth in one iteration; without
+        the weight the wait budget would be worth more delivered work the
+        better speculation goes, starving the queue head exactly when the
+        engine is fastest."""
+        weight = max(weight, 1.0)
         for req in self.queue:
-            req.waited_steps += 1
+            req.waited_steps += weight

@@ -86,6 +86,9 @@ def test_optimizer_accumulates_like_multisteps(name, k):
     tx, _ = joptim.make_optimizer(joptim.OptimizerConfig(**dataclasses.asdict(cfg)))
     jparams = jax.tree.map(jnp.asarray, _tree(0))
     jstate = tx.init(jparams)
+    # optax's update under jit: eagerly, every op of the MultiSteps update
+    # compiles on its own (seconds a case)
+    update = jax.jit(tx.update)
     params = {n: torch.nn.Parameter(torch.from_numpy(v.copy()))
               for n, v in _tree(0).items()}
     opt, schedule = make_optimizer(cfg, params.values())
@@ -95,7 +98,7 @@ def test_optimizer_accumulates_like_multisteps(name, k):
             p.grad = torch.from_numpy(grads[n].copy())
         norm, lr = opt.step(step)
         jg = jax.tree.map(jnp.asarray, grads)
-        updates, jstate = tx.update(jg, jstate, jparams)
+        updates, jstate = update(jg, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
         np.testing.assert_allclose(float(norm), float(optax.global_norm(jg)),
                                    rtol=1e-6)

@@ -193,21 +193,23 @@ def test_missing_checkpoints_and_export_without_one(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
-      "--spec-rounds", "2"], "A5"),
+      "--spec-rounds", "2", "--speculative", "mtp"], "A6.2"),
     (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
-      "--speculative", "ngram"], "A5"),
+      "--speculative=mtp"], "A6.2"),
     (["replay", "--config", "gpt_tiny", "--journal", "j.jsonl",
-      "--spec-k=2"], "A5"),
-    (["serve", "--config", "gpt_tiny", "--speculative", "ngram"], "A5"),
-    (["serve-bench", "--config", "gpt_tiny", "--spec-k", "4"], "A5"),
-    (["serve-bench", "--config", "gpt_tiny", "--spec-rounds", "3"], "A5"),
+      "--spec-k=2", "--speculative", "mtp"], "A6.2"),
+    (["serve", "--config", "gpt_tiny", "--speculative", "mtp"], "A6.2"),
+    (["serve-bench", "--config", "gpt_tiny", "--speculative", "--obs"], "A8"),
+    (["serve-bench", "--config", "gpt_tiny", "--spec-rounds", "3",
+      "--obs-hlo-dir=d"], "A8"),
     (["serve-bench", "--config", "gpt_tiny", "--obs-hlo-dir", "d"], "A8"),
     (["serve-bench", "--config", "gpt_tiny", "--obs"], "A8"),
-    (["kernel-bench"], "A5"),
+    (["kernel-bench"], "A5.3"),
     (["sample", "--config", "gpt_tiny", "--device", "cpu", "--speculative",
       "--greedy"], "A6.2"),
     (["train", "--config", "vit_mnist", "--device", "cpu"], "A6"),
-    (["serve", "--config", "gpt_tiny", "--spec-k=4"], "A5"),
+    (["serve", "--config", "gpt_tiny", "--spec-k=4", "--speculative=mtp"],
+     "A6.2"),
 ])
 def test_refused_commands_exit_2_naming_their_roadmap_item(capsys, argv, item):
     rc, out, err = _run(capsys, *argv)

@@ -94,7 +94,7 @@ def test_fused_sample_allow_and_logprobs_match_the_reference():
     packed = PackedSampling(temperature=torch.zeros(s), top_p=torch.ones(s),
                             min_p=torch.zeros(s),
                             top_k=torch.zeros(s, dtype=torch.int64))
-    toks, lps = fused_sample(torch.from_numpy(logits), packed, [None] * s,
+    toks, lps = fused_sample(torch.from_numpy(logits), packed, None,
                              cap=cap, allow=torch.from_numpy(allow),
                              need_lp=True)
     jpacked = jsampling.PackedSampling(
@@ -107,7 +107,7 @@ def test_fused_sample_allow_and_logprobs_match_the_reference():
     np.testing.assert_allclose(lps.numpy(), np.asarray(jlps), atol=1e-5)
     assert toks[1] in (7, 40, 2) and toks[3] in (63, 0, 11, 12, 13)
     # without a constraint or logprobs: argmax only, no logprob
-    toks, lps = fused_sample(torch.from_numpy(logits), packed, [None] * s)
+    toks, lps = fused_sample(torch.from_numpy(logits), packed, None)
     assert toks.tolist() == logits.argmax(-1).tolist() and lps is None
 
 

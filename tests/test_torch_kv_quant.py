@@ -23,6 +23,7 @@ for its latent lanes.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,17 @@ from solvingpapers_tpu_torch.serve import kv_pool as tkv
 from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 RNG_SEED = 7
+
+
+@functools.lru_cache(maxsize=None)
+def _jit(fn, *static):
+    """The reference's `fn` under `jax.jit` (`static` its static
+    arguments), where an eager call compiles each of its ops on its own.
+    Only for what both sides share (the reference stores) and for the
+    read helpers: the write sites stay eager, as the port is held to
+    their eager arithmetic (under `jit`, XLA rounds some scales one ulp
+    apart)."""
+    return jax.jit(fn, static_argnames=static)
 
 
 def _np_store(store):
@@ -67,7 +79,7 @@ def _ref_store(kind, n, t, block, dtype, exact_lanes=0, exact_time=None,
                 for _ in range(2)]
     else:
         base = [LatentCache(c=vals((n, t, 12))) for _ in range(2)]
-    q, s = jq.quantize_tree(base, block)
+    q, s = _jit(jq.quantize_tree, "block")(base, block)
     exact = None
     if exact_lanes:
         et = exact_time or t
@@ -145,19 +157,19 @@ def test_views_equal_the_reference(kind, name, jdt, tdt):
     ps = _port_store(js)
     eidx_row = np.array([0, 2, 0], np.int32)
     _assert_lanes_equal(tkv.quant_lanes_view(ps, eidx_row),
-                        jkv.quant_lanes_view(js, jnp.asarray(eidx_row)))
+                        _jit(jkv.quant_lanes_view)(js, jnp.asarray(eidx_row)))
     for slot, e in ((0, 0), (1, 1)):
         _assert_lanes_equal(tkv.quant_lane_view(ps, slot, e),
-                            jkv.quant_lane_view(js, slot, jnp.int32(e)))
+                            _jit(jkv.quant_lane_view)(js, slot, jnp.int32(e)))
     # page layout: 5 pages of 8, 2 slots of 2 logical pages, exact lanes 16
     jp = _ref_store(kind, 5, 8, 8, jdt, exact_lanes=2, exact_time=16)
     pp = _port_store(jp)
     table = np.array([[1, 3], [0, 0]], np.int64)
     row_e = np.array([0, 2], np.int32)
     _assert_lanes_equal(tkv.quant_gather_lanes(pp, torch.from_numpy(table), row_e),
-                        jkv.quant_gather_lanes(jp, jnp.asarray(table), jnp.asarray(row_e)))
+                        _jit(jkv.quant_gather_lanes)(jp, jnp.asarray(table), jnp.asarray(row_e)))
     _assert_lanes_equal(tkv.quant_gather_lane(pp, torch.from_numpy(table[0]), 0),
-                        jkv.quant_gather_lane(jp, jnp.asarray(table[0]), jnp.int32(0)))
+                        _jit(jkv.quant_gather_lane)(jp, jnp.asarray(table[0]), jnp.int32(0)))
 
 
 # ----------------------------------------------------------- write sites
@@ -186,7 +198,7 @@ def test_quant_store_written_byte_equal(kind, name, jdt, tdt, tail_garbage):
     ps = _port_store(js)
     # the lanes a decode block leaves: the dequantized view with a written
     # window per slot (one window clipped at the lane's end)
-    view = jkv.quant_lanes_view(js, jnp.zeros(3, jnp.int32))
+    view = _jit(jkv.quant_lanes_view)(js, jnp.zeros(3, jnp.int32))
     jl, _ = _lanes_like(kind, 3, 32, jdt, seed=12)
     pos0 = np.array([5, 12, 29], np.int64)
     span = 6
@@ -249,7 +261,7 @@ def test_quant_scatter_pages_byte_equal(kind, name, jdt, tdt, mode):
     js = _ref_store(kind, 8, 8, 8, jdt, exact_lanes=2, exact_time=24)
     ps = _port_store(js)
     table = np.array([[1, 2, 3], [4, 5, 6]], np.int64)
-    view = jkv.quant_gather_lanes(js, jnp.asarray(table), jnp.zeros(2, jnp.int32))
+    view = _jit(jkv.quant_gather_lanes)(js, jnp.asarray(table), jnp.zeros(2, jnp.int32))
     jl, _ = _lanes_like(kind, 2, 24, jdt, seed=14)
     pos0 = np.array([6, 13], np.int64)
     span = 5

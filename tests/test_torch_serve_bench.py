@@ -5,7 +5,7 @@ on the CPU at `gpt_tiny`.
 * the request generators equal the JAX package's element for element,
   `sampling_params_mix` field for field;
 * the provenance stamp names torch and CUDA, not jax;
-* each of the nine workloads returns the reference's result keys less
+* each of the eleven workloads returns the reference's result keys less
   the documented set that rests on XLA's compile registry (or, on the
   CPU, on the card's allocator; or, for the quant workload, on the
   anatomy arm and the kernel bench), plus the port's `arms`;
@@ -185,6 +185,16 @@ REF_DETAIL.update({
               "dequant_wall_s", "scatter_wall_s", "gather_share_pct",
               "dequant_share_pct", "scatter_share_pct", "attention_share_pct",
               "anatomy_overhead_pct", "anatomy_requests_per_sec"},
+    # run_spec_bench :1163-1198
+    "spec": {"config", "workload", "n_requests", "n_slots", "max_new_tokens",
+             "decode_block", "spec_k", "spec_rounds", "train_steps",
+             "prompt_lens", "mean_interarrival_s", "reps",
+             "spec_tokens_per_sec", "plain_tokens_per_sec", "spec_speedup",
+             "acceptance_rate", "spec_tokens_per_step", "greedy_token_exact",
+             "adversarial_spec_tokens_per_sec",
+             "adversarial_plain_tokens_per_sec",
+             "spec_adversarial_overhead_pct", "adversarial_acceptance_rate",
+             *KV, *PROBE},
     # run_fleet_bench :2950-2999 (fleet_trace_out when given)
     "fleet": {"config", "workload", "n_requests", "n_slots", "n_replicas",
               "max_new_tokens", "decode_block", "prompt_lens",
@@ -678,14 +688,33 @@ def test_quant_workload_keys_bytes_and_capacity():
     _detail_keys_hold(result, "quant")
 
 
+def test_spec_workload_keys_and_exact_streams():
+    """`run_spec_bench` at a tiny size: the reference's keys less the
+    probe's XLA fields, spec-on greedy streams token-exact with spec-off,
+    drafts accepted on the memorized sentence."""
+    with _no_collector():
+        result = bench.run_spec_bench(
+            **{**SMALL, "prompt_lens": (24, 32), "max_new": 24},
+            spec_k=4, spec_rounds=3, train_steps=10, reps=1)
+    d = result["detail"]
+    assert d["greedy_token_exact"] is True
+    assert d["acceptance_rate"] > 0 and d["spec_tokens_per_step"] > 1
+    assert result["value"] == d["spec_tokens_per_sec"]
+    assert {"train", "spec[0]", "plain[0]", "adv_spec[0]",
+            "adv_plain[0]"} <= set(d["arms"])
+    _detail_keys_hold(result, "spec")
+
+
 @pytest.mark.parametrize("argv,code,item", [
-    (["--speculative"], 2, "ROADMAP A5"),
+    (["--speculative", "--obs"], 2, "ROADMAP A8"),
     (["--kv-quant", "int8", "--paged"], 2, "pick one per run"),
-    (["--spec-k", "4"], 2, "ROADMAP A5"),
-    (["--spec-rounds", "2"], 2, "ROADMAP A5"),
-    (["--spec-train-steps", "3"], 2, "ROADMAP A5"),
-    (["--kv-quant-block", "8", "--spec-k", "2"], 2, "ROADMAP A5"),
-    (["--quant-train-steps=3", "--speculative"], 2, "ROADMAP A5"),
+    (["--speculative", "--kv-quant", "int8"], 2, "pick one per run"),
+    (["--spec-rounds", "2", "--obs-hlo-dir=d"], 2, "ROADMAP A8"),
+    (["--spec-train-steps", "3", "--speculative", "--http"], 2,
+     "pick one per run"),
+    (["--kv-quant-block", "8", "--spec-k", "2", "--obs"], 2, "ROADMAP A8"),
+    (["--quant-train-steps=3", "--speculative", "--checkpoint-dir", "ck"], 2,
+     "not consumed"),
     (["--obs"], 2, "ROADMAP A8"),
     (["--chaos", "--fleet"], 2, "pick one per run"),
     (["--obs-hlo-dir", "d"], 2, "ROADMAP A8"),

@@ -8,7 +8,7 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
     cli sample --config gpt_shakespeare [--checkpoint-dir ckpts]
                [--prompt "ROMEO:" | --prompt-file f.txt] [--prefill-chunk N]
                [--max-new-tokens 200] [--top-k 50] [--temperature 1.0]
-               [--greedy] [--seed 0]
+               [--greedy [--speculative [--spec-drafts 1|2]]] [--seed 0]
     cli eval   --config gpt_shakespeare [--checkpoint-dir ckpts]
     cli export --config gpt_shakespeare --checkpoint-dir ckpts --out w.pt
     cli serve  --config dsv3_long [--port 8000] [--host 127.0.0.1]
@@ -16,7 +16,7 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                [--decode-block 8] [--bucket 32] [--sample-cap 64]
                [--max-waiting 256] [--paged] [--no-json-mode] [--seed 0]
                [--kv-quant int8 [--kv-quant-block 16]
-               [--kv-exact-lanes N]] [--speculative ngram [--spec-k 4]
+               [--kv-exact-lanes N]] [--speculative ngram|mtp [--spec-k 4]
                [--spec-rounds N]]
                [--trace [--trace-out t.json]] [--slo] [--degrade]
                [--step-deadline S] [--journal j.jsonl [--journal-strict]]
@@ -37,6 +37,10 @@ commands) — ``python -m solvingpapers_tpu_torch.cli <cmd>``:
                t.json] [--trace-dump d.jsonl]] [--status-port 0
                [--status-hold-s S]] [--out f.jsonl [--append]]
     cli trace-summary t.json [--top 5] [--fleet]
+    cli kernel-bench [--config gpt_shakespeare] [--slots 8] [--max-len 256]
+               [--page-size 16] [--kv-quant-block 16] [--sample-cap 64]
+               [--spec-k 4] [--decode-block 16] [--reps 5] [--seed 0]
+               [--out f.jsonl [--append]]
 
 Every command runs on ``--device cuda`` (the default; it raises when
 there is no card) or ``--device cpu``; the reference's `--platform` and
@@ -100,15 +104,25 @@ export (`metrics/trace.py`); `--fleet` requires a stitched fleet export
 and prints its fleet section.
 
 `serve --speculative ngram` (and `replay`'s) decodes with n-gram
-draft-and-verify blocks (`ServeConfig.speculative`, serve/spec.py);
-`serve-bench --speculative` runs the speculative workload
-(`run_spec_bench`: spec-off against spec-on on a briefly trained model,
-greedy streams checked token-exact, and an adversarial arm).
+draft-and-verify blocks (`ServeConfig.speculative`, serve/spec.py), and
+`--speculative mtp` with a DeepSeek-V3 model's multi-token-prediction
+heads (lane pool; the engine's refusals, `serve.engine.check_drafter`,
+exit 2 before a model is built); `serve-bench --speculative` runs the
+speculative workload (`run_spec_bench`: spec-off against spec-on on a
+briefly trained model, greedy streams checked token-exact, and an
+adversarial arm). `sample --speculative [--spec-drafts 1|2]` decodes
+greedily with the MTP heads' drafts (`infer.generate_speculative`):
+the same text as `--greedy` in fewer forwards, with a `[speculative]
+forwards= accepted=` line on stderr; a model without enough heads, a
+sampled decode or a one-token prompt exits 2.
 
-Not ported, refused with their ROADMAP items: `kernel-bench` (A5.3),
-`sample --speculative` and `--speculative mtp` (the MTP drafter, A6.2),
-and the compile observatory's flags (A8); image, KD and Gemma configs
-(A6) and pipeline ones (A7) are not registered.
+`kernel-bench` times the serving stack's hot ops over the (pool layout
+x kv_quant) grid (`serve/kernel_bench.py`) and prints one JSON line a
+cell; `--out` writes them to a file too.
+
+Not ported, refused with their ROADMAP items: the compile observatory's
+flags (A8); image, KD and Gemma configs (A6) and pipeline ones (A7) are
+not registered.
 """
 
 from __future__ import annotations
@@ -121,13 +135,6 @@ import sys
 
 import numpy as np
 import torch
-
-# the reference's commands the port refuses, with the ROADMAP item that
-# brings each
-UNPORTED = {
-    "kernel-bench": "A5.3 (serve/kernel_bench.py)",
-}
-
 
 class Refused(Exception):
     """A request the port does not run; main prints it and exits 2."""
@@ -370,12 +377,17 @@ def _serve_config(args, model):
 
 
 def _check_drafter(args) -> None:
-    """Refuse, before any model is built, a drafter the port's ServeConfig
-    refuses ("mtp": ROADMAP A6.2)."""
-    from solvingpapers_tpu_torch.serve import ServeConfig
+    """Refuse, before any model is built, the MTP drafter where the
+    engine would refuse it for `--config`'s model (no heads, `--paged`,
+    `--kv-quant`: `serve.engine.check_drafter`)."""
+    from solvingpapers_tpu_torch.serve.engine import ServeConfig, check_drafter
 
+    if args.speculative != "mtp":
+        return
     try:
-        ServeConfig(speculative=args.speculative)
+        check_drafter(_config(args).model, ServeConfig(
+            speculative="mtp", paged=getattr(args, "paged", False),
+            kv_quant=getattr(args, "kv_quant", None)))
     except ValueError as e:
         raise Refused(str(e)) from None
 
@@ -480,6 +492,7 @@ def cmd_replay(args) -> int:
     unreadable journal, nothing comparable)."""
     from solvingpapers_tpu_torch.serve.engine import ServeConfig
     from solvingpapers_tpu_torch.serve.journal import JournalError
+    from solvingpapers_tpu_torch.serve.engine import check_drafter
     from solvingpapers_tpu_torch.serve.replay import ReplayHarness, apply_overrides
 
     _check_drafter(args)
@@ -508,6 +521,7 @@ def cmd_replay(args) -> int:
         overrides[k] = v
     try:
         candidate = apply_overrides(base_cfg, overrides)
+        check_drafter(getattr(model, "cfg", None), candidate)
     except (ValueError, TypeError) as e:
         print(f"[replay] {e}", file=sys.stderr)
         return 2
@@ -788,20 +802,40 @@ def cmd_trace_summary(args) -> int:
 def cmd_sample(args) -> int:
     from solvingpapers_tpu_torch.checkpoint import restore_for_inference
     from solvingpapers_tpu_torch.configs.factory import build_char_lm_run
-    from solvingpapers_tpu_torch.infer import generate
+    from solvingpapers_tpu_torch.infer import generate, generate_speculative
     from solvingpapers_tpu_torch.models import init_params_for
 
+    run_cfg = _config(args)
+    n_drafts = args.spec_drafts
     if args.speculative:
-        raise Refused("sample --speculative is not ported yet (ROADMAP A6.2: "
-                      "MTP and n-gram drafters)")
+        # the reference's checks (it exits 1 on them; here they are
+        # refusals, exit 2)
+        heads = getattr(run_cfg.model, "mtp_heads", 0)
+        if heads < n_drafts:
+            raise Refused(
+                f"--speculative with --spec-drafts {n_drafts} needs a model "
+                f"with mtp_heads >= {n_drafts} (config {run_cfg.name!r} has "
+                f"{heads})")
+        if not args.greedy:
+            raise Refused(
+                "--speculative decodes greedily (exact-match draft "
+                "verification); pass --greedy — temperature/top-k are "
+                "not supported")
     device = _device(args)
     # the sampling layout: weights stored in the compute dtype
-    cfg, model, tok, _, _ = build_char_lm_run(_config(args), device=device,
+    cfg, model, tok, _, _ = build_char_lm_run(run_cfg, device=device,
                                               param_dtype=None)
     model.eval()
-    ids = _prompt_ids(args, tok, getattr(model, "max_positions", None))
+    limit = getattr(model, "max_positions", None)
+    if args.speculative and limit is not None:
+        # the last chunk reaches n_drafts - 1 positions past the last token
+        limit -= n_drafts - 1
+    ids = _prompt_ids(args, tok, limit)
     if ids is None:
         return 2
+    if args.speculative and len(ids) < 2:
+        raise Refused("--speculative needs a prompt of at least 2 tokens "
+                      "(pass --prompt)")
     if args.checkpoint_dir:
         if restore_for_inference(model, args.checkpoint_dir) is None:
             print(f"no checkpoint found in {args.checkpoint_dir}",
@@ -811,11 +845,52 @@ def cmd_sample(args) -> int:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         model.load_state_dict(init_params_for(cfg.model)(cfg.model, gen))
     prompt = torch.as_tensor(np.asarray(ids), device=device)[None].long()
-    out = generate(model, prompt, max_new_tokens=args.max_new_tokens,
-                   sampler=_sampler(args.greedy, args.top_k, args.temperature),
-                   generator=torch.Generator(device=device).manual_seed(args.seed),
-                   prefill_chunk=args.prefill_chunk, device=device)
+    if args.speculative:
+        # the MTP heads' drafts: the --greedy text in fewer forwards
+        out, stats = generate_speculative(
+            model, prompt, max_new_tokens=args.max_new_tokens,
+            prefill_chunk=args.prefill_chunk, n_drafts=n_drafts, device=device)
+        f, a = stats["forwards"], stats["accepted"]
+        print(f"[speculative] forwards={f} accepted={a} "
+              f"tokens/forward={(f + a) / max(f, 1):.2f}", file=sys.stderr)
+    else:
+        out = generate(model, prompt, max_new_tokens=args.max_new_tokens,
+                       sampler=_sampler(args.greedy, args.top_k,
+                                        args.temperature),
+                       generator=torch.Generator(device=device).manual_seed(
+                           args.seed),
+                       prefill_chunk=args.prefill_chunk, device=device)
     print(tok.decode(out[0].tolist()))
+    return 0
+
+
+def cmd_kernel_bench(args) -> int:
+    """Microbench the serving stack's hot ops over the (pool layout x
+    kv_quant) grid (`serve/kernel_bench.py`) and print one JSON line a
+    grid cell, stamped with one provenance; `--out` writes (or with
+    `--append` appends) the same lines to a file."""
+    import time
+
+    from solvingpapers_tpu_torch.serve.bench import bench_provenance
+    from solvingpapers_tpu_torch.serve.kernel_bench import run_kernel_bench
+
+    entries = run_kernel_bench(
+        config=args.config, n_slots=args.slots, max_len=args.max_len,
+        page_size=args.page_size, quant_block=args.kv_quant_block,
+        sample_cap=args.sample_cap, spec_k=args.spec_k,
+        decode_block=args.decode_block, reps=args.reps, seed=args.seed,
+        device=_device(args))
+    # one stamp a run: the grid's entries share one clock reading
+    prov = bench_provenance(timestamp=time.time())
+    lines = [json.dumps({**prov, **e}) for e in entries]
+    for line in lines:
+        print(line)
+    if args.out:
+        with open(args.out, "a" if args.append else "w") as f:
+            for line in lines:
+                f.write(line + "\n")
+        verb = "appended to" if args.append else "wrote"
+        print(f"[kernel-bench] {verb} {args.out}", file=sys.stderr)
     return 0
 
 
@@ -883,12 +958,14 @@ def _add_kv_quant(p, exact: bool) -> None:
 
 def _add_speculative(p) -> None:
     """The speculative decoding engine flags (`ServeConfig.speculative`,
-    `spec_k`, `spec_rounds`); the ServeConfig refuses "mtp" (A6.2)."""
+    `spec_k`, `spec_rounds`)."""
     p.add_argument("--speculative", default=None, choices=["ngram", "mtp"],
                    help="speculative decoding: n-gram prompt-lookup "
-                        "self-drafting; greedy streams stay token-exact, "
-                        "stochastic distributions unchanged (mtp: not "
-                        "ported, ROADMAP A6.2)")
+                        "self-drafting, or mtp: a DeepSeek-V3 model's "
+                        "multi-token-prediction heads (lane pool; spec-k "
+                        "clamps to the heads, at most 2); greedy streams "
+                        "stay token-exact, stochastic distributions "
+                        "unchanged")
     p.add_argument("--spec-k", type=int, default=4,
                    help="[--speculative] draft tokens per round")
     p.add_argument("--spec-rounds", type=int, default=None,
@@ -923,8 +1000,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_sample.add_argument("--top-k", type=int, default=50)
     p_sample.add_argument("--temperature", type=float, default=1.0)
     p_sample.add_argument("--greedy", action="store_true")
-    p_sample.add_argument("--speculative", action="store_true",
-                          help="not ported (ROADMAP A6.2)")
+    p_sample.add_argument(
+        "--speculative", action="store_true",
+        help="MTP self-speculative greedy decode (models with mtp_heads "
+             ">= 1): identical output to --greedy in fewer forwards; "
+             "prints acceptance stats to stderr")
+    p_sample.add_argument(
+        "--spec-drafts", type=int, default=1, choices=(1, 2),
+        help="[--speculative] chained MTP heads to draft with (2 needs "
+             "mtp_heads >= 2; commits up to 3 tokens per forward)")
     p_sample.add_argument("--seed", type=int, default=0)
 
     p_eval = sub.add_parser("eval")
@@ -1243,8 +1327,39 @@ def build_parser() -> argparse.ArgumentParser:
                             "server's for byte-exactness without a "
                             "checkpoint")
 
-    for name in UNPORTED:
-        sub.add_parser(name, help=f"not ported (ROADMAP {UNPORTED[name]})")
+    p_kern = sub.add_parser(
+        "kernel-bench",
+        help="fenced min-of-reps microbenchmarks of the serving stack's hot "
+             "ops — gather/scatter/quant-roundtrip/splice/sample/"
+             "spec-verify over the (pool layout x kv_quant) grid "
+             "(serve/kernel_bench.py)")
+    p_kern.add_argument("--config", default="gpt_shakespeare",
+                        help="registered decoder config whose cache shapes "
+                             "the ops are benched at")
+    p_kern.add_argument("--slots", type=int, default=8)
+    p_kern.add_argument("--max-len", type=int, default=256,
+                        help="lane length in tokens (rounded down to the "
+                             "page/quant-block grain and the model's "
+                             "position budget)")
+    p_kern.add_argument("--page-size", type=int, default=16)
+    p_kern.add_argument("--kv-quant-block", type=int, default=16)
+    p_kern.add_argument("--sample-cap", type=int, default=64)
+    p_kern.add_argument("--spec-k", type=int, default=4,
+                        help="draft width of the speculative 1+k verify "
+                             "window op")
+    p_kern.add_argument("--decode-block", type=int, default=16,
+                        help="recorded knob: bounds the int8 scatter's "
+                             "window as the engine passes it")
+    p_kern.add_argument("--reps", type=int, default=5,
+                        help="fenced repetitions per op (min is kept)")
+    p_kern.add_argument("--seed", type=int, default=0)
+    p_kern.add_argument("--out", default=None,
+                        help="also write the JSON-lines entries here")
+    p_kern.add_argument("--append", action="store_true",
+                        help="append to --out instead of overwriting")
+    p_kern.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where to run (default cuda; raises when there "
+                             "is no card)")
 
     return parser
 
@@ -1252,10 +1367,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     prog = "solvingpapers_tpu_torch"
-    if argv and argv[0] in UNPORTED:  # whatever flags follow
-        print(f"{prog} {argv[0]}: not ported yet (ROADMAP "
-              f"{UNPORTED[argv[0]]})", file=sys.stderr)
-        return 2
     if argv and argv[0] == "serve-bench":
         for arg in argv[1:]:
             flag = arg.split("=", 1)[0]
@@ -1268,7 +1379,8 @@ def main(argv=None) -> int:
     run = {"list": cmd_list, "train": cmd_train, "sample": cmd_sample,
            "eval": cmd_eval, "export": cmd_export, "serve": cmd_serve,
            "serve-bench": cmd_serve_bench, "replay": cmd_replay,
-           "trace-summary": cmd_trace_summary}[args.cmd]
+           "trace-summary": cmd_trace_summary,
+           "kernel-bench": cmd_kernel_bench}[args.cmd]
     try:
         return run(args)
     except (Refused, NotImplementedError) as e:

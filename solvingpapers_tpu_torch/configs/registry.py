@@ -290,6 +290,32 @@ def _dsv3_tinystories() -> RunConfig:
     )
 
 
+@register("dsv3_mtp")
+def _dsv3_mtp() -> RunConfig:
+    """The flagship with multi-token prediction on (2 heads, loss weight
+    0.3), as the reference registers it: dim 512, 6 layers, 8 heads,
+    latent 64, 8 experts top-2 with a shared expert, dropout 0.1, bf16,
+    16 x 256 tokens a step on the char corpus (the factory resizes the
+    vocab)."""
+    return RunConfig(
+        name="dsv3_mtp",
+        model_family="deepseekv3",
+        model=DeepSeekV3Config(dtype="bfloat16", mtp_heads=2, pe_scale=0.02),
+        train=TrainConfig(
+            steps=10_000, batch_size=16, log_every=50, eval_every=500,
+            eval_batches=8, ckpt_every=1000,
+            optimizer=OptimizerConfig(
+                name="adamw", max_lr=6e-4, warmup_steps=400, total_steps=10_000,
+                b1=0.9, b2=0.95, weight_decay=0.1, grad_clip=1.0,
+            ),
+            tokens_per_step=16 * 256,
+        ),
+        data={"kind": "char", "path": None, "block_size": 256},
+        notes="deepseekv3 with mtp_heads=2 live (the reference's dormant "
+              "branch); main CE + 0.3 x MTP loss",
+    )
+
+
 # Entropy-calibrated rows on the order-2 Markov corpus (`data.synthetic`
 # MarkovSource): the corpus's exact entropy rate is an absolute val-loss
 # target.

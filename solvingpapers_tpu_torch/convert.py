@@ -40,8 +40,16 @@ Flax shapes):
                                          -> layers.i.moe.{w1,w2,w3}
     layer_i/moe/shared_expert/{gate,up,down}/kernel
                                          -> layers.i.moe.shared_expert.{...}.weight
+    layer_i/moe/noise/kernel (D, E)      -> layers.i.moe.noise.weight (noisy_topk)
     moe_state layer_i/moe/routing_bias (E,)
                                          -> layers.i.moe.routing_bias (buffer)
+
+    Its MTP heads (k = 1..mtp_heads) keep their Flax names:
+    mtp_norm_{h,e}_k/{weight,bias}       -> mtp_norm_{h,e}_k.{weight,bias}
+    mtp_{merge,proj}_k/kernel            -> mtp_{merge,proj}_k.weight
+    mtp_layer_k/...                      -> mtp_layer_k.... (a decoder layer,
+                                            mapped as layer_i above, its
+                                            moe_state routing bias included)
 
 Every Dense `kernel` (in, out) becomes a `weight` (out, in); a Dense
 `bias` keeps its shape and is split like its kernel.

@@ -1,4 +1,5 @@
-"""KV and latent caches and one-shot generation (port of `solvingpapers_tpu/infer`)."""
+"""KV and latent caches, one-shot generation and MTP speculative decoding
+(port of `solvingpapers_tpu/infer`)."""
 
 from solvingpapers_tpu_torch.infer.cache import (
     KVCache,
@@ -7,6 +8,7 @@ from solvingpapers_tpu_torch.infer.cache import (
     update_latent_cache,
 )
 from solvingpapers_tpu_torch.infer.decode import generate
+from solvingpapers_tpu_torch.infer.speculative import generate_speculative
 
-__all__ = ["KVCache", "LatentCache", "generate", "update_kv_cache",
-           "update_latent_cache"]
+__all__ = ["KVCache", "LatentCache", "generate", "generate_speculative",
+           "update_kv_cache", "update_latent_cache"]

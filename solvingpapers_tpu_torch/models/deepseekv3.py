@@ -41,8 +41,23 @@ forward over the pool and passes ``row_routing=True``: capacity comes
 from one row's length and slots are ranked within each row, so no
 request's routing depends on its neighbours (`ops.moe`, `rows`).
 
-Not ported (raise, naming their ROADMAP items): multi-token prediction
-and `noisy_topk` (A6), context parallelism and expert parallelism (A7).
+Multi-token prediction (`mtp_heads` K > 0): head k merges
+``[LayerNorm(h), LayerNorm(emb(token at i + k))]`` through `mtp_merge_k`,
+runs its own decoder layer `mtp_layer_k` (its own MoE and routing bias)
+and `mtp_proj_k`, then the tied head: logits that predict token i + k +
+1. Heads chain (head k's layer output is head k + 1's h). `forward(...,
+return_mtp=True)` returns them as (B, T, K, V); `mtp_head_apply` is the
+one form of a head, with its own `LatentCache` for speculative decoding
+(`infer/speculative.py`, the serving engine's MTP drafter). In training
+head k's layer draws its masks from ``mix_seed(dropout_seed, n_layers +
+k)``.
+
+`noisy_topk` adds ``softplus(noise(x)) * N(0, 1)`` to the gate logits in
+training; the Gaussian comes from a generator seeded by the layer's
+seed (``mix_seed(seed, 2)``), so a remat recompute draws it again.
+
+Not ported (raise, naming their ROADMAP item): context parallelism and
+expert parallelism (A7).
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from solvingpapers_tpu_torch.models.layers import (
     GLUFFN,
     Dense,
     Embed,
+    LayerNorm,
     RMSNorm,
     apply_flash_attention,
     default_positions,
@@ -241,15 +257,15 @@ class MoELayer(nn.Module):
 
     def __init__(self, cfg: DeepSeekV3Config, device=None, param_dtype=None):
         super().__init__()
-        if cfg.noisy_topk:
-            raise NotImplementedError(
-                "noisy top-k gating is not ported (ROADMAP A6)")
         self.cfg = cfg
         dt = cfg.compute_dtype
         stored = param_dtype or dt
         d, h, e = cfg.dim, cfg.expert_hidden, cfg.n_experts
         self.gate = Dense(d, e, dtype=torch.float32, param_dtype=torch.float32,
                           device=device)
+        if cfg.noisy_topk:
+            self.noise = Dense(d, e, dtype=torch.float32,
+                               param_dtype=torch.float32, device=device)
         self.register_buffer("routing_bias",
                              torch.zeros(e, dtype=torch.float32, device=device))
         self.w1 = _empty((e, d, h), stored, device)
@@ -259,11 +275,18 @@ class MoELayer(nn.Module):
             GLUFFN(d, h, ops.swish, dtype=dt, param_dtype=param_dtype,
                    device=device) if cfg.use_shared_expert else None)
 
-    def forward(self, x, deterministic, row_routing=False):
+    def noise_scale(self, xt):
+        """`noisy_topk`'s per-token, per-expert noise scale: softplus of
+        the `noise` projection of the float32 tokens (T, D) -> (T, E)."""
+        z = self.noise(xt.float())
+        return torch.logaddexp(z, torch.zeros_like(z))  # jax.nn.softplus
+
+    def forward(self, x, deterministic, row_routing=False, seed=None):
         """(B, S, D) -> ((B, S, D) in x's dtype, stats). With `row_routing`
         each row is dispatched as its own batch-1 forward would be
         (capacity from S, slots ranked within the row; see the module's
-        docstring). stats is None
+        docstring). `seed` (training) seeds `noisy_topk`'s Gaussian.
+        stats is None
         when `deterministic`; in training it holds the layer's routing
         stats (`MOE_METRICS`, `ci`), `new_bias` (with aux-free balancing)
         and `balance_loss` (differentiable; when its weight is set)."""
@@ -272,6 +295,10 @@ class MoELayer(nn.Module):
         dt = cfg.compute_dtype
         xt = x.reshape(b * s, d).to(dt)
         gate_logits = self.gate(xt.float())
+        if cfg.noisy_topk and not deterministic:
+            gen = torch.Generator(device=x.device).manual_seed(mix_seed(seed, 2))
+            gate_logits = gate_logits + self.noise_scale(xt) * torch.randn(
+                gate_logits.shape, generator=gen, device=x.device)
         bias = self.routing_bias
         biased = gate_logits + bias if cfg.use_aux_free else gate_logits
         probs = ops.moe.topk_gate_probs(biased, cfg.top_experts)
@@ -340,7 +367,7 @@ class DSV3DecoderLayer(nn.Module):
         h, cache = self.mla(self.norm1(x), positions, seed, deterministic,
                             cache, attend_len)
         x = x + h
-        h, stats = self.moe(self.norm2(x), deterministic, row_routing)
+        h, stats = self.moe(self.norm2(x), deterministic, row_routing, seed)
         return x + h, stats, cache
 
 
@@ -359,10 +386,6 @@ class DeepSeekV3(nn.Module):
         if cfg.context_parallel or cfg.ep_impl != "sliced":
             raise NotImplementedError(
                 "context and expert parallelism are not ported (ROADMAP A7)")
-        if cfg.mtp_heads > 0:
-            raise NotImplementedError(
-                "multi-token prediction (mtp_heads > 0) is not ported "
-                "(ROADMAP A6)")
         device = resolve_device(device)
         self.cfg = cfg
         rope = (ops.precompute_rope(cfg.rope_dim, cfg.block_size, cfg.rope_theta,
@@ -377,6 +400,19 @@ class DeepSeekV3(nn.Module):
             DSV3DecoderLayer(cfg, rope, device=device, param_dtype=param_dtype)
             for _ in range(cfg.n_layers))
         self.norm_f = RMSNorm(cfg.dim, cfg.norm_eps, device=device)
+        dt = cfg.compute_dtype
+        for k in range(1, cfg.mtp_heads + 1):
+            setattr(self, f"mtp_norm_h_{k}", LayerNorm(cfg.dim, device=device))
+            setattr(self, f"mtp_norm_e_{k}", LayerNorm(cfg.dim, device=device))
+            setattr(self, f"mtp_merge_{k}",
+                    Dense(2 * cfg.dim, cfg.dim, dtype=dt,
+                          param_dtype=param_dtype, device=device))
+            setattr(self, f"mtp_layer_{k}",
+                    DSV3DecoderLayer(cfg, rope, device=device,
+                                     param_dtype=param_dtype))
+            setattr(self, f"mtp_proj_{k}",
+                    Dense(cfg.dim, cfg.dim, dtype=dt, param_dtype=param_dtype,
+                          device=device))
 
     @property
     def device(self) -> torch.device:
@@ -392,10 +428,17 @@ class DeepSeekV3(nn.Module):
                 attend_len: int | None = None,
                 dropout_seed: int | None = None,
                 return_stats: bool = False,
-                row_routing: bool = False):
+                row_routing: bool = False,
+                return_mtp: bool = False,
+                return_hidden: bool = False):
         """tokens (B, S) -> (logits (B, S, vocab) in the compute dtype,
         caches), or (logits, caches, stats) with `return_stats`: stats is
-        the per-layer list of MoE stats dicts (None in eval mode).
+        the per-layer list of MoE stats dicts (None in eval mode), the
+        main layers' then, with `return_mtp`, the MTP layers'.
+        `return_mtp` (a model with `mtp_heads` K > 0) makes the first
+        element ``(logits, mtp_logits (B, S, K, vocab))``; `return_hidden`
+        makes it ``(logits, hidden)``, the post-`norm_f` stream the MTP
+        heads read (speculative decoding). The two exclude each other.
         `caches` (from `init_caches`) and `attend_len` select the cached
         modes (see the module's docstring); a cached forward refuses
         training mode with dropout. `row_routing` routes each row's
@@ -407,6 +450,11 @@ class DeepSeekV3(nn.Module):
         masks from ``mix_seed(dropout_seed, i)``, the final dropout from
         ``mix_seed(dropout_seed, n_layers)``. Eval mode is deterministic."""
         cfg = self.cfg
+        mtp = return_mtp and cfg.mtp_heads > 0
+        if return_hidden and mtp:
+            # both returns unpack as ((logits, X), caches): allowing both
+            # would hand mtp_logits to a caller expecting the hidden stream
+            raise ValueError("return_hidden and return_mtp are mutually exclusive")
         if attend_len is not None and caches is None:
             raise ValueError("attend_len is a cached prefill's: pass caches")
         if (caches is not None and self.training
@@ -443,6 +491,24 @@ class DeepSeekV3(nn.Module):
         x = x * (2.0 * cfg.n_layers**-0.5)  # deepseek depth scaling
         x = self.norm_f(x)
         logits = nn.functional.linear(x.to(dt), self.tok_emb.weight.to(dt))
+        if mtp:
+            # head k reads the embedding of the token k ahead (zeros past
+            # the end: the loss masks those targets) and the previous
+            # head's layer output
+            mtp_logits = []
+            h = x
+            for k in range(1, cfg.mtp_heads + 1):
+                shifted = nn.functional.pad(tokens[:, k:], (0, k))
+                seed = (None if deterministic
+                        else mix_seed(dropout_seed, cfg.n_layers + k))
+                lg, h, _, st = mtp_head_apply(self, h, shifted, positions,
+                                              head=k, seed=seed,
+                                              row_routing=row_routing)
+                mtp_logits.append(lg)
+                stats.append(st)
+            logits = (logits, torch.stack(mtp_logits, dim=2))
+        elif return_hidden:
+            logits = (logits, x)
         if return_stats:
             return logits, new_caches, (None if deterministic else stats)
         return logits, new_caches
@@ -459,17 +525,77 @@ class DeepSeekV3(nn.Module):
                 for _ in range(cfg.n_layers)]
 
 
+def mtp_head_apply(model: DeepSeekV3, h, next_tokens, positions, *,
+                   cache: LatentCache | None = None,
+                   attend_len: int | None = None, head: int = 1,
+                   seed: int | None = None, row_routing: bool = False):
+    """MTP head `head` of `model`: ``merged = mtp_merge([LayerNorm(h),
+    LayerNorm(emb(next_tokens))])`` -> `mtp_layer` (with its own latent
+    `cache` when given: at decode the head is a small autoregressive
+    model over merged rows; `cache` and `attend_len` select the layer's
+    modes as in the main forward) -> `mtp_proj` -> the tied head.
+
+    h: (B, S, D) post-`norm_f` hiddens at `positions` (the previous
+    head's layer output when heads chain); next_tokens: (B, S) the token
+    at position + head of each column. `seed` None runs the layer
+    deterministic; an int seeds its dropout. Returns (logits, y, cache,
+    stats): logits[:, i] predicts the token at ``positions[:, i] + head +
+    1``, y is the layer's output (the next head's h), stats its MoE stats
+    (None when deterministic)."""
+    cfg = model.cfg
+    dt = cfg.compute_dtype
+    emb = model.tok_emb(next_tokens)
+    merged = torch.cat([getattr(model, f"mtp_norm_h_{head}")(h),
+                        getattr(model, f"mtp_norm_e_{head}")(emb)],
+                       dim=-1).to(dt)
+    merged = getattr(model, f"mtp_merge_{head}")(merged)
+    y, stats, cache = getattr(model, f"mtp_layer_{head}")(
+        merged, positions, seed, cache, attend_len, row_routing)
+    proj = getattr(model, f"mtp_proj_{head}")(y)
+    logits = nn.functional.linear(proj.to(dt), model.tok_emb.weight.to(dt))
+    return logits, y, cache, stats
+
+
+def _layer_params(sd: dict, p: str, cfg: DeepSeekV3Config, normal,
+                  generator, dev) -> None:
+    """One decoder layer's parameters under prefix `p` (a main layer's
+    or an MTP head's)."""
+    d, n, hd, lat, r = (cfg.dim, cfg.n_heads, cfg.head_dim, cfg.latent_dim,
+                        cfg.rope_dim)
+    e, h = cfg.n_experts, cfg.expert_hidden
+    sd[p + "norm1.weight"] = torch.ones(d, device=dev)
+    sd[p + "mla.w_dkv.weight"] = _lecun_normal((d, lat), generator, dev)
+    sd[p + "mla.w_q"] = normal(d, n, hd)
+    sd[p + "mla.w_k"] = normal(lat, n, hd)
+    sd[p + "mla.w_v"] = normal(lat, n, hd)
+    if r:
+        sd[p + "mla.w_qr"] = normal(d, n, r)
+        sd[p + "mla.w_kr.weight"] = _lecun_normal((d, r), generator, dev)
+    sd[p + "mla.out.weight"] = _lecun_normal((n * hd, d), generator, dev)
+    sd[p + "norm2.weight"] = torch.ones(d, device=dev)
+    sd[p + "moe.gate.weight"] = _lecun_normal((d, e), generator, dev)
+    if cfg.noisy_topk:
+        sd[p + "moe.noise.weight"] = _lecun_normal((d, e), generator, dev)
+    sd[p + "moe.routing_bias"] = torch.zeros(e, device=dev)
+    sd[p + "moe.w1"] = normal(e, d, h)
+    sd[p + "moe.w2"] = normal(e, d, h)
+    sd[p + "moe.w3"] = normal(e, h, d)
+    if cfg.use_shared_expert:
+        for name, shape in (("gate", (d, h)), ("up", (d, h)), ("down", (h, d))):
+            sd[p + f"moe.shared_expert.{name}.weight"] = _lecun_normal(
+                shape, generator, dev)
+
+
 def init_params(cfg: DeepSeekV3Config, generator: torch.Generator) -> dict:
     """Random float32 parameters from the reference's (Flax's)
     initializers, on the generator's device: normal(0.02) for the
     embedding, w_q, w_k, w_v, w_qr and the stacked experts; lecun_normal
-    for every Dense kernel; ones for norm weights; a zero routing bias.
-    The bits differ from a JAX init; the distributions are the same.
-    Returns a state dict for `DeepSeekV3.load_state_dict`."""
+    for every Dense kernel; ones for norm weights, zeros for the MTP
+    LayerNorms' biases; a zero routing bias. The bits differ from a JAX
+    init; the distributions are the same. Returns a state dict for
+    `DeepSeekV3.load_state_dict`."""
     dev = generator.device
-    d, n, hd, lat, r = (cfg.dim, cfg.n_heads, cfg.head_dim, cfg.latent_dim,
-                        cfg.rope_dim)
-    e, h = cfg.n_experts, cfg.expert_hidden
+    d = cfg.dim
 
     def normal(*shape):
         return torch.empty(shape, device=dev).normal_(0.0, 0.02,
@@ -477,34 +603,26 @@ def init_params(cfg: DeepSeekV3Config, generator: torch.Generator) -> dict:
 
     sd = {"tok_emb.weight": normal(cfg.vocab_size, d)}
     for i in range(cfg.n_layers):
-        p = f"layers.{i}."
-        sd[p + "norm1.weight"] = torch.ones(d, device=dev)
-        sd[p + "mla.w_dkv.weight"] = _lecun_normal((d, lat), generator, dev)
-        sd[p + "mla.w_q"] = normal(d, n, hd)
-        sd[p + "mla.w_k"] = normal(lat, n, hd)
-        sd[p + "mla.w_v"] = normal(lat, n, hd)
-        if r:
-            sd[p + "mla.w_qr"] = normal(d, n, r)
-            sd[p + "mla.w_kr.weight"] = _lecun_normal((d, r), generator, dev)
-        sd[p + "mla.out.weight"] = _lecun_normal((n * hd, d), generator, dev)
-        sd[p + "norm2.weight"] = torch.ones(d, device=dev)
-        sd[p + "moe.gate.weight"] = _lecun_normal((d, e), generator, dev)
-        sd[p + "moe.routing_bias"] = torch.zeros(e, device=dev)
-        sd[p + "moe.w1"] = normal(e, d, h)
-        sd[p + "moe.w2"] = normal(e, d, h)
-        sd[p + "moe.w3"] = normal(e, h, d)
-        if cfg.use_shared_expert:
-            for name, shape in (("gate", (d, h)), ("up", (d, h)), ("down", (h, d))):
-                sd[p + f"moe.shared_expert.{name}.weight"] = _lecun_normal(
-                    shape, generator, dev)
+        _layer_params(sd, f"layers.{i}.", cfg, normal, generator, dev)
     sd["norm_f.weight"] = torch.ones(d, device=dev)
+    for k in range(1, cfg.mtp_heads + 1):
+        for norm in ("h", "e"):
+            sd[f"mtp_norm_{norm}_{k}.weight"] = torch.ones(d, device=dev)
+            sd[f"mtp_norm_{norm}_{k}.bias"] = torch.zeros(d, device=dev)
+        sd[f"mtp_merge_{k}.weight"] = _lecun_normal((2 * d, d), generator, dev)
+        _layer_params(sd, f"mtp_layer_{k}.", cfg, normal, generator, dev)
+        sd[f"mtp_proj_{k}.weight"] = _lecun_normal((d, d), generator, dev)
     return sd
 
 
-def routing_state(stats: list) -> dict:
+def routing_state(stats: list, n_layers: int | None = None) -> dict:
     """The new routing biases of a training forward's stats, as
-    {buffer name: tensor} for `Trainer` to install after its step."""
-    return {f"layers.{i}.moe.routing_bias": st["new_bias"]
+    {buffer name: tensor} for `Trainer` to install after its step. The
+    first `n_layers` entries (default: all) are the main layers', the
+    rest the MTP layers' (``return_mtp``), head 1 first."""
+    n_layers = len(stats) if n_layers is None else n_layers
+    return {(f"layers.{i}" if i < n_layers else f"mtp_layer_{i - n_layers + 1}")
+            + ".moe.routing_bias": st["new_bias"]
             for i, st in enumerate(stats) if st is not None and "new_bias" in st}
 
 

@@ -10,7 +10,7 @@ from solvingpapers_tpu_torch.ops.attention import (
     repeat_kv,
 )
 from solvingpapers_tpu_torch.ops import moe
-from solvingpapers_tpu_torch.ops.losses import cross_entropy
+from solvingpapers_tpu_torch.ops.losses import cross_entropy, mtp_loss
 from solvingpapers_tpu_torch.ops.norms import layer_norm, rms_norm
 from solvingpapers_tpu_torch.ops.rope import (
     apply_rope,
@@ -37,6 +37,7 @@ __all__ = [
     "layer_norm",
     "min_p_mask",
     "moe",
+    "mtp_loss",
     "precompute_rope",
     "repeat_kv",
     "rms_norm",

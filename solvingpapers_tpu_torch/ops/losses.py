@@ -1,5 +1,5 @@
-"""Token cross-entropy (port of `cross_entropy` in
-`solvingpapers_tpu/ops/losses.py`).
+"""Token cross-entropy and the multi-token-prediction loss (port of
+`cross_entropy` and `mtp_loss` in `solvingpapers_tpu/ops/losses.py`).
 
 Mean cross-entropy of integer labels over logits of any float dtype,
 computed in float32, with an optional ``ignore_index``. Past
@@ -63,3 +63,31 @@ def _nll_sum_count(logits: torch.Tensor, labels: torch.Tensor,
     picked = lg.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
     mask = valid.float()
     return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def mtp_loss(logits: torch.Tensor, tokens: torch.Tensor, num_heads: int,
+             ignore_index: int | None = None,
+             axis_names: tuple | None = None) -> torch.Tensor:
+    """Multi-token-prediction loss: `logits` (B, T, K, V), head k at
+    position i predicting token i + k + 1 of `tokens` (B, T + K), the
+    raw stream that holds the shifted targets. The flat mean
+    cross-entropy over every (position, head) pair with a valid target.
+    `axis_names` (the context-parallel sum over shards) raises: context
+    parallelism is ROADMAP A7."""
+    if axis_names is not None:
+        raise NotImplementedError(
+            "mtp_loss over context-parallel shards (axis_names) is not "
+            "ported (ROADMAP A7)")
+    b, t, k, v = logits.shape
+    if k != num_heads:
+        raise ValueError(f"logits hold {k} heads, num_heads is {num_heads}")
+    if tokens.shape[-1] != t + k:
+        raise ValueError(
+            f"tokens must have T+K={t + k} columns to provide shifted targets, "
+            f"got {tokens.shape[-1]}")
+    # targets[b, i, k] = tokens[b, i + k + 1]
+    idx = (torch.arange(t, device=tokens.device)[:, None]
+           + torch.arange(1, k + 1, device=tokens.device)[None, :])
+    targets = tokens[:, idx]
+    return cross_entropy(logits.reshape(b * t * k, v), targets.reshape(-1),
+                         ignore_index)

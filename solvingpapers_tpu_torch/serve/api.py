@@ -105,7 +105,7 @@ from solvingpapers_tpu_torch.metrics.http import healthz_response
 from solvingpapers_tpu_torch.metrics.writer import PrometheusTextWriter
 from solvingpapers_tpu_torch.serve import metrics as smetrics
 from solvingpapers_tpu_torch.serve import openai as oai
-from solvingpapers_tpu_torch.serve.engine import weak_method
+from solvingpapers_tpu_torch.serve.engine import check_drafter, weak_method
 from solvingpapers_tpu_torch.serve.grammar import JsonStepper
 from solvingpapers_tpu_torch.serve.openai import ApiError
 from solvingpapers_tpu_torch.serve.scheduler import ACTIVE
@@ -638,6 +638,9 @@ class ApiServer:
             try:
                 candidate = replay_mod.apply_overrides(self.engine.config,
                                                        dict(overrides))
+                # the engine's drafter checks, before a run is accepted
+                check_drafter(getattr(self.engine.model, "cfg", None),
+                              candidate)
             except (ValueError, TypeError) as e:
                 raise ApiError(str(e), param="config_overrides") from None
             max_requests = int(body.get("max_requests", 256))

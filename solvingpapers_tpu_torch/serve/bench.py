@@ -65,13 +65,16 @@ Every workload warms the engine on one request per prompt length before
 its timed arms, and runs a probe first: the warm trace once, recording
 `peak_hbm_bytes`, the device's measured peak allocation over that run
 (`torch.cuda.max_memory_allocated` after `reset_peak_memory_stats`; on
-the CPU the key is absent). The reference's probe reads the XLA compile
-registry and memory ledger instead (a projected peak) and also records
-`compile_time_s`, `compile_programs`, `compile_compilations` and
-`decode_step_wall_s`; eager PyTorch compiles no program, so those come
-with the compile observatory's twin, and the paged decode decomposition
-(`gather_wall_s` ... `attention_share_pct`) and the `anatomy_*` arm with
-the kernel bench.
+the CPU the key is absent), and `decode_step_wall_s`, the mean host
+wall of the probe engine's decode blocks (`_decode_step_wall_s`). The
+reference's probe reads the XLA compile registry and memory ledger
+instead (a projected peak, the fenced wall of its compiled decode
+program) and also records `compile_time_s`, `compile_programs` and
+`compile_compilations`; eager PyTorch compiles no program, so those come
+with the compile observatory's twin (A8), as does the paged workload's
+`anatomy_*` arm. The paged and quant workloads carry the paged decode
+decomposition (`gather_wall_s` ... `attention_share_pct`,
+`serve/kernel_bench.py::paged_decode_decomposition`) against that wall.
 
 Two paged fields keep their names and take the port's pool as their
 witness: `splice_programs_dispatched` counts the device copies
@@ -389,11 +392,26 @@ def _run_sequential_arm(model, requests, max_new):
     return makespan, float(np.mean(ttfts))
 
 
+def _decode_step_wall_s(eng) -> float | None:
+    """The mean host wall of `eng`'s decode blocks (its `decode_block_s`
+    samples, `serve/metrics.py`) without the first, which pays the run's
+    one-time costs (the whole mean when it is the only one); None before
+    any block. Each sample ends at the block's token read, which waits for
+    the device, so it includes the device's work. The reference reads the
+    fenced per-call wall of its compiled decode program from XLA's compile
+    registry instead (A8)."""
+    vals = eng.metrics.decode_block.values
+    if not vals:
+        return None
+    return float(np.mean(vals[1:] if len(vals) > 1 else vals))
+
+
 def _obs_probe(model, warm_requests, serve_cfg, max_new, params_for=None,
                arms: _Arms | None = None, status_port: int | None = None):
     """The warm trace once through an engine of `serve_cfg`, before the
     plain warmup: on the card, its measured peak allocation
-    (`peak_hbm_bytes`); on the CPU, no field. Returns (fields, engine).
+    (`peak_hbm_bytes`; on the CPU, no field), and its decode blocks' wall
+    (`decode_step_wall_s`, when it ran one). Returns (fields, engine).
     The engine is dropped before the timed arms allocate theirs (engine
     None), unless `status_port` is given: then it serves /healthz
     /metrics /statusz /timeseriesz for the rest of the run (its port in
@@ -401,17 +419,18 @@ def _obs_probe(model, warm_requests, serve_cfg, max_new, params_for=None,
     import sys
 
     arms = arms or _Arms(model.device)
-    if status_port is None:
-        arms.run("probe", _engine_arm_stats, model, warm_requests, serve_cfg,
-                 max_new, params_for=params_for)
-        eng = None
-    else:
-        cfg = dataclasses.replace(serve_cfg, status_port=status_port)
-        eng, _, _ = arms.run("probe", _run_engine_arm, model, warm_requests,
-                             cfg, max_new, params_for=params_for)
+    cfg = (serve_cfg if status_port is None
+           else dataclasses.replace(serve_cfg, status_port=status_port))
+    eng, _, _ = arms.run("probe", _run_engine_arm, model, warm_requests, cfg,
+                         max_new, params_for=params_for)
     peak = arms.log["probe"].get("peak_bytes")
     fields = {} if peak is None else {"peak_hbm_bytes": peak}
-    if eng is not None:
+    step_wall = _decode_step_wall_s(eng)
+    if step_wall is not None:
+        fields["decode_step_wall_s"] = round(step_wall, 6)
+    if status_port is None:
+        eng = None  # its pool frees before the timed arms allocate theirs
+    else:
         fields["status_port"] = eng.status.port
         print(f"[serve-bench] status endpoint live at "
               f"http://{eng.status.host}:{eng.status.port} (/healthz /metrics "
@@ -838,6 +857,19 @@ def run_paged_bench(
         **kv["on"],
         **probe_fields,
     }
+    # ---- 1b. the paged decode block's tax, decomposed: the gather and
+    # scatter timed alone at this entry's shapes against the probe's
+    # decode-block wall (serve/kernel_bench.py)
+    if "decode_step_wall_s" in probe_fields:
+        from solvingpapers_tpu_torch.serve.kernel_bench import (
+            paged_decode_decomposition,
+        )
+
+        detail.update(paged_decode_decomposition(
+            model, n_slots=n_slots, max_len=max_len, page_size=page_size,
+            decode_block=decode_block,
+            step_wall_s=probe_fields["decode_step_wall_s"], kv_quant=None,
+            reps=3, seed=seed))
 
     # ---- 2. capacity at equal pool bytes: 2x slots, lane-pool bytes --
     cap_new = max(8, max_new // 4)  # shorter streams: the mixed-length
@@ -2104,13 +2136,6 @@ QUANT_LEFT_OUT = {
                                    "is arms.capacity.peak_bytes)",
     "anatomy_overhead_pct": "A8 (the anatomy arm)",
     "anatomy_requests_per_sec": "A8 (the anatomy arm)",
-    "gather_wall_s": "A5.3 (paged_decode_decomposition)",
-    "dequant_wall_s": "A5.3 (paged_decode_decomposition)",
-    "scatter_wall_s": "A5.3 (paged_decode_decomposition)",
-    "gather_share_pct": "A5.3 (paged_decode_decomposition)",
-    "dequant_share_pct": "A5.3 (paged_decode_decomposition)",
-    "scatter_share_pct": "A5.3 (paged_decode_decomposition)",
-    "attention_share_pct": "A5.3 (paged_decode_decomposition)",
 }
 
 
@@ -2171,11 +2196,14 @@ def run_quant_bench(
        quantized pool must fit the budget). The lane views the programs
        dequantize into are transient memory beside the pool: on the card
        the capacity arm's measured peak (`arms.capacity.peak_bytes`)
-       discloses them.
+       discloses them. The quantized paged decode block is decomposed at
+       the capacity arm's shapes (`paged_decode_decomposition`, int8)
+       against the wall of the capacity warm-up's decode blocks, whose
+       `decode_step_wall_s` the entry then carries, as the reference's
+       does.
 
-    The reference's XLA program-temp field, its anatomy arm and its paged
-    decode decomposition are left out and named under ``notes``
-    (`QUANT_LEFT_OUT`)."""
+    The reference's XLA program-temp field and its anatomy arm are left
+    out and named under ``notes`` (`QUANT_LEFT_OUT`)."""
     from solvingpapers_tpu_torch.data.synthetic import synthetic_text
 
     model, vocab = build_serve_model(config, device)
@@ -2272,7 +2300,22 @@ def run_quant_bench(
                              "max_waiting": max(256, cap_n)},
                           paged=True, page_size=page_size,
                           page_budget=cap_budget, kv_quant="int8")
-    arms.run("warm_capacity", _engine_arm_stats, model, warm, cap_cfg, cap_new)
+    warm_eng = arms.run("warm_capacity", _run_engine_arm, model, warm, cap_cfg,
+                        cap_new)[0]
+    cap_step_wall = _decode_step_wall_s(warm_eng)
+    del warm_eng
+    # the QUANTIZED paged decode block decomposed at the capacity arm's
+    # shapes: the int8 gather, dequant and scatter shares of its wall
+    decomp_fields: dict = {}
+    if cap_step_wall is not None:
+        from solvingpapers_tpu_torch.serve.kernel_bench import (
+            paged_decode_decomposition,
+        )
+
+        decomp_fields = paged_decode_decomposition(
+            model, n_slots=cap_slots, max_len=max_len, page_size=page_size,
+            decode_block=decode_block, step_wall_s=cap_step_wall,
+            kv_quant="int8", reps=3, seed=seed)
     cap_eng, cap_handles, cap_mk = arms.run("capacity", _run_engine_arm, model,
                                             cap_requests, cap_cfg, cap_new)
     cap_resident = int(cap_eng.pool.nbytes)
@@ -2319,6 +2362,7 @@ def run_quant_bench(
         **kv,
         "greedy_agreement_rate": round(float(agreement), 4),
         **probe_fields,
+        **decomp_fields,
         "notes": "left out: " + "; ".join(
             f"{k}: ROADMAP {v}" for k, v in QUANT_LEFT_OUT.items()),
         "arms": arms.log,

@@ -112,8 +112,19 @@ the quantized pools requantize it with the rejected tail kept at its
 old codes. A host-side controller drops the engine to the plain block
 while drafts keep rejecting.
 
-Not in this slice (kept by the reference, listed in ROADMAP.md): the MTP
-drafter (A6.2) and the compile observatory (A8).
+The MTP drafter (`speculative="mtp"`, a DeepSeek-V3 model with
+`mtp_heads`, lane pool only): the rounds' chunk forward also returns the
+post-norm hiddens, and the model's MTP heads (at most 2, chained as in
+`infer/speculative.py`) redraft each slot's next round from them over
+their own latent lanes (``max_len + k + 1`` rows a slot, one pool a
+head). Admission is the heads' bootstrap: the prompt's prefill fills
+the head lanes beside the main lane and returns the first round's
+drafts. The drafts of the last round carry over to the next call. The
+heads route each slot's tokens as a batch-1 forward would
+(`row_routing`), so MoE capacity never couples two requests.
+
+Not in this slice (kept by the reference, listed in ROADMAP.md): the
+compile observatory (A8).
 """
 
 from __future__ import annotations
@@ -129,6 +140,7 @@ import numpy as np
 import torch
 
 from solvingpapers_tpu_torch.device import resolve_device
+from solvingpapers_tpu_torch.infer.cache import LatentCache
 from solvingpapers_tpu_torch.metrics.profile import ProfileWindow, scope
 from solvingpapers_tpu_torch.serve import metrics as smetrics
 from solvingpapers_tpu_torch.serve.faults import (
@@ -261,9 +273,9 @@ class ServeConfig:
     spec_k / 4)``) and `spec_probe_every` configure the adaptive
     controller (`SpecController`), which drops the engine to plain
     blocks while acceptance stays below the rate, probing again after a
-    backoff. "mtp" (the DeepSeek-V3 multi-token-prediction heads) is
-    ROADMAP A6.2 and refused when the config is made, so every entry
-    point (`cli serve` and `replay`, replay's overrides) refuses it.
+    backoff. "mtp" drafts with a DeepSeek-V3 model's
+    multi-token-prediction heads (k = min(spec_k, mtp_heads, 2)) on the
+    lane pool, without the prefix cache or kv_quant (`check_drafter`).
 
     Prefix cache: `prefix_cache` reuses cached page-aligned prompt
     prefixes of `prefix_page` tokens; `prefix_cache_bytes` caps what the
@@ -437,11 +449,40 @@ class ServeConfig:
             raise ValueError(
                 f"speculative must be one of {DRAFTERS} (or None), "
                 f"got {self.speculative!r}")
-        if self.speculative == "mtp":
-            raise ValueError(
-                "speculative='mtp' drafts with DeepSeek-V3's "
-                "multi-token-prediction heads, which the port does not "
-                "have yet (ROADMAP A6.2): use speculative='ngram'")
+
+
+def check_drafter(model_cfg, cfg: ServeConfig) -> None:
+    """Raise the reference's ValueError when `cfg`'s MTP drafter cannot
+    serve a model of config `model_cfg`: kv_quant, no heads, the paged
+    pool, the prefix cache (in the reference's order). Other drafters
+    pass. The engine calls it; so do `cli serve` / `replay` and the
+    door's replay, before anything is built."""
+    if cfg.speculative != "mtp":
+        return
+    if cfg.kv_quant is not None:
+        raise ValueError(
+            "kv_quant with speculative='mtp' is unsupported: the MTP "
+            "drafter's head-cache lanes are a latent pool of their "
+            "own that the quantized store does not cover yet — use "
+            "speculative='ngram' (either pool) or drop kv_quant")
+    if getattr(model_cfg, "mtp_heads", 0) < 1:
+        raise ValueError(
+            "speculative='mtp' drafts with the model's "
+            "trained multi-token-prediction heads, which "
+            "this model does not have (mtp_heads == 0) — "
+            "use speculative='ngram' for model-free drafting")
+    if cfg.paged:
+        raise ValueError(
+            "speculative='mtp' serves over the lane pool: "
+            "the MTP head cache is a per-slot lane pool of "
+            "its own (paged main-pool support is a "
+            "follow-on) — drop paged or use 'ngram'")
+    if cfg.prefix_cache:
+        raise ValueError(
+            "speculative='mtp' cannot reuse cached prefixes: "
+            "a spliced prefix carries no hidden states for "
+            "the MTP head cache — drop prefix_cache or use "
+            "'ngram'")
 
 
 _UNSET = object()
@@ -484,20 +525,29 @@ def _finite_ok(logits):
     return ok, torch.where(ok[..., None], logits, 0.0)
 
 
-def _prefill_lane(model, padded, chunk, start, lane, prompt, length):
+def _prefill_lane(model, padded, chunk, start, lane, prompt, length,
+                  hidden=False):
     """Chunked-prefill core: run `prompt` ((padded,) ids, right-padded)
     through the batch-1 `lane` from position `start`; returns the lane
     and the logits row of the LAST REAL token (index `length - 1`, taken
-    from whichever chunk holds it)."""
+    from whichever chunk holds it), and with `hidden` the (1, padded, D)
+    post-norm hiddens too (the MTP heads' input)."""
     step = chunk or padded
     last = None
+    hs = []
     for cs in range(0, padded, step):
         ce = min(cs + step, padded)
         positions = torch.arange(start + cs, start + ce, device=prompt.device)[None]
         logits, lane = model(prompt[None, cs:ce], positions=positions,
-                             caches=lane, attend_len=start + ce)
+                             caches=lane, attend_len=start + ce,
+                             **({"return_hidden": True} if hidden else {}))
+        if hidden:
+            logits, h = logits
+            hs.append(h)
         if cs <= length - 1 < ce:
             last = logits[0, length - 1 - cs]
+    if hidden:
+        return lane, last, torch.cat(hs, dim=1)
     return lane, last
 
 
@@ -535,6 +585,65 @@ def _prefill_program(model, padded, chunk, start, cap, caches, prompt, slot,
     else:
         caches = store_lane(caches, lane, slot)
     return caches, head, lp
+
+
+def _mtp_prefill_program(model, padded, chunk, cap, k, caches, mtp, prompt,
+                         slot, length, packed, key, allow=None,
+                         need_lp=False, fault=None):
+    """MTP-engine admission: `_prefill_program`'s contract (lane pool,
+    a full prefill: the MTP engine has no prefix cache, since a spliced
+    prefix has no hiddens for the head lanes) plus the heads' bootstrap,
+    as `infer.speculative.generate_speculative` prefills: head 1's lane
+    over columns [0, padded - 1), where the next-token stream is the
+    prompt (pad columns hold garbage that the rounds write over before
+    any real query attends it), then its advance at column ``length -
+    1`` with the first sampled token, which drafts the token after it;
+    with k == 2 head 2 likewise on head 1's layer outputs. `mtp` is the
+    list of head lane pools, written in place. Returns (caches, head,
+    logprob, drafts (k,))."""
+    from solvingpapers_tpu_torch.models.deepseekv3 import mtp_head_apply
+
+    lane = extract_lane(caches, slot)
+    lane, last, h_all = _prefill_lane(model, padded, chunk, 0, lane, prompt,
+                                      length, hidden=True)
+    caches = store_lane(caches, lane, slot)
+    head, lp = _sample_first(last, cap, packed, key, allow, need_lp, fault)
+    dev = prompt.device
+    step = chunk or padded
+
+    def cols(a, b):
+        return torch.arange(a, b, device=dev)[None]
+
+    m1 = extract_lane([mtp[0]], slot)[0]
+    y1s = []
+    for cs in range(0, padded - 1, step):
+        ce = min(cs + step, padded - 1)
+        _, y1, m1, _ = mtp_head_apply(model, h_all[:, cs:ce],
+                                      prompt[None, cs + 1:ce + 1],
+                                      cols(cs, ce), cache=m1, attend_len=ce)
+        y1s.append(y1)
+    # the bootstrap: the last real token's hidden and the sampled first
+    # token draft position length + 1
+    g, y1_last, m1, _ = mtp_head_apply(model, h_all[:, length - 1:length],
+                                       head[None, :1],
+                                       cols(length - 1, length), cache=m1)
+    drafts = [torch.argmax(g[0, -1])]
+    if k == 2:
+        m2 = extract_lane([mtp[1]], slot)[0]
+        y1_all = torch.cat(y1s, dim=1)  # (1, padded - 1, D)
+        for cs in range(0, padded - 2, step):
+            ce = min(cs + step, padded - 2)
+            _, _, m2, _ = mtp_head_apply(model, y1_all[:, cs:ce],
+                                         prompt[None, cs + 2:ce + 2],
+                                         cols(cs, ce), cache=m2,
+                                         attend_len=ce, head=2)
+        pos_a = min(max(length - 2, 0), padded - 2)
+        y_pair = torch.cat([y1_all[:, pos_a:pos_a + 1], y1_last], dim=1)
+        g2, _, m2, _ = mtp_head_apply(
+            model, y_pair, torch.stack([head[0], drafts[0]])[None],
+            cols(pos_a, pos_a + 2), cache=m2, head=2)
+        drafts.append(torch.argmax(g2[0, -1]))
+    return caches, head, lp, torch.stack(drafts)
 
 
 def _sample_first(last, cap, packed, key, allow, need_lp, fault):
@@ -685,7 +794,7 @@ def _paged_decode_program(model, block, cap, phys, table, toks, pos, active,
 
 def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
                  active, spec_ok, hist, hlen, packed, keys, allow=None,
-                 need_lp=False, fault=None):
+                 need_lp=False, fault=None, mtp=None):
     """The draft-verify rounds both speculative programs share, so the
     commit semantics cannot drift between pools (the reference's
     `_spec_rounds_scan`, its scan a Python loop over batched tensors).
@@ -707,7 +816,21 @@ def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
 
     Returns ``(lanes, out (rounds, S, k+1), commits (rounds, S), proposed
     (rounds, S), logprobs (rounds, S, k+1) or None, finite (S,))``: the
-    host keeps ``out[r, s, :commits[r, s]]`` round by round."""
+    host keeps ``out[r, s, :commits[r, s]]`` round by round.
+
+    The MTP drafter (`mtp`, the head lane pools): `hist` is then the (S,
+    k) drafts of the first round (the admission bootstrap or the previous
+    call's last drafts) and every slot proposes all k. The chunk forward
+    also returns the hiddens, and after the verify each head advances its
+    lane over the chunk's columns: head 1's next-token stream is the
+    verified row ``out`` (columns past the cut are written over by the
+    next round before they are attended), its fresh draft is its argmax
+    at the newest committed column; with k == 2 head 2 runs on head 1's
+    layer outputs with head 1's fresh draft at that column. Returns a
+    seventh value, the (S, k) drafts of the next round (None without
+    `mtp`)."""
+    if mtp is not None:
+        from solvingpapers_tpu_torch.models.deepseekv3 import mtp_head_apply
     dev = toks.device
     s_n = toks.shape[0]
     ar = torch.arange(k + 1, device=dev)
@@ -716,12 +839,20 @@ def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
     cnt = torch.zeros_like(pos)
     ok = torch.ones_like(active)
     outs, commits_r, proposed, lps = [], [], [], []
+    drafts = hist if mtp is not None else None
     for _ in range(rounds):
-        ds, avail = ngram_drafts(hist, hlen, k=k, nmax=nmax)
+        if mtp is None:
+            ds, avail = ngram_drafts(hist, hlen, k=k, nmax=nmax)
+        else:
+            ds, avail = drafts, torch.full_like(toks, k)
         avail = torch.where(spec_ok & active, avail, torch.zeros_like(avail))
         chunk = torch.cat([toks[:, None], ds], dim=1)
         poss = torch.clamp(pos[:, None] + ar, max=max_len - 1)
-        logits, lanes = model(chunk, positions=poss, caches=lanes, **kw)
+        if mtp is None:
+            logits, lanes = model(chunk, positions=poss, caches=lanes, **kw)
+        else:
+            (logits, hs), lanes = model(chunk, positions=poss, caches=lanes,
+                                        return_hidden=True, **kw)
         if fault is not None:
             logits = _inject_fault(logits, fault[:, None])
         step_ok, logits = _finite_ok(logits)
@@ -730,10 +861,24 @@ def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
         out, commits, lp = spec_verify(logits, ds, avail, packed, kr, cap=cap,
                                        allow=allow, need_lp=need_lp)
         commits = torch.where(active, commits, torch.zeros_like(commits))
-        nxt = torch.gather(out, 1, torch.clamp(commits - 1, min=0)[:, None])[:, 0]
+        cut = torch.clamp(commits - 1, min=0)
+        nxt = torch.gather(out, 1, cut[:, None])[:, 0]
         toks = torch.where(active, nxt, toks)
-        hist[rows, hlen[:, None] + ar] = out
-        hlen = torch.clamp(hlen + commits, max=max_len)
+        if mtp is None:
+            hist[rows, hlen[:, None] + ar] = out
+            hlen = torch.clamp(hlen + commits, max=max_len)
+        else:
+            g1, y1, _, _ = mtp_head_apply(model, hs, out, poss, cache=mtp[0],
+                                          **kw)
+            d1 = torch.argmax(g1[rows[:, 0], cut], dim=-1)
+            drafts = d1[:, None]
+            if k == 2:
+                nxt2 = torch.cat([out[:, 1:], out[:, -1:]], dim=1)
+                nxt2 = torch.where(ar[None] == cut[:, None], d1[:, None], nxt2)
+                g2, _, _, _ = mtp_head_apply(model, y1, nxt2, poss,
+                                             cache=mtp[1], head=2, **kw)
+                drafts = torch.stack(
+                    [d1, torch.argmax(g2[rows[:, 0], cut], dim=-1)], dim=1)
         pos = torch.clamp(pos + commits, max=max_len - 1)
         cnt = cnt + commits
         outs.append(out)
@@ -741,7 +886,8 @@ def _spec_rounds(model, k, rounds, cap, max_len, nmax, lanes, toks, pos,
         proposed.append(avail)
         lps.append(lp)
     return (lanes, torch.stack(outs), torch.stack(commits_r),
-            torch.stack(proposed), torch.stack(lps) if need_lp else None, ok)
+            torch.stack(proposed), torch.stack(lps) if need_lp else None, ok,
+            drafts)
 
 
 def _spec_decode_program(model, k, rounds, cap, max_len, nmax, caches, toks,
@@ -760,7 +906,7 @@ def _spec_decode_program(model, k, rounds, cap, max_len, nmax, caches, toks,
     (`tail_garbage`)."""
     quant = isinstance(caches, QuantStore)
     lanes = quant_lanes_view(caches, eidx) if quant else caches
-    lanes, out, commits, proposed, lps, ok = _spec_rounds(
+    lanes, out, commits, proposed, lps, ok, _ = _spec_rounds(
         model, k, rounds, cap, max_len, nmax, lanes, toks, pos, active,
         spec_ok, hist, hlen, packed, keys, allow, need_lp, fault)
     if quant:
@@ -796,7 +942,7 @@ def _paged_spec_decode_program(model, k, rounds, cap, max_len, nmax, phys,
     quant = isinstance(phys, QuantStore)
     lanes = (quant_gather_lanes(phys, table, eidx) if quant
              else gather_lanes(phys, table))
-    lanes, out, commits, proposed, lps, ok = _spec_rounds(
+    lanes, out, commits, proposed, lps, ok, _ = _spec_rounds(
         model, k, rounds, cap, max_len, nmax, lanes, toks, pos, active,
         spec_ok, hist, hlen, packed, keys, allow, need_lp, fault)
     total = commits.sum(dim=0)
@@ -948,6 +1094,7 @@ class ServeEngine:
         # the plain block while drafts keep rejecting
         self._spec = cfg.speculative
         self._spec_ctl = None
+        self._mtp_pool = None
         if cfg.speculative is None:
             if cfg.spec_rounds is not None:
                 raise ValueError(
@@ -960,11 +1107,19 @@ class ServeEngine:
             if cfg.spec_rounds is not None and cfg.spec_rounds < 1:
                 raise ValueError(
                     f"spec_rounds must be >= 1, got {cfg.spec_rounds}")
-            if cfg.spec_ngram < 1:
-                raise ValueError(
-                    f"spec_ngram must be >= 1, got {cfg.spec_ngram}")
-            self._spec_k = cfg.spec_k
             self._spec_rounds = cfg.spec_rounds or cfg.decode_block
+            if cfg.speculative == "mtp":
+                check_drafter(getattr(model, "cfg", None), cfg)
+                self._spec_k = min(cfg.spec_k, model.cfg.mtp_heads, 2)
+                self._mtp_pool = self._make_mtp_pool()
+                # each slot's first drafts of the next spec call
+                self._next_drafts = np.zeros((cfg.n_slots, self._spec_k),
+                                             np.int64)
+            else:
+                if cfg.spec_ngram < 1:
+                    raise ValueError(
+                        f"spec_ngram must be >= 1, got {cfg.spec_ngram}")
+                self._spec_k = cfg.spec_k
             min_rate = cfg.spec_min_rate
             if min_rate is None:
                 min_rate = max(1.0, self._spec_k / 4)
@@ -1461,6 +1616,8 @@ class ServeEngine:
                 ) if m.spec_steps else 0.0,
                 **self._spec_ctl.stats(),
             }
+            if self._mtp_pool is not None:
+                d["spec"]["mtp_cache_bytes"] = self._mtp_bytes()
         if self._slo is not None:
             d["slo"] = self._slo.statusz()
         if self.prefix_cache is not None:
@@ -1807,6 +1964,20 @@ class ServeEngine:
                           quant=cfg.kv_quant, quant_block=cfg.kv_quant_block,
                           exact_lanes=cfg.kv_exact_lanes)
 
+    def _make_mtp_pool(self) -> list:
+        """The MTP drafter's head lanes: one latent pool a head, ``max_len
+        + k + 1`` rows a slot (the slack the reference's decode programs
+        give every lane), in the compute dtype."""
+        mcfg = self.model.cfg
+        return [LatentCache.init(self.config.n_slots,
+                                 self.config.max_len + self._spec_k + 1,
+                                 mcfg.latent_dim + mcfg.rope_dim,
+                                 mcfg.compute_dtype, device=self.device)
+                for _ in range(self._spec_k)]
+
+    def _mtp_bytes(self) -> int:
+        return sum(c.c.numel() * c.c.element_size() for c in self._mtp_pool)
+
     def _make_prefix_cache(self):
         cfg = self.config
         if not cfg.prefix_cache:
@@ -1857,6 +2028,9 @@ class ServeEngine:
         self._exact_free = list(range(cfg.kv_exact_lanes, 0, -1))
         old = self.pool
         self.prefix_cache = None
+        if self._mtp_pool is not None:
+            self._mtp_pool = []
+            self._next_drafts[:] = 0
         # the old pool object keeps only host bookkeeping from here on
         if self._paged:
             old.phys = None
@@ -1874,6 +2048,8 @@ class ServeEngine:
             raise
         self._pool_lost = False
         del old
+        if self._mtp_pool is not None:
+            self._mtp_pool = self._make_mtp_pool()
         self.prefix_cache = self._make_prefix_cache()
         if self.prefix_cache is not None:
             self.metrics.record_prefix_state(0, self.prefix_cache.evictions)
@@ -1927,6 +2103,8 @@ class ServeEngine:
             scrub_pages(pool.phys, own + [TRASH_PAGE], eidx)
         else:
             scrub_lane(self.pool.caches, slot, eidx)
+            if self._mtp_pool is not None:
+                scrub_lane(self._mtp_pool, slot)
 
     def _ladder_step(self) -> None:
         """One degradation-ladder evaluation a step: gather the pressure
@@ -2346,14 +2524,25 @@ class ServeEngine:
                 self.pool.phys, head, logprob = _paged_prefill_program(
                     *args, self.pool.phys, ids[:padded], ids[padded:table_end],
                     suffix, *sample, eidx=eidx)
+            elif self._mtp_pool is not None:
+                # admission is the heads' bootstrap: their lanes fill
+                # beside the main lane and the first drafts come back with
+                # the first token (matched is 0: no prefix cache)
+                self.pool.caches, head, logprob, drafts = _mtp_prefill_program(
+                    self.model, padded, chunk, self.config.sample_cap,
+                    self._spec_k, self.pool.caches, self._mtp_pool,
+                    ids[:padded], slot, suffix, *sample)
+                head = torch.cat([head, drafts])
             else:
                 self.pool.caches, head, logprob = _prefill_program(
                     *args, self.pool.caches, ids[:padded], slot, suffix,
                     *sample, eidx=eidx)
-            # one read, the token and the finite flag together; it waits
-            # for the device, so the clock readings after it are
-            # device-true
-            first, ok = head.tolist()
+            # one read, the token and the finite flag together (and the
+            # MTP drafts); it waits for the device, so the clock readings
+            # after it are device-true
+            first, ok, *drafts = head.tolist()
+            if self._mtp_pool is not None:
+                self._next_drafts[slot] = drafts
         if tr is not None:
             t_pf1 = smetrics.now()
             self._dev_s += t_pf1 - t_pf
@@ -2491,12 +2680,16 @@ class ServeEngine:
         m = self.metrics
         rate = (m.spec_accepted / m.spec_proposed) if m.spec_proposed else 0.0
         per_step = (m.spec_tokens / m.spec_steps) if m.spec_steps else 0.0
-        return {
+        out = {
             "serve/spec_acceptance_rate": rate,
             "serve/spec_tokens_per_step": per_step,
             "serve/spec_drafts_rejected": float(m.spec_proposed
                                                 - m.spec_accepted),
         }
+        if self._mtp_pool is not None:
+            # the MTP drafter's head lanes: a pool beside the KV pool
+            out["serve/mtp_cache_bytes"] = float(self._mtp_bytes())
+        return out
 
     def _spec_block(self, probe: bool = False) -> list[Request]:
         """One speculative decode step: `spec_rounds` draft-verify rounds
@@ -2532,9 +2725,11 @@ class ServeEngine:
         # decode dispatch
         self._poke_site("decode")
         armed = self._faults is not None
+        mtp = self._mtp_pool is not None
         # the history is padded by k + 1 so a round's window write at
-        # hlen <= max_len always fits
-        width = cfg.max_len + k + 1
+        # hlen <= max_len always fits; the MTP drafter reads its first
+        # drafts there instead
+        width = k if mtp else cfg.max_len + k + 1
         samp0 = np.zeros(n, np.int64)
         stochastic = np.zeros(n, bool)
         constrained = False
@@ -2563,10 +2758,14 @@ class ServeEngine:
                 self._allow[slot] = self._grammar_allow(r)
             else:
                 state[3, slot] = 1
+            if mtp:
+                continue
             seq = np.concatenate([r.prompt, np.asarray(r.tokens, np.int64)])
             m = min(int(seq.size), cfg.max_len)
             state[rows + armed:rows + armed + m, slot] = seq[:m]
             state[4, slot] = m
+        if mtp:
+            state[rows + armed:] = self._next_drafts.T
         if self._paged:
             state[5:5 + pages] = self.pool.table.T
         if constrained:
@@ -2590,12 +2789,19 @@ class ServeEngine:
                state[rows] if armed else None)
         eidx = self._eidx if self._quant else None
         statics = (self.model, k, rounds, cap, cfg.max_len, cfg.spec_ngram)
+        nxt = None
         with scope(self.profile, "serve/spec_block"):
             if self._paged:
                 self.pool.phys, out, commits, proposed, lps, ok = \
                     _paged_spec_decode_program(
                         *statics, self.pool.phys, state[5:5 + pages].T, *ctl,
                         eidx=eidx)
+            elif mtp:
+                # the rounds on the lanes in place, drafted by the heads:
+                # ctl's history rows hold the first drafts here
+                self.pool.caches, out, commits, proposed, lps, ok, nxt = \
+                    _spec_rounds(*statics[:5], 0, self.pool.caches, *ctl,
+                                 mtp=self._mtp_pool)
             else:
                 self.pool.caches, out, commits, proposed, lps, ok = \
                     _spec_decode_program(*statics, self.pool.caches, *ctl,
@@ -2606,9 +2812,13 @@ class ServeEngine:
             # ONE read: (rounds, S, k + 1) tokens, then the commit and draft
             # counts, then the finite flags
             packed_out = torch.cat([out.transpose(1, 2).reshape(-1, n),
-                                    commits,
-                                    proposed, ok.long()[None]]).cpu().numpy()
+                                    commits, proposed, ok.long()[None]]
+                                   + ([] if nxt is None else [nxt.T])
+                                   ).cpu().numpy()
             lps = None if lps is None else lps.cpu().numpy()
+        if nxt is not None:
+            self._next_drafts = packed_out[-k:].T.copy()
+            packed_out = packed_out[:-k]
         out = packed_out[:rounds * (k + 1)].reshape(rounds, k + 1, n)
         commits = packed_out[rounds * (k + 1):rounds * (k + 2)]
         proposed = packed_out[rounds * (k + 2):rounds * (k + 3)]

@@ -48,12 +48,12 @@ its teacher-forced greedy agreement grades the quantization. The report also car
 `ServeMetrics` latency and throughput summary and, with a baseline
 config, paired deltas against a second re-serve of the same corpus.
 
-A candidate the port cannot build is refused, never approximated:
-`apply_overrides` raises the `ServeConfig`'s `ValueError` naming
-ROADMAP A6.2 for ``speculative=mtp``, because the MTP drafter is not
-ported. An n-gram speculative candidate (``speculative=ngram``,
-``spec_k``, ``spec_rounds``) is built: its greedy streams replay
-byte-exact, since speculation never changes a greedy token.
+A speculative candidate (``speculative=ngram`` or ``mtp``, ``spec_k``,
+``spec_rounds``) is built: its greedy streams replay byte-exact, since
+speculation never changes a greedy token. An MTP candidate is subject
+to the engine's checks (`engine.check_drafter`: the model's heads, the
+lane pool, no prefix cache or kv_quant), which `cli replay` and the
+door's ``POST /v1/replay`` run before a replay starts.
 
 Exposure: `cli replay` (exit 2 past the divergence threshold: the
 canary gate), `POST /v1/replay` and `GET /v1/replay/<id>` on the HTTP
@@ -118,9 +118,7 @@ def apply_overrides(cfg: ServeConfig, overrides: dict) -> ServeConfig:
     values (from the CLI) go through `json.loads` first (ints, floats,
     ``true``/``false``, ``null``, lists) and stay raw strings otherwise.
     Unknown keys raise `ValueError` (a mistyped knob must not silently
-    gate nothing), and so do the reference's values the port does not
-    build (``speculative=mtp``), naming the ROADMAP item that ports
-    them."""
+    gate nothing), as does a value the `ServeConfig` refuses."""
     fields = {f.name for f in dataclasses.fields(ServeConfig)}
     parsed = {}
     for key, val in overrides.items():

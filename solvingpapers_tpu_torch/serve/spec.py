@@ -1,6 +1,7 @@
 """Speculative decoding for the serving engine: per-slot draft-and-verify
-with lossless verification (port of `solvingpapers_tpu/serve/spec.py`,
-the n-gram drafter; the MTP drafter is ROADMAP A6.2).
+with lossless verification (port of `solvingpapers_tpu/serve/spec.py`:
+the n-gram drafter here; the MTP drafter's head rounds live in the
+engine, `serve/engine.py` `_spec_rounds`).
 
 The plain decode block advances every slot ONE token per forward. A
 speculative block turns each forward into a DRAFT-AND-VERIFY round: a

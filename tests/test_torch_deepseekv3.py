@@ -502,7 +502,10 @@ def test_active_param_count_matches_reference(weights):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mtp_heads=1), "multi-token"), (dict(noisy_topk=True), "noisy"),
+    # MTP heads and noisy top-k are ported (tests/test_torch_mtp.py); with
+    # a parallel option they still refuse, naming it
+    (dict(mtp_heads=1, context_parallel=True), "parallelism"),
+    (dict(noisy_topk=True, ep_impl="all_to_all"), "parallelism"),
     (dict(context_parallel=True), "parallelism"),
     (dict(ep_impl="all_to_all"), "parallelism")])
 def test_unported_options_raise(kw, match):

@@ -9,8 +9,8 @@ Exactness: an identical-config replay of a journaled greedy and seeded
 workload is byte-exact on the lane and the paged pool, paced or not, and
 its teacher-forced cuts all agree. An n-gram speculative candidate is
 built (its byte-exact replay is `tests/test_torch_spec.py`'s); an MTP one
-is refused, naming ROADMAP A6.2; a quantized one (``kv_quant=int8``) is
-built.
+is built and the engine's check refuses it for a model without heads;
+a quantized one (``kv_quant=int8``) is built.
 Screening: entries the candidate cannot replay token-exactly land
 as skips with reasons, never as divergences. Snapshot loading: a torn
 final line is tolerated, mid-file corruption raises, a journal rotating
@@ -109,15 +109,20 @@ def test_identical_config_replay_byte_exact(tmp_path, candidate, pace):
 
 def test_quantized_or_speculative_candidate_is_refused_naming_a5():
     """An n-gram speculative candidate is built (its knobs land in the
-    config); the MTP drafter's is refused, naming the ROADMAP item that
-    will build it: nothing falls back. The quantized pool's knobs build
-    their int8 candidate, as the reference's do."""
+    config); so is an MTP drafter's, and the engine's check then refuses
+    it for a model without heads, with the engine's message: nothing
+    falls back. The quantized pool's knobs build their int8 candidate, as
+    the reference's do."""
+    from solvingpapers_tpu_torch.serve.engine import check_drafter
+
     cand = apply_overrides(_cfg(), {"speculative": "ngram", "spec_k": "4",
                                     "spec_rounds": "2"})
     assert (cand.speculative, cand.spec_k, cand.spec_rounds) == ("ngram", 4, 2)
     for over in ({"speculative": "mtp"}, {"spec_k": "2", "speculative": "mtp"}):
-        with pytest.raises(ValueError, match="ROADMAP A6.2"):
-            apply_overrides(_cfg(), over)
+        cand = apply_overrides(_cfg(), over)
+        assert cand.speculative == "mtp"
+        with pytest.raises(ValueError, match=r"\(mtp_heads == 0\)"):
+            check_drafter(port_model().cfg, cand)
     cand = apply_overrides(_cfg(), {"kv_quant": "int8", "kv_quant_block": "8",
                                     "kv_exact_lanes": "2"})
     assert (cand.kv_quant, cand.kv_quant_block, cand.kv_exact_lanes) == ("int8", 8, 2)
@@ -357,7 +362,8 @@ def _await_replay(srv, run_id):
 
 @pytest.mark.parametrize("case", ["run", "single_flight", "quant"])
 def test_http_replay_endpoint(replay_server, case):
-    """Bad overrides 400 (an MTP candidate names A6.2), an unknown run
+    """Bad overrides 400 (an MTP candidate on a model without heads with
+    the engine's message), an unknown run
     404s, a run goes 202 -> running -> finished with a byte-exact report
     and its gauges on the live engine's metrics; a second run while one
     is in flight answers 409; a kv_quant=int8 candidate runs, named in its
@@ -387,7 +393,7 @@ def test_http_replay_endpoint(replay_server, case):
     code, doc = _http(srv, "/v1/replay", {"config_overrides": {"nope": 1}})
     assert code == 400 and "nope" in doc["error"]["message"]
     code, doc = _http(srv, "/v1/replay", {"config_overrides": {"speculative": "mtp"}})
-    assert code == 400 and "ROADMAP A6.2" in doc["error"]["message"]
+    assert code == 400 and "(mtp_heads == 0)" in doc["error"]["message"]
     code, doc = _http(srv, "/v1/replay/absent0000", method="GET")
     assert code == 404 and doc["error"]["code"] == "replay_not_found"
     code, doc = _http(srv, "/v1/replay", {"cut_stride": 4})

@@ -8,7 +8,9 @@ on the CPU at `gpt_tiny`.
 * each of the eleven workloads returns the reference's result keys less
   the documented set that rests on XLA's compile registry (or, on the
   CPU, on the card's allocator; or, for the quant workload, on the
-  anatomy arm and the kernel bench), plus the port's `arms`;
+  anatomy arm), plus the port's `arms`; the probe's `decode_step_wall_s`
+  is the probe engine's own decode-block wall, and the paged and quant
+  workloads' decode decompositions partition it;
 * the chaos, journal, replay and fleet workloads' never-flip booleans
   hold at a small size: surviving streams token-exact, recovered and
   migrated streams token-exact, identical-config replays byte-exact,
@@ -54,16 +56,17 @@ SMALL = dict(config=CFG, n_requests=6, n_slots=4, max_new=4, decode_block=4,
 
 TOP = {"metric", "value", "unit", "vs_baseline", "detail"}
 # the reference probe's fields that read XLA's compile registry
-# (solvingpapers_tpu/serve/bench.py:373-389): no twin in eager PyTorch
-XLA_PROBE = {"compile_time_s", "compile_programs", "compile_compilations",
-             "decode_step_wall_s"}
+# (solvingpapers_tpu/serve/bench.py:373-381): no twin in eager PyTorch.
+# Its `decode_step_wall_s` (:386-389) the port takes from the probe
+# engine's decode blocks
+XLA_PROBE = {"compile_time_s", "compile_programs", "compile_compilations"}
 # the port's measured peaks, taken from the card's allocator: absent on
 # the CPU (peak_hbm_bytes, bench.py:382; capacity_program_temp_bytes,
 # bench.py:909/921)
 CARD_ONLY = {"peak_hbm_bytes"}
 PORT_ONLY = {"arms"}
 KV = {"kv_dtype", "kv_pool_bytes", "greedy_agreement_rate"}  # :233-237
-PROBE = XLA_PROBE | CARD_ONLY
+PROBE = XLA_PROBE | CARD_ONLY | {"decode_step_wall_s"}
 
 # the reference's detail keys, workload by workload, with the lines that
 # write them
@@ -213,20 +216,23 @@ REF_DETAIL.update({
 TRACED = {"trace_overhead_pct", "traced_requests_per_sec", "trace_events",
           "trace_out"}
 STATUS = {"status_port"}
-# what the port leaves out of each: the XLA set everywhere; the paged
-# decode decomposition and the anatomy arm wait for the kernel bench and
-# the compile observatory; the SLO workload's e2e_p95_s reads the
-# reference's e2e latency histogram, which the port's metrics do not keep
+# what the port leaves out of each: the XLA set everywhere; the anatomy
+# arm and the program temp wait for the compile observatory; the SLO
+# workload's e2e_p95_s reads the reference's e2e latency histogram, which
+# the port's metrics do not keep
 LEFT_OUT = {
     "slo": {"e2e_p95_s"},
     # the program temp and the anatomy arm wait for the compile
-    # observatory (A8), the decode decomposition for the kernel bench (A5.3)
+    # observatory (A8)
     "quant": set(bench.QUANT_LEFT_OUT),
-    "paged": {"gather_wall_s", "dequant_wall_s", "scatter_wall_s",
-              "gather_share_pct", "dequant_share_pct", "scatter_share_pct",
-              "attention_share_pct", "anatomy_overhead_pct",
-              "anatomy_requests_per_sec", "capacity_program_temp_bytes"},
+    "paged": {"anatomy_overhead_pct", "anatomy_requests_per_sec",
+              "capacity_program_temp_bytes"},
 }
+# the decomposition's shares, present with `decode_step_wall_s`
+# (kernel_bench.py:556-565); `decomposition_clamped` only when the
+# measured shares summed past 100
+SHARES = ("gather_share_pct", "dequant_share_pct", "scatter_share_pct",
+          "attention_share_pct")
 
 
 # what the port adds beside `arms`: the replay workload says what it
@@ -399,7 +405,13 @@ def _no_collector():
 
 def _detail_keys_hold(result, workload):
     assert set(result) == TOP
-    assert set(result["detail"]) == _cpu_keys(workload), workload
+    d = result["detail"]
+    assert set(d) - {"decomposition_clamped"} == _cpu_keys(workload), workload
+    assert d["decode_step_wall_s"] > 0
+    if "gather_share_pct" in d:
+        # the shares partition the step (clamped or not), up to rounding
+        assert abs(sum(d[k] for k in SHARES) - 100.0) < 0.05, d
+        assert d.get("decomposition_clamped", True) is True
     json.dumps(result)  # every value serialises (no NaN, no tensors)
 
 

@@ -515,7 +515,7 @@ def test_config_validation_and_mtp_refusal():
     tm = port_model()
     cases = [(dict(spec_rounds=4), "spec_rounds"),
              (dict(speculative="oracle"), "speculative must be one of"),
-             (dict(speculative="mtp"), "ROADMAP A6.2"),
+             (dict(speculative="mtp"), "mtp_heads == 0"),
              (dict(speculative="ngram", spec_k=0), "spec_k"),
              (dict(speculative="ngram", spec_ngram=0), "spec_ngram")]
     for kw, match in cases:
